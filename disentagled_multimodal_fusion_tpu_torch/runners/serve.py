@@ -1,0 +1,225 @@
+"""Serving CLI: build a model, time its inference path per batch bucket,
+optionally load-test the micro-batching daemon and serve it over HTTP.
+
+Counterpart of ``disentagled_multimodal_fusion_tpu/runners/serve.py``. The
+frozen DMVAE backbone and the evidential head run on the CUDA card (the
+head through the evidential head kernel), unless ``--device cpu``.
+Checkpoint restore is not ported yet: serve from ``--random-init`` weights
+(serving speed does not depend on the weights).
+
+Examples:
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
+      --model dmvae_cml --dataset HandWritten --random-init
+
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
+      --model cml_fusion --dataset HandWritten --random-init --daemon --http-port 8000
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..core.setup import resolve_device
+
+MODELS = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion", "avg_fusion"]
+
+
+def load(args, C, device):
+    """(infer_fn, xs): the model named by ``args`` on ``device``, and the
+    dataset's views tiled up to the largest bucket, as tensors there.
+
+    The backbone draws its weights from ``torch.Generator(seed)`` and the
+    head from ``seed + 1``.
+    """
+    from ..core.serve import build_inference_fn
+    from ..core.tasks import (
+        build_disentangled_probe_task,
+        build_dmvae_task,
+        build_late_fusion_task,
+        build_probe_task,
+    )
+    from ..data.multiview import DATASET_REGISTRY
+
+    seed, name = args.seed, args.model
+    dataset = DATASET_REGISTRY[args.dataset]()
+    views, _ = dataset.arrays()
+    need = max(args.buckets)
+    tile = -(-need // len(views[0]))
+    xs = tuple(
+        torch.from_numpy(np.concatenate([v] * tile, axis=0)[:need]).to(device) for v in views
+    )
+    dims = [int(d[0]) for d in dataset.dims]
+    probe_hidden = tuple(C("probes.model_hidden_dim", (128,)))
+
+    if name.startswith("dmvae_"):
+        backbone = build_dmvae_task(
+            seed=seed, output_dim=dims, hidden_dim=C("dmvae.hidden_dim", 512),
+            embed_dim=C("dmvae.embed_dim", 200), fused_modalities=not args.no_fused_dmvae,
+            device=device,
+        )
+        kw = dict(
+            seed=seed + 1, num_modalities=len(dims), num_classes=dataset.num_classes,
+            input_dim=C("probes.input_dim", 200), hidden_dim=probe_hidden, device=device,
+        )
+        if name == "dmvae_dis":
+            task = build_disentangled_probe_task(**kw)
+        else:
+            task = build_probe_task(**kw, aggregation=name.split("_")[1])
+    else:
+        backbone = None
+        task = build_late_fusion_task(
+            seed=seed + 1, output_dims=dims, num_classes=dataset.num_classes,
+            hidden_dim=probe_hidden, aggregation=name.split("_")[0], device=device,
+        )
+    return build_inference_fn(task, backbone=backbone), xs
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_bucket(infer, xs, b, reps, device):
+    """Median wall-clock of the inference fn at batch size b, on inputs
+    already on the device; each timed call ends in a device synchronise."""
+    xsb = tuple(x[:b] for x in xs)
+    out = infer(xsb)  # warm
+    _sync(device)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        infer(xsb)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    med = times[len(times) // 2]
+    return {
+        "bucket": b,
+        "latency_ms": med * 1e3,
+        "rows_per_s": b / med,
+        "p10_ms": times[max(0, len(times) // 10)] * 1e3,
+        "num_outputs": len(out),
+    }
+
+
+def make_engine(infer, xs, buckets):
+    """A ServingEngine over ``infer`` with every bucket run once."""
+    from ..core.serve import ServingEngine
+
+    engine = ServingEngine(infer, buckets=sorted(buckets))
+    engine.warmup([x.cpu().numpy() for x in xs])
+    return engine
+
+
+def bench_daemon(engine, xs, args):
+    """Sustained load through the micro-batching daemon: --daemon-clients
+    threads send back-to-back requests of random size in [1,
+    --daemon-max-rows] for --daemon-seconds. Reports end-to-end latency
+    percentiles and sustained rows/s."""
+    from ..core.daemon import ServingDaemon
+
+    xs = tuple(x.cpu().numpy() for x in xs)
+    stop = time.perf_counter() + args.daemon_seconds
+    done_rows = [0] * args.daemon_clients
+
+    def client(cid):
+        rng = np.random.RandomState(cid)
+        while time.perf_counter() < stop:
+            n = int(rng.randint(1, args.daemon_max_rows + 1))
+            daemon.infer(tuple(x[:n] for x in xs))
+            done_rows[cid] += n
+
+    with ServingDaemon(engine, max_delay_ms=args.daemon_delay_ms) as daemon:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(args.daemon_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        elapsed = time.perf_counter() - t0
+        st = daemon.stats()
+    st.update(
+        clients=args.daemon_clients,
+        max_delay_ms=args.daemon_delay_ms,
+        seconds=elapsed,
+        sustained_rows_per_s=sum(done_rows) / elapsed,
+        sustained_requests_per_s=st["requests"] / elapsed,
+    )
+    return st
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
+    parser.add_argument("--model", choices=MODELS, required=True)
+    parser.add_argument("--dataset", required=True, help=".mat registry name")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs the "
+                             "plain PyTorch path)")
+    parser.add_argument("--no-fused-dmvae", action="store_true",
+                        help="use the unfused per-modality DMVAE")
+    parser.add_argument("--random-init", action="store_true",
+                        help="serve weights drawn from --seed (checkpoint restore "
+                             "is not ported yet, so this is required)")
+    parser.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 64, 256])
+    parser.add_argument("--reps", type=int, default=30)
+    parser.add_argument("--daemon", action="store_true",
+                        help="also load-test the micro-batching daemon")
+    parser.add_argument("--daemon-clients", type=int, default=8)
+    parser.add_argument("--daemon-seconds", type=float, default=10.0)
+    parser.add_argument("--daemon-max-rows", type=int, default=64,
+                        help="each client request draws its row count "
+                             "uniformly from [1, this]")
+    parser.add_argument("--daemon-delay-ms", type=float, default=2.0,
+                        help="daemon flush deadline")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="after the bench, serve over HTTP until interrupted "
+                             "(POST /v1/infer, GET /v1/stats, /healthz)")
+    parser.add_argument("--http-host", default="127.0.0.1")
+    args = parser.parse_args(argv)
+    if not args.random_init:
+        parser.error("checkpoint restore is not ported yet; pass --random-init")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    from .common import load_config, make_getter
+
+    infer, xs = load(args, make_getter(load_config()), device)
+    rows = [bench_bucket(infer, xs, b, args.reps, device) for b in sorted(args.buckets)]
+    engine = (make_engine(infer, xs, args.buckets)
+              if (args.daemon or args.http_port is not None) else None)
+    daemon_stats = bench_daemon(engine, xs, args) if args.daemon else None
+
+    report = {
+        "model": args.model,
+        "dataset": args.dataset,
+        "backend": device.type,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "random_init": True,
+        "buckets": rows,
+        "daemon": daemon_stats,
+    }
+    print(json.dumps(report, indent=1))
+
+    if args.http_port is not None:
+        from ..core.daemon import ServingDaemon
+        from ..core.http_front import serve_forever
+
+        with ServingDaemon(engine, max_delay_ms=args.daemon_delay_ms) as daemon:
+            serve_forever(daemon, host=args.http_host, port=args.http_port)
+    return report
+
+
+if __name__ == "__main__":
+    main()
