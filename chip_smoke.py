@@ -5,11 +5,16 @@
 Phases, each of which fails the run (nonzero exit) rather than being skipped:
 
 1. the card: name, count and ``nvidia-smi`` name and power limit;
-2. the kernel build from ``csrc/`` with nvcc, its time and ptxas report;
-3. every kernel against its plain PyTorch version on the card, at the test
-   shapes and at the serving shapes (fails above rtol 1e-4 / atol 1e-5);
-4. kernel, plain and library times at the serving shapes (CUDA events) beside
-   the least time the card could take for the same work;
+2. the build of both kernels from ``csrc/`` with nvcc (one process each,
+   started together), its time and ptxas report;
+3. every kernel against its plain PyTorch version on the card: the
+   evidential head at the test and serving shapes (rtol 1e-4 / atol 1e-5),
+   the probe epoch at the test shapes (ragged tail, ties at +10 and in
+   |p_i - p_j|, odd D/H/C) and at HandWritten's V = 7 and 6, over one epoch,
+   five chained epochs and against float64 (losses rtol 2e-5 / atol 2e-6;
+   p, m, v rtol 5e-3 / atol 5e-5);
+4. kernel, plain and library times (CUDA events, profiler device time)
+   beside the least time the card could take for the same work;
 5. the serving path, ``runners/serve.py`` main with ``--random-init`` on
    HandWritten at full width for dmvae_cml, dmvae_dis and cml_fusion at
    buckets 1, 8, 64, 256, with the kernels' launch counts read around it;
@@ -17,7 +22,14 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    one dmvae_cml request under the profiler (device busy share, kernels);
 6. the micro-batching daemon under concurrent clients, every answer held
    against a direct engine call;
-7. the HTTP front on 127.0.0.1, each answer held against a direct call.
+7. the HTTP front on 127.0.0.1, each answer held against a direct call;
+8. the training path, ``runners/run.py`` main on HandWritten Normal, seed 0,
+   ``--probe-engine megakernel``: all six models with each fused accuracy at
+   least 0.95, the probe-epoch kernel launched once per epoch of the three
+   probe fits and the head kernel at least once per epoch of every fit;
+9. one probe fit of 3 epochs at full width through the epoch kernel and
+   through the step loop from one generator state: the same losses (rtol
+   2e-5 / atol 2e-6), val_acc equal, parameters at rtol 5e-3 / atol 5e-5.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -194,6 +206,249 @@ def phase_device_time(ck):
     return None
 
 
+def epoch_inputs(s, v, b, d, h, c, seed, keep=0.9, tail=None, ties=False):
+    """Inputs of one probe epoch at the heads' init scale, on the card. The
+    last step keeps ``tail`` rows (the ragged tail, row-masked). With
+    ``ties``, views 0 and 1 get w2[:, 0] = 0 and b2[0] = +10, so class 0's
+    logit sits exactly at +10 (the clip's tie) in the first step, and row 0
+    of those views has x = 0 and b1 < 0, so its logits are b2 exactly and
+    the two views' alphas are equal (the tie of |p_0 - p_1|). Every row is
+    then labelled 0: a saturated wrong class (alpha ~ 2.2e4) would make the
+    KL's lgamma terms cancel from ~2e5 in float32, where any two summation
+    orders differ by ~1e-3."""
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(s, v, b, d, generator=g)
+    drops = (torch.rand(s, v, b, h, generator=g) < keep).float()
+    y = torch.randint(0, c, (s, b), generator=g)
+    if ties:
+        y.zero_()
+    yohs = torch.nn.functional.one_hot(y, c).float()
+    rmasks = torch.ones(s, b, 1)
+    if tail is not None:
+        rmasks[-1, tail:] = 0.0
+        xs[-1, :, tail:] = 0.0
+        yohs[-1, tail:] = 0.0
+    counts = torch.arange(1, s + 1, dtype=torch.float32)
+    bc1s = (1.0 - torch.pow(torch.tensor(0.9), counts))[:, None]
+    bc2s = (1.0 - torch.pow(torch.tensor(0.999), counts))[:, None]
+    w1 = (torch.rand(v, d, h, generator=g) * 2 - 1) * (6.0 / (d + h)) ** 0.5
+    b1 = (torch.rand(v, h, generator=g) * 2 - 1) / d ** 0.5
+    w2 = (torch.rand(v, h, c, generator=g) * 2 - 1) * (6.0 / (h + c)) ** 0.5
+    b2 = (torch.rand(v, c, generator=g) * 2 - 1) / h ** 0.5
+    if ties:
+        xs[0, :2, 0] = 0.0
+        b1[:2] = -b1[:2].abs() - 0.01
+        b2[1] = b2[0]
+        w2[:2, :, 0] = 0.0
+        b2[:2, 0] = 10.0
+    params = (w1, b1, w2, b2)
+    mus = tuple(torch.randn(p.shape, generator=g) * 1e-3 for p in params)
+    nus = tuple(torch.rand(p.shape, generator=g) * 1e-6 for p in params)
+    cuda = lambda t: t.to("cuda")  # noqa: E731
+    return dict(
+        tensors=[cuda(t) for t in (xs, drops, yohs, rmasks, bc1s, bc2s)],
+        scalars=(3e-3, 0.4, 0.68),
+        state=[tuple(cuda(t) for t in group) for group in (params, mus, nus)],
+        kw=dict(keep=keep, fused=1.0, num_classes=c, weight_decay=1e-2),
+    )
+
+
+def run_epoch(fn, inp, state=None):
+    params, mus, nus = state or inp["state"]
+    clone = lambda ts: tuple(t.clone() for t in ts)  # noqa: E731
+    return fn(*inp["tensors"], *inp["scalars"], clone(params), clone(mus), clone(nus), **inp["kw"])
+
+
+def assert_epoch_close(got, ref, label):
+    """Losses at rtol 2e-5 / atol 2e-6; p, m, v at rtol 5e-3 / atol 5e-5 (the
+    JAX package's tolerances: Adam divides by sqrt(v) + eps, so op-level
+    differences grow on entries whose gradient is near zero)."""
+    abs_err, _ = assert_close(got[3], ref[3], f"{label} losses", rtol=2e-5, atol=2e-6)
+    for group, name in zip(range(3), ("params", "m", "v")):
+        for i, (a, b) in enumerate(zip(got[group], ref[group])):
+            e, _ = assert_close(a, b, f"{label} {name}[{i}]", rtol=5e-3, atol=5e-5)
+            abs_err = max(abs_err, e)
+    return abs_err
+
+
+def phase_probe_epoch_checks(pm):
+    """run_epoch_kernel against run_epoch_plain on the card; returns the
+    largest abs error at the HandWritten shapes."""
+    worst = 0.0
+    for v, ties in ((2, False), (3, False), (2, True), (3, True)):
+        inp = epoch_inputs(3, v, 16, 12, 8, 5, seed=v, keep=0.7, tail=6, ties=ties)
+        before = pm.run_epoch_kernel.launches
+        got = run_epoch(pm.run_epoch_kernel, inp)
+        torch.cuda.synchronize()
+        if pm.run_epoch_kernel.launches != before + 1:
+            raise AssertionError("probe_epoch did not count its launch")
+        label = f"probe_epoch S=3 V={v} B=16 (tail 6{', ties' if ties else ''}) D=12 H=8 C=5"
+        err = assert_epoch_close(got, run_epoch(pm.run_epoch_plain, inp), label)
+        log(f"check {label}: max abs err {err:.3e}")
+    for v in (7, 6):
+        inp = epoch_inputs(16, v, 100, 200, 128, 10, seed=10 + v)
+        got = run_epoch(pm.run_epoch_kernel, inp)
+        err = assert_epoch_close(got, run_epoch(pm.run_epoch_plain, inp),
+                                 f"probe_epoch V={v} full")
+        worst = max(worst, err)
+        inp64 = dict(inp, tensors=[t.double() for t in inp["tensors"]],
+                     state=[tuple(t.double() for t in g) for g in inp["state"]])
+        ref64 = run_epoch(pm.run_epoch_plain, inp64)
+        err64 = assert_epoch_close(tuple(tuple(t.double() for t in g) for g in got[:3])
+                                   + (got[3].double(),), ref64, f"probe_epoch V={v} float64")
+        state_k, state_p = inp["state"], inp["state"]
+        for _ in range(5):
+            k = run_epoch(pm.run_epoch_kernel, inp, state_k)
+            p = run_epoch(pm.run_epoch_plain, inp, state_p)
+            state_k, state_p = k[:3], p[:3]
+        err5 = assert_epoch_close(k, p, f"probe_epoch V={v} 5 epochs")
+        log(f"check probe_epoch S=16 V={v} B=100 D=200 H=128 C=10: max abs err {err:.3e} "
+            f"(vs float64 plain {err64:.3e}; after 5 chained epochs {err5:.3e})")
+    return worst
+
+
+def probe_epoch_bound(s, v, b, d, h, c, keep):
+    """(ms, 'operations' | 'bytes') of one epoch: the f32 products of each
+    step (forward, dh, dW1, dW2) and ~12 operations per state element of
+    AdamW, against the bytes of the inputs read once and the state (p, m, v)
+    read once and written once."""
+    state = v * (d * h + h + h * c + c)
+    flops = s * (2.0 * v * b * (2 * d * h + 3 * h * c) + 12.0 * state)
+    per_step = v * b * d + (v * b * h if keep < 1.0 else 0) + b * c + b
+    nbytes = 4.0 * (s * per_step + 2 * 3 * state + s * 2 + 3 + s)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_probe_epoch_times(pm, card):
+    """Kernel and plain time per epoch at V=7 (dmvae_cml's probe), the
+    device time per epoch and per step kernel from the profiler, the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inp = epoch_inputs(16, 7, 100, 200, 128, 10, seed=3)
+    state = [tuple(t.clone() for t in g) for g in inp["state"]]
+    args = (*inp["tensors"], *inp["scalars"], *state)
+    ms = event_ms(lambda *a: pm.run_epoch_kernel(*a, **inp["kw"]), args, iters=50, warmup=5)
+    plain_ms = event_ms(lambda *a: pm.run_epoch_plain(*a, **inp["kw"]), args, iters=5, warmup=1)
+    bound_ms, bound_by = probe_epoch_bound(16, 7, 100, 200, 128, 10, 0.9)
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            pm.run_epoch_kernel(*args, **inp["kw"])
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        name = next((k for k in ("forward_kernel", "loss_kernel", "dh_kernel", "grad_adam_kernel")
+                     if k in e.key), None)
+        if e.device_type == DeviceType.CUDA and name is not None:
+            us = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+            kernels[name] = (us / 1e3 / e.count, e.count / n)
+    device_ms = sum(t * k for t, k in kernels.values()) if kernels else None
+    log(f"time probe_epoch V=7 B=100 D=200 H=128 C=10 S=16: kernel {ms:.5f} ms/epoch, "
+        f"plain {plain_ms:.5f} ms/epoch, bound {bound_ms:.6f} ms ({bound_by}); no single "
+        f"PyTorch call computes an epoch, so there is no library time [{card}]")
+    log("profiler device time probe_epoch per epoch: "
+        + (f"{device_ms:.5f} ms [{card}]" if device_ms is not None else "not measured"))
+    for name, (t, per_epoch) in sorted(kernels.items()):
+        log(f"  {name}: {t:.5f} ms per launch, {per_epoch:.0f} launches per epoch")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None), device_ms
+
+
+def phase_training(ck, pm, card):
+    """The training path: runners/run.py main on HandWritten Normal, seed 0,
+    with the probe fits through the epoch kernel, in a scratch artifact root
+    under chip_scratch/. Returns both kernels' launch counts over it."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    probe_epochs = C("probes.model_epochs")
+    root = Path(__file__).resolve().parent / "chip_scratch"
+    root.mkdir(exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="train_", dir=root)
+    old = os.environ.get("DMF_ARTIFACT_ROOT")
+    os.environ["DMF_ARTIFACT_ROOT"] = scratch
+    try:
+        pm.run_epoch_kernel.launches = 0
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions", "Normal",
+                            "--probe-engine", "megakernel"])
+        wall = time.perf_counter() - t0
+        epoch_launches = pm.run_epoch_kernel.launches
+        head_launches = ck.evidential_heads_stacked.launches
+    finally:
+        if old is None:
+            os.environ.pop("DMF_ARTIFACT_ROOT")
+        else:
+            os.environ["DMF_ARTIFACT_ROOT"] = old
+        shutil.rmtree(scratch, ignore_errors=True)
+    models = rows[0]["Normal"]["HandWritten"]
+    for name, info in models.items():
+        acc = info["fused"]["accuracy"]
+        log(f"train HandWritten {name}: fused accuracy {acc:.4f}, fit {info['fit_seconds']:.2f} s, "
+            f"{1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch [{card}]")
+        if not acc >= 0.95:
+            raise AssertionError(f"{name} fused accuracy {acc:.4f} < 0.95")
+    if len(models) != 6:
+        raise AssertionError(f"{len(models)} models trained, expected 6")
+    if epoch_launches != 3 * probe_epochs:
+        raise AssertionError(f"probe_epoch launched {epoch_launches} times, "
+                             f"expected {3 * probe_epochs}")
+    if head_launches < 6 * probe_epochs:
+        raise AssertionError(f"evidential_head launched {head_launches} times, expected at "
+                             f"least one per epoch of the six fits ({6 * probe_epochs})")
+    log(f"train: HandWritten Normal seed 0 in {wall:.1f} s; probe_epoch launched "
+        f"{epoch_launches} times, evidential_head {head_launches} times [{card}]")
+    return epoch_launches, head_launches
+
+
+def phase_engines(card):
+    """One dmvae_cml probe fit of 3 epochs at full width, through the epoch
+    kernel and through the step loop from the same generator state."""
+    from disentagled_multimodal_fusion_tpu_torch.core import tasks
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+    from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
+
+    views, labels = DATASET_REGISTRY["HandWritten"]().arrays()
+    dims = [v.shape[1] for v in views]
+    backbone = tasks.build_dmvae_task(output_dim=dims, hidden_dim=512, embed_dim=200,
+                                      fused_modalities=True, device="cuda")
+    xs = tuple(torch.from_numpy(v).cuda() for v in views)
+    y = torch.from_numpy(labels).cuda()
+    zc, zp = tasks.embed_dataset(backbone, xs)
+    data = {"zc": zc[:1600], "zp": zp[:1600], "y": y[:1600]}
+    val = {"zc": zc[1600:], "zp": zp[1600:], "y": y[1600:]}
+    results = {}
+    for engine in ("megakernel", "step"):
+        task = tasks.build_probe_task(num_modalities=6, num_classes=10, input_dim=200, seed=1,
+                                      lr=3e-3, dropout=0.1, annealing_start=50, num_epochs=3,
+                                      device="cuda")
+        res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=1600,
+                    optimizer=task.optimizer, epochs=3, batch_size=100,
+                    randomness=Randomness(7, "cuda"), val_fn=task.val_fn, val_data=val,
+                    megakernel=task.megakernel if engine == "megakernel" else None)
+        results[engine] = (res, [p.detach().clone() for p in task.model.parameters()])
+    (rk, pk), (rs, ps) = results["megakernel"], results["step"]
+    t = torch.from_numpy
+    assert_close(t(rk.train_loss), t(rs.train_loss), "engines train_loss", rtol=2e-5, atol=2e-6)
+    assert_close(t(rk.val_loss), t(rs.val_loss), "engines val_loss", rtol=2e-5, atol=2e-6)
+    if not np.array_equal(rk.val_acc, rs.val_acc):
+        raise AssertionError(f"engines val_acc differ: {rk.val_acc} vs {rs.val_acc}")
+    err = max(assert_close(a, b, "engines params", rtol=5e-3, atol=5e-5)[0]
+              for a, b in zip(pk, ps))
+    log(f"engines: dmvae_cml 3 epochs at full width, epoch kernel vs step loop: train loss "
+        f"{rk.train_loss.tolist()} vs {rs.train_loss.tolist()}, val_acc equal, params max abs "
+        f"err {err:.3e} [{card}]")
+
+
 def phase_request_profile(card):
     """Where one dmvae_cml request at bucket 256 spends its time: wall time,
     device busy time and kernel launches per request over 20 requests under
@@ -339,6 +594,7 @@ def main() -> int:
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+    from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
 
     configure()
     t_start = time.perf_counter()
@@ -347,20 +603,25 @@ def main() -> int:
     log(f"device: {kind}, count {count}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
 
-    info = cuda_build.build([ck.KERNEL_SOURCE])[ck.KERNEL_SOURCE]
-    log(f"build {ck.KERNEL_SOURCE}: {info.seconds:.2f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    infos = cuda_build.build([ck.KERNEL_SOURCE, pm.KERNEL_SOURCE])
+    for name, info in infos.items():
+        log(f"build {name}: {info.seconds:.2f} s")
+        for line in info.log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     max_abs_err = phase_kernel_checks(ck)
+    epoch_abs_err = phase_probe_epoch_checks(pm)
     timing = phase_kernel_times(ck, card)
     device_ms = phase_device_time(ck)
     log("profiler device time evidential_head V=7 B=256 D=200: "
         + (f"{device_ms:.5f} ms [{card}]" if device_ms is not None else "not measured"))
-    launches = phase_serving(ck, card)
+    epoch_timing, _ = phase_probe_epoch_times(pm, card)
+    serve_launches = phase_serving(ck, card)
     phase_request_profile(card)
     phase_daemon_and_http(card)
+    epoch_launches, train_head_launches = phase_training(ck, pm, card)
+    phase_engines(card)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -368,9 +629,19 @@ def main() -> int:
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
-        "launches": launches,
+        "launches": serve_launches + train_head_launches,
+        "launches_by_path": {"serving": serve_launches, "training": train_head_launches},
         "max_abs_err": max_abs_err,
         **timing,
+    }, {
+        "name": "probe_epoch",
+        "route": "cuda",
+        "source": "disentagled_multimodal_fusion_tpu_torch/csrc/probe_epoch.cu",
+        "replaces": "disentagled_multimodal_fusion_tpu/ops/probe_megakernel.py:246",
+        "launches": epoch_launches,
+        "launches_by_path": {"training": epoch_launches},
+        "max_abs_err": epoch_abs_err,
+        **epoch_timing,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

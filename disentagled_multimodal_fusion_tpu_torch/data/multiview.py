@@ -7,7 +7,9 @@ only); ``DATA_DIR`` is the repository's ``data/``.
 Reference semantics: datasets/dataset.py:164-322. Views are per-feature
 min-max scaled to [0,1] (or [-1,1]); labels shifted to 0-base; ``dims`` is a
 (V, 1) array of per-view feature sizes. The UQ perturbations (noise and
-conflict injection) come with the training slice.
+conflict injection, ``postprocessing``) draw from the legacy global
+``np.random`` stream with the reference's call sequence, so a seed gives
+the JAX package's perturbations bit for bit.
 
 Views are held as dense numpy arrays and shipped to the device once.
 """
@@ -15,7 +17,7 @@ Views are held as dense numpy arrays and shipped to the device once.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import scipy.io as sio
@@ -61,6 +63,46 @@ class MultiViewDataset:
     def arrays(self):
         """(views tuple, labels) as dense arrays for device upload."""
         return tuple(self.X), self.Y
+
+    # ---------------- UQ perturbations (dataset.py:226-268) ----------------
+    def postprocessing(self, index, addNoise: bool = False, sigma: float = 0.0,
+                       ratio_noise: float = 0.5, addConflict: bool = False,
+                       ratio_conflict: float = 0.5,
+                       rng: Optional[np.random.Generator] = None):
+        """``rng=None`` uses the global legacy ``np.random`` stream."""
+        if addNoise:
+            self.add_noise(index, ratio_noise, sigma, rng)
+        if addConflict:
+            self.add_conflict(index, ratio_conflict, rng)
+
+    def add_noise(self, index, ratio: float, sigma: float,
+                  rng: Optional[np.random.Generator] = None):
+        """Gaussian noise on a random view-subset of selected rows."""
+        r = rng if rng is not None else np.random
+        selects = r.choice(index, size=int(ratio * len(index)), replace=False)
+        for i in selects:
+            k = (r.integers if rng is not None else r.randint)(1, self.num_views + 1)
+            views = r.choice(np.arange(self.num_views), size=k, replace=False)
+            for v in views:
+                self.X[v][i] = r.normal(self.X[v][i], sigma)
+
+    def add_conflict(self, index, ratio: float, rng: Optional[np.random.Generator] = None):
+        """Replace one view of selected rows with the next class's prototype
+        (its first row; labels unchanged)."""
+        r = rng if rng is not None else np.random
+        records = {}
+        for c in range(self.num_classes):
+            cand = np.where(self.Y == c)[0]
+            if len(cand) == 0:
+                continue
+            i = cand[0]
+            records[c] = {v: self.X[v][i].copy() for v in range(self.num_views)}
+        selects = r.choice(index, size=int(ratio * len(index)), replace=False)
+        for i in selects:
+            v = (r.integers if rng is not None else r.randint)(self.num_views)
+            if not records:
+                continue
+            self.X[v][i] = records[(self.Y[i] + 1) % self.num_classes][v]
 
 
 # ---------------- factory loaders (dataset.py:273-322) ----------------

@@ -3,19 +3,27 @@
 Counterpart of ``disentagled_multimodal_fusion_tpu/models/dmvae.py``
 (``get_embedding``, its lines 110-122), used for ``--no-fused-dmvae``. Each
 encoder emits [mu_s, logvar_s, mu_p, logvar_p]; the shared embedding is the
-tempered PoE of the mu_s experts with a N(0, I) prior expert. The ELBO
-forward comes with the training slice.
+tempered PoE of the mu_s experts with a N(0, I) prior expert. Its ELBO
+forward is not ported yet; training uses the fused model.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.gaussian import product_of_experts
 from .layers import MLP
+
+
+def _masked_mean_rows(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over batch rows of a (B,) vector, restricted to mask == 1."""
+    if mask is None:
+        return torch.mean(x)
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 class DMVAE(nn.Module):

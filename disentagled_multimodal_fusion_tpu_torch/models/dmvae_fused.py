@@ -1,11 +1,16 @@
-"""FusedDMVAE: the modality-stacked DMVAE, inference half.
+"""FusedDMVAE: the modality-stacked DMVAE.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/models/dmvae_fused.py``.
 Views are zero-padded to the widest view and stacked (B, N, Dmax); the N
 per-modality MLPs are stacked weight tensors (N, Dmax, H) / (N, H, H) /
 (N, H, 4E), one batched product per layer. Each slice is initialised with
 its own modality's fan sizes and the padding stays zero, so padded input
-columns contribute nothing. The ELBO forward comes with the training slice.
+columns contribute nothing.
+
+``FusedDMVAE.forward`` is the training ELBO (JAX lines 200-292). Its three
+reparameterisation draws are inputs, so a test can feed the JAX draws. The
+training forward keeps the reference's PoE temperature 1.5 whatever
+``poe_temperature`` is (that one is ``get_embedding``'s).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gaussian import product_of_experts
+from ..ops.gaussian import gaussian_kl_standard, product_of_experts, reparameterize
+from .dmvae import _masked_mean_rows
 from .layers import torch_bias_init, xavier_uniform
 
 
@@ -27,7 +33,9 @@ class StackedMLP(nn.Module):
     modality's first ``out_dims[i]`` columns are valid. ``hidden`` is an int
     (two hidden layers of that width) or a sequence of hidden widths.
     Parameters ``w1, b1, w2, b2, ...`` have the JAX layout: w (N, in, out),
-    b (N, out).
+    b (N, out). ``drop_masks`` (train mode) holds one boolean keep-mask
+    (..., N, hidden) per hidden layer, applied after its ReLU as flax's
+    ``Dropout`` does: ``where(mask, h / keep, 0)``.
     """
 
     def __init__(self, in_dims: Sequence[int], hidden: Union[int, Sequence[int]],
@@ -52,13 +60,15 @@ class StackedMLP(nn.Module):
         """(w, b) of layer ``i`` (0-based)."""
         return getattr(self, f"w{i + 1}"), getattr(self, f"b{i + 1}")
 
-    def forward(self, x):
+    def forward(self, x, drop_masks=None, keep: float = 1.0):
         y = x
         for i in range(self.num_layers):
             w, b = self.layer(i)
             y = torch.einsum("...nd,ndh->...nh", y, w) + b
             if i < self.num_layers - 1:
                 y = torch.relu(y)
+                if drop_masks is not None:
+                    y = torch.where(drop_masks[i], y / keep, torch.zeros_like(y))
         return y
 
 
@@ -74,7 +84,7 @@ class FusedDMVAE(nn.Module):
 
     def __init__(self, x_dims: Sequence[int], generator: torch.Generator,
                  hidden_dim: int = 512, embed_dim: int = 100,
-                 poe_temperature: float = 1.5):
+                 poe_temperature: float = 1.5, a: float = 1.0, cross_weight: float = 1.0):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
@@ -82,12 +92,19 @@ class FusedDMVAE(nn.Module):
         self.x_dims = tuple(x_dims)
         self.embed_dim = embed_dim
         self.poe_temperature = poe_temperature
+        self.a = a
+        self.cross_weight = cross_weight
         self.encoder = StackedMLP(
             self.x_dims, hidden_dim, (4 * embed_dim,) * n, generator
         )
         self.decoder = StackedMLP(
             (2 * embed_dim,) * n, hidden_dim, self.x_dims, generator
         )
+        # each modality's true width, and its valid columns of the padded width
+        dims = torch.tensor(self.x_dims, dtype=torch.float32)
+        self.register_buffer("dims", dims, persistent=False)
+        self.register_buffer("dim_mask", (torch.arange(max(x_dims))[None] < dims[:, None]).float(),
+                             persistent=False)
 
     def encode_stats(self, xs):
         """(mu_s, logv_s, mu_p, logv_p), each (B, N, E)."""
@@ -105,3 +122,63 @@ class FusedDMVAE(nn.Module):
             )
             return mu_poe, mu_p_all
         return mu_s.reshape(mu_s.shape[0], -1), mu_p_all
+
+    def noise_shapes(self, rows: int):
+        """Shapes of the three standard-normal draws of :meth:`forward`."""
+        n, e = len(self.x_dims), self.embed_dim
+        return (rows, n, e), (rows, n, e), (rows, e)
+
+    def forward(self, xs, noise, mask=None):
+        """Training ELBO of N views (B, S_i) -> (loss, logs).
+
+        ``noise`` is (eps_p (B, N, E), eps_u (B, N, E), eps_s (B, E)), the
+        draws of the private, unimodal-shared and PoE-shared latents;
+        ``mask`` (B,) {0, 1} restricts every mean to the rows it keeps.
+        """
+        n, e = len(self.x_dims), self.embed_dim
+        x = pad_stack(xs)                                           # (B, N, Dmax)
+        b = x.shape[0]
+        mu_s, logv_s, mu_p, logv_p = torch.split(self.encoder(x), e, dim=-1)
+        eps_p, eps_u, eps_s = noise
+        z_p = reparameterize(eps_p, mu_p, logv_p)                   # (B, N, E)
+        z_s_uni = reparameterize(eps_u, mu_s, logv_s)               # (B, N, E)
+        mu_poe, logv_poe = product_of_experts(
+            mu_s.movedim(1, 0), logv_s.movedim(1, 0), temperature=1.5, include_prior=True,
+        )
+        z_s = reparameterize(eps_s, mu_poe, logv_poe)               # (B, E)
+
+        # decode rows per modality i: row 0 joint (z_s), rows 1.. cross with
+        # the other modalities' unimodal z_s in order j != i
+        others = torch.stack(
+            [torch.stack([z_s_uni[:, j] for j in range(n) if j != i]) for i in range(n)], dim=1
+        )                                                           # (N-1, N, B, E)
+        zs_rows = torch.cat([z_s[None, None].expand(1, n, b, e), others])  # (N, N, B, E)
+        zp_rows = z_p.movedim(1, 0)[None].expand(n, n, b, e)
+        dec_in = torch.cat([zp_rows, zs_rows], dim=-1).movedim(2, 1)  # (rows, B, N, 2E)
+        recon = self.decoder(dec_in)                                # (rows, B, N, Dmax)
+
+        # masked MSE per (row, modality) over the modality's true width
+        row_mask = torch.ones(b, device=x.device) if mask is None else mask.float()
+        se = (recon - x[None]) ** 2 * self.dim_mask[None, None] * row_mask[None, :, None, None]
+        denom = torch.clamp(torch.sum(row_mask), min=1.0)
+        per_pair = torch.sum(se, dim=(1, 3)) / (denom * self.dims[None, :])  # (rows, N)
+        loss_recon_joint = torch.sum(per_pair[0])
+        loss_recon_cross = torch.sum(per_pair[1:]) / (n * (n - 1)) * self.cross_weight
+
+        def kl_rows(mu, logv):
+            return torch.sum(-0.5 * torch.sum(1 + logv - mu ** 2 - torch.exp(logv), dim=-1), dim=1)
+
+        kl_p = _masked_mean_rows(kl_rows(mu_p, logv_p), mask)
+        kl_poe = _masked_mean_rows(gaussian_kl_standard(mu_poe, logv_poe), mask)
+        kl_uni = _masked_mean_rows(kl_rows(mu_s, logv_s), mask)
+        loss = (loss_recon_joint + self.a * (kl_p + n * kl_poe)
+                + loss_recon_cross + self.a * kl_uni)
+        logs = {
+            "loss": loss,
+            "loss_joint_recon": loss_recon_joint,
+            "loss_cross_recon": loss_recon_cross,
+            "kl_private": kl_p,
+            "kl_shared_poe": kl_poe,
+            "kl_shared_uni_sum": kl_uni,
+        }
+        return loss, logs

@@ -1,4 +1,4 @@
-"""Evidential probes over frozen backbone embeddings (eval mode).
+"""Evidential probes over frozen backbone embeddings.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/models/probes.py``:
 
@@ -7,9 +7,12 @@ Counterpart of ``disentagled_multimodal_fusion_tpu/models/probes.py``:
 * ``DisentangledEvidentialProbe`` / ``FusedDisentangledEvidentialProbe``:
   N private heads; evidence (B, N, C).
 
-The fused variants stack their heads into one :class:`StackedMLP`. With one
-hidden layer, the configured one, they run all heads through the evidential
-head kernel (``ops/cuda_kernels.py``) in one launch.
+The fused variants stack their heads into one :class:`StackedMLP`. In an
+eval forward with one hidden layer, the configured one, they run all heads
+through the evidential head kernel (``ops/cuda_kernels.py``) in one launch.
+That kernel has no backward, so a training forward (dropout masks given, or
+a gradient wanted) takes the differentiable plain path. The unfused
+variants are eval-only here (training runs the fused ones).
 """
 
 from __future__ import annotations
@@ -25,13 +28,21 @@ from .dmvae_fused import StackedMLP, pad_stack
 from .layers import EvidentialNN
 
 
-def stacked_evidence(stack: StackedMLP, x: torch.Tensor) -> torch.Tensor:
+def _wants_grad(stack: StackedMLP, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in stack.parameters())
+    )
+
+
+def stacked_evidence(stack: StackedMLP, x: torch.Tensor, drop_masks=None,
+                     keep: float = 1.0) -> torch.Tensor:
     """Evidence (B, V, C) of the stacked heads on x (B, V, D): through the
-    kernel when the heads have one hidden layer, else layer by layer."""
-    if stack.num_layers == 2:
+    kernel for an eval forward of one-hidden-layer heads, else layer by
+    layer (differentiable, with the dropout masks when given)."""
+    if stack.num_layers == 2 and drop_masks is None and not _wants_grad(stack, x):
         (w1, b1), (w2, b2) = stack.layer(0), stack.layer(1)
         return evidential_heads_stacked(x.transpose(0, 1), w1, b1, w2, b2)
-    return evidence_activation(stack(x))
+    return evidence_activation(stack(x, drop_masks, keep))
 
 
 class EvidentialProbe(nn.Module):
@@ -73,33 +84,38 @@ class DisentangledEvidentialProbe(nn.Module):
 
 
 class FusedEvidentialProbe(nn.Module):
-    """EvidentialProbe with its 1+N heads stacked."""
+    """EvidentialProbe with its 1+N heads stacked. ``drop_masks`` (one
+    boolean (B, 1+N, hidden) keep-mask per hidden layer) turns dropout on
+    at rate ``dropout``."""
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 shared_input_dim: Optional[int] = None):
+                 shared_input_dim: Optional[int] = None, dropout: float = 0.3):
         super().__init__()
         in_dims = (shared_input_dim or input_dim,) + (input_dim,) * num_modalities
+        self.keep = 1.0 - dropout
         self.stack = StackedMLP(
             in_dims, tuple(hidden_dim), (num_classes,) * len(in_dims), generator
         )
 
-    def forward(self, zc, zp_list):
+    def forward(self, zc, zp_list, drop_masks=None):
         """zc (B, Ds); zp_list N x (B, D). Returns (B, 1+N, C)."""
-        return stacked_evidence(self.stack, pad_stack([zc, *zp_list]))
+        return stacked_evidence(self.stack, pad_stack([zc, *zp_list]), drop_masks, self.keep)
 
 
 class FusedDisentangledEvidentialProbe(nn.Module):
     """Private-only variant of :class:`FusedEvidentialProbe`."""
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
-                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,)):
+                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
+                 dropout: float = 0.3):
         super().__init__()
+        self.keep = 1.0 - dropout
         self.stack = StackedMLP(
             (input_dim,) * num_modalities, tuple(hidden_dim),
             (num_classes,) * num_modalities, generator,
         )
 
-    def forward(self, zp_list):
+    def forward(self, zp_list, drop_masks=None):
         """zp_list N x (B, D). Returns (B, N, C)."""
-        return stacked_evidence(self.stack, pad_stack(zp_list))
+        return stacked_evidence(self.stack, pad_stack(zp_list), drop_masks, self.keep)

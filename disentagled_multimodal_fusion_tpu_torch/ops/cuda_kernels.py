@@ -12,8 +12,11 @@ bytes (~2.26 MB, 0.68 us at 3.35 TB/s); at B=1 the weights make it bound by
 bytes. Its design keeps relu(h) in shared memory so the hidden activations
 never reach device memory (see the source for the rest).
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; it never falls back.
+The kernel has no backward: the wrapper raises when a gradient is wanted
+(grad mode on and an input requiring grad), on any device, so a training
+forward cannot silently lose its gradient. The wrapper runs the plain
+version only for tensors on the CPU. For CUDA tensors it launches the
+kernel or raises; it never falls back.
 ``evidential_heads_stacked.launches`` counts the launches (a plain int,
 exact while one thread at a time launches).
 """
@@ -63,8 +66,16 @@ def evidential_heads_stacked(x_stack, w1s, b1s, w2s, b2s):
 
     x_stack: (V, B, D), any strides with a unit last stride; w1s (V, D, H),
     b1s (V, H), w2s (V, H, C), b2s (V, C) contiguous; all float32 on one
-    device. Returns (B, V, C) evidence.
+    device. Returns (B, V, C) evidence. Forward only: raises when grad mode
+    is on and an input requires grad.
     """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_stack, w1s, b1s, w2s, b2s)
+    ):
+        raise RuntimeError(
+            "evidential_heads_stacked has no backward; call it under torch.no_grad() "
+            "or use the plain path for training"
+        )
     if x_stack.device.type == "cpu":
         return evidential_heads_stacked_plain(x_stack, w1s, b1s, w2s, b2s)
     v, b, d = x_stack.shape

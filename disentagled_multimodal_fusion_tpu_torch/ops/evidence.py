@@ -12,17 +12,58 @@ import torch
 import torch.nn.functional as F
 
 LOG1E13 = 13.0 * math.log(10.0)
+CLIP = 10.0
+
+
+class _ClipJax(torch.autograd.Function):
+    """``clamp(x, -10, 10)`` with JAX's gradient for ``jnp.clip``: 1 strictly
+    inside, 0.5 at exactly +-10, 0 outside (torch's clamp gives 1 at the
+    bounds)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, -CLIP, CLIP)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        a = x.abs()
+        return grad * torch.where(a < CLIP, 1.0, torch.where(a == CLIP, 0.5, 0.0)).to(grad.dtype)
+
+
+class _AbsJax(torch.autograd.Function):
+    """``abs(x)`` with JAX's gradient: +1 at 0 (torch's gives 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, -grad)
+
+
+def clip_jax(x: torch.Tensor) -> torch.Tensor:
+    return _ClipJax.apply(x)
+
+
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    return _AbsJax.apply(x)
 
 
 def evidence_activation(h: torch.Tensor, activation: str = "exp") -> torch.Tensor:
     """Map raw head outputs to non-negative Dirichlet evidence.
 
     ``exp`` is the saturated exponential ``exp(h) * 1e13 / (exp(h) + 1e13)``
-    with ``h`` clamped to [-10, 10], evaluated in log space.
+    with ``h`` clamped to [-10, 10] (with JAX's gradient at the bounds),
+    evaluated in log space.
     """
     if activation == "softplus":
         return F.softplus(h)
-    h = torch.clamp(h, -10.0, 10.0)
+    h = clip_jax(h)
     log1e13 = torch.tensor(LOG1E13, dtype=h.dtype, device=h.device)
     return torch.exp(h + log1e13 - torch.logaddexp(h, log1e13))
 

@@ -1,15 +1,22 @@
-"""Shared runner plumbing: config access.
+"""Shared runner plumbing: config access, cell seeds and the report.
 
-Counterpart of the config half of
-``disentagled_multimodal_fusion_tpu/runners/common.py``: the ``C()``
-dot-path getter, where a missing key falls back to the code-level default.
+Counterpart of ``disentagled_multimodal_fusion_tpu/runners/common.py``:
+the ``C()`` dot-path getter, where a missing key falls back to the
+code-level default; the process-stable ``cell_seed``; and the multi-sheet
+report, written without pandas through the port's copy of
+``utils/xlsx.py`` with a CSV mirror of every sheet.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
+import math
+import zlib
+from typing import Dict, List, Sequence
 
 from ..configs.config import CONFIG
+from ..core.artifacts import artifact_path
 
 
 def load_config() -> dict:
@@ -29,3 +36,82 @@ def make_getter(cfg: dict):
         return cur
 
     return C
+
+
+def cell_seed(seed: int, dataset_name: str, conflict: bool) -> int:
+    """Process-stable integer seed of one (seed, dataset, condition) cell
+    (zlib.crc32, not the per-process salted ``hash``)."""
+    return seed * 1000 + zlib.crc32(dataset_name.encode()) % 997 + (500 if conflict else 0)
+
+
+class Table:
+    """One sheet: column names and rows, with the two attributes the xlsx
+    writer reads (``columns``, ``itertuples``)."""
+
+    def __init__(self, columns: Sequence[str], rows: Sequence[Sequence]):
+        self.columns = list(columns)
+        self.rows = [list(r) for r in rows]
+
+    @classmethod
+    def from_dicts(cls, columns: Sequence[str], dicts: Sequence[dict]) -> "Table":
+        """A missing key becomes an empty cell (None)."""
+        return cls(columns, [[d.get(c) for c in columns] for d in dicts])
+
+    def itertuples(self, index: bool = False):
+        return (tuple(r) for r in self.rows)
+
+    def select(self, columns: Sequence[str]) -> "Table":
+        at = [self.columns.index(c) for c in columns]
+        return Table(columns, [[r[i] for i in at] for r in self.rows])
+
+
+def _mean(values) -> float:
+    vals = [float(v) for v in values if v is not None and not math.isnan(float(v))]
+    return sum(vals) / len(vals) if vals else None
+
+
+def group_mean(table: Table, keys: Sequence[str]) -> Table:
+    """Rows grouped by ``keys`` (sorted) with the mean of every other
+    column, skipping empty cells (``DataFrame.groupby(keys).mean()``)."""
+    key_at = [table.columns.index(k) for k in keys]
+    rest = [c for c in table.columns if c not in keys]
+    rest_at = [table.columns.index(c) for c in rest]
+    groups: Dict[tuple, List[list]] = {}
+    for r in table.rows:
+        groups.setdefault(tuple(r[i] for i in key_at), []).append(r)
+    rows = [list(k) + [_mean(r[i] for r in members) for i in rest_at]
+            for k, members in sorted(groups.items())]
+    return Table(list(keys) + rest, rows)
+
+
+MAIN_COLUMNS_TAIL = [
+    "view_0_evidence_mean", "view_1_evidence_mean", "shared_evidence_mean",
+    "fused_evidence_mean",
+    "view_0_aleatoric_mean", "view_1_aleatoric_mean", "shared_aleatoric_mean",
+    "fused_aleatoric_mean",
+    "view_0_epistemic_mean", "view_1_epistemic_mean", "shared_epistemic_mean",
+    "fused_epistemic_mean",
+    "view_0_accuracy", "view_1_accuracy", "shared_accuracy", "fused_accuracy",
+    "fused_ece",
+]
+
+
+def main_columns(table: Table, id_cols) -> Table:
+    return table.select(list(id_cols) + [c for c in MAIN_COLUMNS_TAIL if c in table.columns])
+
+
+def write_report(tables: Dict[str, Table], excel_path: str) -> None:
+    """The multi-sheet .xlsx report plus one CSV per sheet beside it."""
+    from ..utils.xlsx import write_xlsx
+
+    path = artifact_path(excel_path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_xlsx(path, tables)
+    print(f"wrote {path}")
+    for sheet, table in tables.items():
+        out = path.with_name(f"{path.stem}_{sheet}.csv")
+        with open(out, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(table.columns)
+            writer.writerows([("" if v is None else v) for v in r] for r in table.rows)
+        print(f"wrote {out}")

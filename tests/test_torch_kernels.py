@@ -3,11 +3,12 @@
 On the CPU the port's wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernel in interpret mode. The cases and the tolerance
 (rtol 1e-5, atol 1e-6) are those of tests/test_pallas.py: both sides are
-float32 and differ only in summation order. The CUDA kernel itself is held
-against the plain version by the ``gpu`` test below and by chip_smoke.py.
+float32 and differ only in summation order. The CUDA kernels themselves (the
+evidential head and the probe epoch) are held against their plain versions
+by the ``gpu`` tests below and by chip_smoke.py.
 
 The JAX kernels are imported inside the tests that use them, so that the
-``gpu`` test also runs on a CUDA machine without JAX:
+``gpu`` tests also run on a CUDA machine without JAX:
 
     python -m pytest -o addopts= --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 """
@@ -96,3 +97,64 @@ def test_cuda_kernel_matches_plain():
         assert ck.evidential_heads_stacked.launches == before + 1
         ref = ck.evidential_heads_stacked_plain(xs, *ws)
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+
+    configure()  # the plain versions on cuBLAS in full float32, no TF32
+
+
+@pytest.mark.gpu
+def test_cuda_head_kernel_refuses_a_gradient():
+    _needs_cuda()
+    args = [torch.randn(s, device="cuda") for s in ((2, 3, 4), (2, 4, 5), (2, 5), (2, 5, 3), (2, 3))]
+    args[1].requires_grad_()
+    before = ck.evidential_heads_stacked.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ck.evidential_heads_stacked(*args)
+    assert ck.evidential_heads_stacked.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,b,d,h,c,tail", [(3, 16, 12, 8, 5, 6), (7, 100, 200, 128, 10, None)])
+def test_cuda_probe_epoch_kernel_matches_plain(v, b, d, h, c, tail):
+    """One epoch of S = 3 steps, kernel against plain version on the card, at
+    the tolerances of the CPU parity test (losses rtol 2e-5 / atol 2e-6;
+    p, m, v rtol 5e-3 / atol 5e-5)."""
+    from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
+
+    _needs_cuda()
+    rng = np.random.default_rng(v)
+    s, keep = 3, 0.7
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda()
+
+    xs = rng.standard_normal((s, v, b, d))
+    rmasks = np.ones((s, b, 1))
+    if tail is not None:
+        rmasks[-1, tail:] = 0.0
+        xs[-1, :, tail:] = 0.0
+    yohs = np.eye(c)[rng.integers(0, c, (s, b))] * rmasks
+    counts = np.arange(1, s + 1, dtype=np.float32)
+    streams = [t(xs), t(rng.random((s, v, b, h)) < keep), t(yohs), t(rmasks),
+               t((1 - np.float32(0.9) ** counts)[:, None]),
+               t((1 - np.float32(0.999) ** counts)[:, None])]
+    shapes = [(v, d, h), (v, h), (v, h, c), (v, c)]
+    params = tuple(t((rng.random(sh) * 2 - 1) * 0.2) for sh in shapes)
+    zeros = tuple(torch.zeros_like(p) for p in params)
+    kw = dict(keep=keep, fused=1.0, num_classes=c, weight_decay=1e-2)
+    ref = pm.run_epoch_plain(*streams, 3e-3, 0.4, 0.68, params, zeros, zeros, **kw)
+    before = pm.run_epoch_kernel.launches
+    got = pm.run_epoch_kernel(*streams, 3e-3, 0.4, 0.68, tuple(p.clone() for p in params),
+                              tuple(z.clone() for z in zeros), tuple(z.clone() for z in zeros),
+                              **kw)
+    torch.cuda.synchronize()
+    assert pm.run_epoch_kernel.launches == before + 1
+    np.testing.assert_allclose(got[3].cpu().numpy(), ref[3].cpu().numpy(), rtol=2e-5, atol=2e-6)
+    for group in range(3):
+        for a, r in zip(got[group], ref[group]):
+            np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(), rtol=5e-3, atol=5e-5)
