@@ -6,15 +6,20 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
 
 1. the card: name, count and ``nvidia-smi`` name and power limit;
 2. the build of both kernels from ``csrc/`` with nvcc (one process each,
-   started together), its time and ptxas report;
+   started together), its time and ptxas report (no stack frame and no
+   spills in any kernel);
 3. every kernel against its plain PyTorch version on the card: the
    evidential head at the test and serving shapes (rtol 1e-4 / atol 1e-5),
    the probe epoch at the test shapes (ragged tail, ties at +10 and in
-   |p_i - p_j|, odd D/H/C) and at HandWritten's V = 7 and 6, over one epoch,
-   five chained epochs and against float64 (losses rtol 2e-5 / atol 2e-6;
+   |p_i - p_j|, odd D/H/C), at HandWritten's V = 7 and 6, over one epoch,
+   five chained epochs and against float64, and at C = 68 (V = 4, 8) and
+   C = 15 (V = 8) with ragged tails and ties (losses rtol 2e-5 / atol 2e-6;
    p, m, v rtol 5e-3 / atol 5e-5);
 4. kernel, plain and library times (CUDA events, profiler device time)
-   beside the least time the card could take for the same work;
+   beside the least time the card could take for the same work; the
+   profiler window of the probe epoch must hold exactly its four kernels,
+   16 launches each per epoch, and nothing else but the wrapper's PyTorch
+   operations;
 5. the serving path, ``runners/serve.py`` main with ``--random-init`` on
    HandWritten at full width for dmvae_cml, dmvae_dis and cml_fusion at
    buckets 1, 8, 64, 256, with the kernels' launch counts read around it;
@@ -39,6 +44,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -304,6 +310,20 @@ def phase_probe_epoch_checks(pm):
         err5 = assert_epoch_close(k, p, f"probe_epoch V={v} 5 epochs")
         log(f"check probe_epoch S=16 V={v} B=100 D=200 H=128 C=10: max abs err {err:.3e} "
             f"(vs float64 plain {err64:.3e}; after 5 chained epochs {err5:.3e})")
+    # C = 68 (PIE) and C = 15 (Scene): more classes than lanes, up to 8 views;
+    # then odd D and H, which take the forward kernel's 4-byte copies
+    for s, v, b, d, h, c, tail in ((16, 4, 100, 200, 128, 68, 37), (16, 8, 100, 200, 128, 15, 37),
+                                   (3, 8, 50, 37, 30, 68, 17)):
+        inp = epoch_inputs(s, v, b, d, h, c, seed=20 + v + c, tail=tail, ties=True)
+        label = f"probe_epoch S={s} V={v} B={b} (tail {tail}, ties) D={d} H={h} C={c}"
+        got = run_epoch(pm.run_epoch_kernel, inp)
+        err = assert_epoch_close(got, run_epoch(pm.run_epoch_plain, inp), label)
+        inp64 = dict(inp, tensors=[t.double() for t in inp["tensors"]],
+                     state=[tuple(t.double() for t in g) for g in inp["state"]])
+        err64 = assert_epoch_close(tuple(tuple(t.double() for t in g) for g in got[:3])
+                                   + (got[3].double(),), run_epoch(pm.run_epoch_plain, inp64),
+                                   f"{label} float64")
+        log(f"check {label}: max abs err {err:.3e} (vs float64 plain {err64:.3e})")
     return worst
 
 
@@ -332,26 +352,46 @@ def phase_probe_epoch_times(pm, card):
     ms = event_ms(lambda *a: pm.run_epoch_kernel(*a, **inp["kw"]), args, iters=50, warmup=5)
     plain_ms = event_ms(lambda *a: pm.run_epoch_plain(*a, **inp["kw"]), args, iters=5, warmup=1)
     bound_ms, bound_by = probe_epoch_bound(16, 7, 100, 200, 128, 10, 0.9)
-    n = 20
+    n, steps = 20, 16
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             pm.run_epoch_kernel(*args, **inp["kw"])
         torch.cuda.synchronize()
-    kernels = {}
+    # every device operation of the window is one of the source's four
+    # kernels or one of the PyTorch operations the wrapper runs (the scalars'
+    # fill and stack); anything else (a renamed or added kernel) fails
+    names = ("forward_kernel", "loss_kernel", "dh_kernel", "grad_adam_kernel")
+    ours = re.compile(r"\b(" + "|".join(names) + r")\b")
+    found, wrapper_ms, wrapper_ops = {}, 0.0, 0
     for e in prof.key_averages():
-        name = next((k for k in ("forward_kernel", "loss_kernel", "dh_kernel", "grad_adam_kernel")
-                     if k in e.key), None)
-        if e.device_type == DeviceType.CUDA and name is not None:
-            us = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
-            kernels[name] = (us / 1e3 / e.count, e.count / n)
-    device_ms = sum(t * k for t, k in kernels.values()) if kernels else None
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+        match = ours.search(e.key)
+        if match:
+            total_us, count = found.get(match.group(1), (0.0, 0))
+            found[match.group(1)] = (total_us + us, count + e.count)
+        elif "at::" in e.key or e.key.startswith(("Memcpy", "Memset")):
+            wrapper_ms += us / 1e3 / n
+            wrapper_ops += e.count
+        else:
+            raise AssertionError(f"unmatched device operation in the probe_epoch window: "
+                                 f"{e.key[:160]}")
+    kernels = {k: (us / 1e3 / count, count / n) for k, (us, count) in found.items()}
+    launches = {k: per_epoch for k, (_, per_epoch) in kernels.items()}
+    if set(kernels) != set(names) or any(x != steps for x in launches.values()) \
+            or sum(launches.values()) != 4 * steps:
+        raise AssertionError(f"probe_epoch launched {launches} per epoch, expected each of "
+                             f"{names} {steps} times ({4 * steps} in all)")
+    device_ms = sum(t * k for t, k in kernels.values())
     log(f"time probe_epoch V=7 B=100 D=200 H=128 C=10 S=16: kernel {ms:.5f} ms/epoch, "
         f"plain {plain_ms:.5f} ms/epoch, bound {bound_ms:.6f} ms ({bound_by}); no single "
         f"PyTorch call computes an epoch, so there is no library time [{card}]")
-    log("profiler device time probe_epoch per epoch: "
-        + (f"{device_ms:.5f} ms [{card}]" if device_ms is not None else "not measured"))
+    log(f"profiler device time probe_epoch per epoch: {device_ms:.5f} ms [{card}]")
     for name, (t, per_epoch) in sorted(kernels.items()):
         log(f"  {name}: {t:.5f} ms per launch, {per_epoch:.0f} launches per epoch")
+    log(f"  the wrapper's PyTorch operations: {wrapper_ops / n:.0f} per epoch, "
+        f"{wrapper_ms:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None), device_ms
 
@@ -607,8 +647,12 @@ def main() -> int:
     for name, info in infos.items():
         log(f"build {name}: {info.seconds:.2f} s")
         for line in info.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if line.strip():
                 log(f"  ptxas: {line.strip()}")
+        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", info.log)
+        if not frames or any(int(x) for frame in frames for x in frame):
+            raise AssertionError(f"{name}: ptxas reports a stack frame or spills: {frames}")
 
     max_abs_err = phase_kernel_checks(ck)
     epoch_abs_err = phase_probe_epoch_checks(pm)

@@ -26,43 +26,81 @@
 // Then de/dz' = e sigmoid(ln 1e13 - z'), the clip passes 1 inside, 0.5 at
 // exactly +-10 and 0 outside (as jnp.clip's gradient), dh = (dz W2^T) masked
 // by relu' and the dropout scale, and the weight gradients are the usual
-// products over the B rows.
+// products over the B rows. tests/test_torch_probe_epoch_grad.py holds this
+// formula against autograd in float64.
 //
-// Bound on an H100 at V=7, B=100, D=200, H=128, C=10, S=16: ~79 MFLOP of f32
-// per step (1.26 GFLOP per epoch, 19 us at 67 TFLOP/s) against 19 MB per
-// epoch with each input read once and the state (p, m, v of 7 heads, 2.3 MB)
-// read and written once (6 us at 3.35 TB/s): bound by operations. The state
-// does not fit one SM's shared memory, so here it stays in device memory
-// (and L2) and is read and written every step (87 MB per epoch, 26 us).
+// Bound on an NVIDIA H100 (SXM, 700 W; 67 TFLOP/s f32 outside the tensor
+// cores, 3.35 TB/s) at V=7, B=100, D=200, H=128, C=10, S=16: ~79 MFLOP of
+// f32 per step (1.26 GFLOP per epoch, 18.9 us) against 19 MB per epoch with
+// each input read once and the state (p, m, v of 7 heads, 2.3 MB) read and
+// written once (5.8 us): bound by operations, 0.018943 ms per epoch. The
+// state does not fit one SM's shared memory, so here it stays in device
+// memory (and L2) and is read and written every step (87 MB per epoch).
+// No tensor cores: the port holds f32 with TF32 off, and Hopper's tensor
+// cores reach TF32 at best (3xTF32, split operands, is a question for later).
 //
 // Design: the C entry point loops over the S steps on the host and launches
 // four kernels per step on the caller's stream:
-//   1. forward, grid (row tiles, V): x tile in shared memory, one hidden
-//      unit per thread, hd kept in shared memory for the second product;
-//      writes hd and z to scratch;
-//   2. loss, grid (row tiles): a (row, view) pair per thread; the views of a
-//      row share their alpha sums through shared memory for the DC term;
-//      overwrites z with dL/dz and writes each block's partial sums;
+//   1. forward, grid (row tiles of 8, V), 8 warps. W1 of the view (D x H),
+//      the 8 rows of x and W2 of the view are contiguous in device memory,
+//      so ten bulk asynchronous copies (cp.async.bulk, Hopper's TMA engine,
+//      completing on mbarriers) bring them into shared memory: one per
+//      warp's slice of K, one for x, one for W2. With per-thread 16-byte
+//      cp.async, or one bulk copy per W1 row of a 64-unit tile, issuing the
+//      copies set the kernel's time on the card; ten large copies leave
+//      that cost behind. Warp g waits for its slice alone and
+//      keeps a register tile of 8 rows x 4 hidden units (lane 4l .. 4l + 3):
+//      each float4 of W1 from shared memory feeds 32 FMAs, each float4 of x
+//      (a broadcast) 16. The 8 slices' sums meet in shared memory (over
+//      W1's place) and are added in slice order, no atomics; b1 and the
+//      dropout mask are read while W1 streams in, and ReLU and dropout are
+//      applied in registers. hd goes to scratch and to shared memory, where
+//      z = hd W2 + b2 is summed by groups of 8 lanes (every 8th hidden unit,
+//      then a shuffle reduction). H <= 128; any D and C up to the shared
+//      memory a block may take (at D = 200, H = 128: 113 KB + 0.5 KB per
+//      class). Widths that are not multiples of 4 take 4-byte cp.async
+//      copies into a zero-padded layout instead.
+//   2. loss, grid (rows / 2), a warp per (row, view) with the classes across
+//      lanes (a lane loops when C > 32): z, e, alpha and p = alpha / (S + eps)
+//      go to shared memory; S, Skl, T, Y, pd_ij and sum_c Gp_c alpha_c are
+//      butterfly shuffle sums (the same order for every view, so equal views
+//      give bitwise-equal p, as the tie of |p_i - p_j| needs). psi and psi'
+//      of every alpha, of S, of Skl and of each kl that differs from its
+//      alpha are one lane's argument each, sharing the reciprocals 1/(x + k)
+//      between the two series (the same IEEE results, not an approximation);
+//      gammaln of every kl and of Skl likewise. The views of a row meet in
+//      shared memory for the DC term. The kernel overwrites z with dL/dz and
+//      writes each block's partial sums; no float atomics.
 //   3. dh = (dz W2^T) * (hd > 0) * 1/keep, grid (row tiles, V); its first
 //      thread also adds up the loss kernel's partial sums into the loss;
 //   4. gradient + AdamW over parameter tiles: W1 rows in tiles of 8 with x
 //      staged in shared memory, W2 elements one per thread, biases in one
 //      block; each updates p, m, v in place.
 // W2 is read by step 3 and written by step 4 of the same optimizer step, so
-// the two are separate launches. Any V <= 8, D, H, C and B work; rows with
-// rmask 0 (the padded tail) contribute nothing. Each launch is checked with
-// cudaGetLastError() and the entry point returns the first error.
+// the two are separate launches. Any V <= 8, D, H <= 128, C and B work, up
+// to the shared memory a block may take (else cudaErrorInvalidValue); rows
+// with rmask 0 (the padded tail) contribute nothing. Each launch is checked
+// with cudaGetLastError() and the entry point returns the first error.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MAXV = 8;
-constexpr int TB = 8;             // rows per forward / dh block
-constexpr int KD = 256;           // input columns staged per forward pass
+constexpr int WARP = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// forward
+constexpr int FWD_ROWS = 8;       // batch rows per block
+constexpr int FWD_SPLITK = 8;     // warps per block, one slice of K each
+constexpr int FWD_THREADS = FWD_SPLITK * WARP;
+constexpr int MAX_HIDDEN = 128;   // a lane holds 4 hidden units
+constexpr int Z_GROUP = 8;        // lanes summing one z output
+// loss
+constexpr int LOSS_ROWS = 2;              // rows per loss block
+constexpr int LOSS_ARRAYS = 12;           // per-warp arrays of C in shared memory
+// dh, gradient + AdamW
+constexpr int TB = 8;             // rows per dh block
 constexpr int THREADS = 128;
-constexpr int LOSS_ROWS = 16;     // rows per loss block
-constexpr int LOSS_THREADS = LOSS_ROWS * MAXV;
 constexpr int DT = 8;             // W1 rows per gradient block
 constexpr int BT = 128;           // batch rows staged per gradient pass
 constexpr float kLog1e13 = 29.933606208922594f;  // 13 ln 10
@@ -71,14 +109,21 @@ constexpr float kOneMinusB1 = 0.1f, kOneMinusB2 = 0.001f;
 constexpr float kEps = 1e-8f, kDcEps = 1e-8f;
 
 // ---- Stirling series (ops/special.py), shifted by 8 ----
-__device__ __forceinline__ float digamma_s(float x) {
+// digamma_stirling and trigamma_stirling of one argument, sharing 1/(x + k) and 1/z
+__device__ __forceinline__ void digamma_trigamma_s(float x, float& psi, float& psi1) {
   const float z = x + 8.0f;
-  float shift = 0.0f;
+  float shift = 0.0f, shift_sq = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) shift += 1.0f / (x + static_cast<float>(k));
+  for (int k = 0; k < 8; ++k) {
+    const float r = 1.0f / (x + static_cast<float>(k));
+    shift += r;
+    shift_sq += r * r;
+  }
   const float rz = 1.0f / z, rz2 = rz * rz;
   const float series = rz2 * (-1.0f / 12.0f + rz2 * (1.0f / 120.0f - rz2 * (1.0f / 252.0f)));
-  return logf(z) - 0.5f * rz + series - shift;
+  psi = logf(z) - 0.5f * rz + series - shift;
+  psi1 = rz + rz2 * (0.5f + rz * (1.0f / 6.0f + rz2 * (-1.0f / 30.0f + rz2 * (1.0f / 42.0f)))) +
+         shift_sq;
 }
 
 __device__ __forceinline__ float gammaln_s(float x) {
@@ -89,19 +134,6 @@ __device__ __forceinline__ float gammaln_s(float x) {
   const float rz = 1.0f / z, rz2 = rz * rz;
   const float series = rz * (1.0f / 12.0f + rz2 * (-1.0f / 360.0f + rz2 * (1.0f / 1260.0f)));
   return (z - 0.5f) * logf(z) - z + 0.91893853320467274f + series - shift;
-}
-
-__device__ __forceinline__ float trigamma_s(float x) {
-  const float z = x + 8.0f;
-  float shift = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float r = 1.0f / (x + static_cast<float>(k));
-    shift += r * r;
-  }
-  const float rz = 1.0f / z, rz2 = rz * rz;
-  return rz + rz2 * (0.5f + rz * (1.0f / 6.0f + rz2 * (-1.0f / 30.0f + rz2 * (1.0f / 42.0f)))) +
-         shift;
 }
 
 __device__ __forceinline__ float clip10(float z) { return fminf(fmaxf(z, -10.0f), 10.0f); }
@@ -123,82 +155,236 @@ __device__ __forceinline__ void adamw(float* p, float* m, float* v, float g, flo
   *p = *p - lr * upd;
 }
 
-// sum over the block; every thread gets the result. red holds blockDim.x floats.
-__device__ float block_sum(float value, float* red) {
-  __syncthreads();
-  red[threadIdx.x] = value;
-  __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  const float total = red[0];
-  __syncthreads();
-  return total;
+// butterfly sum over the warp: every lane gets the same bits (each step adds
+// the same two values in both lanes, and float addition commutes)
+__device__ __forceinline__ float warp_sum(float value) {
+#pragma unroll
+  for (int offset = WARP / 2; offset > 0; offset >>= 1)
+    value += __shfl_xor_sync(kFull, value, offset);
+  return value;
 }
 
-// 1. forward: hd = dropout(relu(x W1 + b1)) and z = hd W2 + b2
-__global__ void __launch_bounds__(THREADS)
+// ---- asynchronous copies, global -> shared ----
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// Hopper's bulk copy (the TMA engine, no tensor map): `bytes` (a multiple of
+// 16, both addresses 16-byte aligned) from global to shared memory, counted
+// on the mbarrier `bar` as they land
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// the one arrival of the barrier's phase, which then also waits for `bytes`
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+// 4 bytes; bytes = 0 writes a zero (the path for rows that are not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of the forward kernel, in floats: W1 of the view [Dp][Hp]
+// (after the products, the warps' partial sums [FWD_SPLITK][FWD_ROWS][Hp]),
+// x [FWD_ROWS][Dp], W2 [H][C], b2 [C], hd [FWD_ROWS][Hp + 1]; Dp and Hp are
+// D and H rounded up to 4
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ __forceinline__ size_t fwd_smem_floats(int D, int H, int C) {
+  const size_t dp = round4(D), hp = round4(H);
+  return hp * (dp > FWD_SPLITK * FWD_ROWS ? dp : FWD_SPLITK * FWD_ROWS) + FWD_ROWS * dp +
+         static_cast<size_t>(H) * C + C + FWD_ROWS * (hp + 1);
+}
+
+// 1. forward of FWD_ROWS rows of one view: hd = dropout(relu(x W1 + b1)) and
+// z = hd W2 + b2
+__global__ void __launch_bounds__(FWD_THREADS)
 forward_kernel(const float* __restrict__ x, const float* __restrict__ drop,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2,
                float* __restrict__ hd, float* __restrict__ zbuf, int B, int D, int H, int C,
                float inv_keep) {
-  extern __shared__ float smem[];
-  float* xs = smem;             // [TB][KD]
-  float* hs = smem + TB * KD;   // [TB][H + 1]
-  const int hs_stride = H + 1;
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) unsigned long long bars[FWD_SPLITK + 1];
+  const int dp = round4(D), hp = round4(H);
+  float* w1s = smem;                                                   // [dp][hp]
+  float* xs = w1s + static_cast<size_t>(hp) * max(dp, FWD_SPLITK * FWD_ROWS);  // [FWD_ROWS][dp]
+  float* w2s = xs + FWD_ROWS * dp;                                     // [H][C]
+  float* b2s = w2s + H * C;                                            // [C]
+  float* hs = b2s + C;                                                 // [FWD_ROWS][hp + 1]
+  const int t = threadIdx.x;
+  const int warp = t / WARP, lane = t % WARP;
+  const int b0 = blockIdx.x * FWD_ROWS;
   const int v = blockIdx.y;
-  const int b0 = blockIdx.x * TB;
-  const int rows = min(TB, B - b0);
+  const int rows = min(FWD_ROWS, B - b0);
   const float* xv = x + (static_cast<long long>(v) * B + b0) * D;
   const float* w1v = w1 + static_cast<long long>(v) * D * H;
   const float* w2v = w2 + static_cast<long long>(v) * H * C;
   const long long hrow0 = static_cast<long long>(v) * B + b0;  // row of (v, b0) in (V*B, .)
+  // warp g sums over the W1 rows [g kc, (g + 1) kc)
+  const int kc = round4((dp + FWD_SPLITK - 1) / FWD_SPLITK);
+  const int k_begin = min(D, warp * kc), k_end = min(D, (warp + 1) * kc);
+  // With D and H multiples of 4 and 16-byte aligned bases, the view's W1,
+  // the rows' x and the view's W2 are contiguous runs of whole 16-byte
+  // units: ten bulk copies, one per K slice of W1 (barrier g), x and W2
+  // (barrier FWD_SPLITK). Otherwise 4-byte copies into the padded layout.
+  using u64 = unsigned long long;
+  const bool bulk = H % 4 == 0 && D % 4 == 0 && (H * C) % 4 == 0 &&
+                    ((reinterpret_cast<u64>(w1) | reinterpret_cast<u64>(x) |
+                      reinterpret_cast<u64>(w2)) & 15) == 0;
+  if (bulk) {
+    if (t == 0) {
+      for (int g = 0; g <= FWD_SPLITK; ++g) mbar_init(&bars[g]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int g = 0; g < FWD_SPLITK; ++g)
+        mbar_expect(&bars[g], 4u * H * max(0, min(D, (g + 1) * kc) - min(D, g * kc)));
+      mbar_expect(&bars[FWD_SPLITK], 4u * (rows * D + H * C));
+    }
+    __syncthreads();
+    if (t < FWD_SPLITK) {
+      const int k0 = min(D, t * kc), k1 = min(D, (t + 1) * kc);
+      if (k1 > k0)
+        bulk_copy(w1s + static_cast<size_t>(k0) * H, w1v + static_cast<long long>(k0) * H,
+                  4u * H * (k1 - k0), &bars[t]);
+    } else if (t == FWD_SPLITK) {
+      bulk_copy(xs, xv, 4u * rows * D, &bars[FWD_SPLITK]);
+    } else if (t == FWD_SPLITK + 1) {
+      bulk_copy(w2s, w2v, 4u * H * C, &bars[FWD_SPLITK]);
+    }
+  } else {
+    for (int i = t; i < dp * hp; i += FWD_THREADS) {
+      const int k = i / hp, j = i - k * hp;
+      const bool ok = k < D && j < H;
+      cp_async4(w1s + i, ok ? w1v + static_cast<long long>(k) * H + j : w1, ok ? 4 : 0);
+    }
+    for (int i = t; i < FWD_ROWS * dp; i += FWD_THREADS) {
+      const int r = i / dp, k = i - r * dp;
+      const bool ok = r < rows && k < D;
+      cp_async4(xs + i, ok ? xv + static_cast<long long>(r) * D + k : x, ok ? 4 : 0);
+    }
+    for (int i = t; i < H * C; i += FWD_THREADS) cp_async4(w2s + i, w2v + i, 4);
+    cp_async_wait_all();
+  }
+  for (int c = t; c < C; c += FWD_THREADS) b2s[c] = b2[static_cast<long long>(v) * C + c];
 
-  for (int j0 = 0; j0 < H; j0 += THREADS) {
-    const int j = j0 + threadIdx.x;
-    float acc[TB];
+  // the thread's outputs of the epilogue, (row, unit) = divmod(t + FWD_THREADS i, hp):
+  // their b1 and dropout mask are read while W1 streams in
+  constexpr int kOuts = FWD_ROWS * MAX_HIDDEN / FWD_THREADS;
+  float bias[kOuts], keep[kOuts];
 #pragma unroll
-    for (int r = 0; r < TB; ++r) acc[r] = 0.0f;
-    for (int d0 = 0; d0 < D; d0 += KD) {
-      const int kd = min(KD, D - d0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < TB * KD; i += THREADS) {
-        const int r = i / KD;
-        const int d = i - r * KD;
-        xs[i] = (r < rows && d < kd) ? xv[static_cast<long long>(r) * D + d0 + d] : 0.0f;
-      }
-      __syncthreads();
-      if (j < H) {
-        const float* wcol = w1v + static_cast<long long>(d0) * H + j;
-        for (int d = 0; d < kd; ++d) {
-          const float w = wcol[static_cast<long long>(d) * H];
+  for (int i = 0; i < kOuts; ++i) {
+    const int o = t + FWD_THREADS * i;
+    const int r = o / hp, j = o - r * hp;
+    const bool ok = r < rows && j < H;
+    bias[i] = ok ? b1[static_cast<long long>(v) * H + j] : 0.0f;
+    keep[i] = ok && drop != nullptr ? drop[(hrow0 + r) * H + j] : 1.0f;
+  }
+
+  // warp g: all FWD_ROWS rows x units 4 lane .. 4 lane + 3, over its K slice
+  float acc[FWD_ROWS][4];
 #pragma unroll
-          for (int r = 0; r < TB; ++r) acc[r] = fmaf(xs[r * KD + d], w, acc[r]);
+  for (int r = 0; r < FWD_ROWS; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+  if (bulk) {
+    mbar_wait(&bars[warp], 0);
+    mbar_wait(&bars[FWD_SPLITK], 0);
+  } else {
+    __syncthreads();
+  }
+  if (4 * lane < H) {
+    const float* wl = w1s + 4 * lane;
+    for (int k = k_begin; k < k_end; k += 4) {
+      float4 xk[FWD_ROWS];
+#pragma unroll
+      for (int r = 0; r < FWD_ROWS; ++r) xk[r] = *reinterpret_cast<const float4*>(xs + r * dp + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (k + u < k_end) {
+          const float4 w = *reinterpret_cast<const float4*>(wl + static_cast<size_t>(k + u) * hp);
+#pragma unroll
+          for (int r = 0; r < FWD_ROWS; ++r) {
+            const float xr = u == 0 ? xk[r].x : u == 1 ? xk[r].y : u == 2 ? xk[r].z : xk[r].w;
+            acc[r][0] = fmaf(xr, w.x, acc[r][0]);
+            acc[r][1] = fmaf(xr, w.y, acc[r][1]);
+            acc[r][2] = fmaf(xr, w.z, acc[r][2]);
+            acc[r][3] = fmaf(xr, w.w, acc[r][3]);
+          }
         }
       }
     }
-    if (j < H) {
-      const float bj = b1[static_cast<long long>(v) * H + j];
-      for (int r = 0; r < rows; ++r) {
-        float h = fmaxf(acc[r] + bj, 0.0f);
-        const long long at = (hrow0 + r) * H + j;
-        if (drop != nullptr) h = (h * drop[at]) * inv_keep;
-        hs[r * hs_stride + j] = h;
-        hd[at] = h;
-      }
+  }
+  // the K slices' sums, over W1's place, added in slice order (no atomics)
+  __syncthreads();
+  float* part = w1s;  // [FWD_SPLITK][FWD_ROWS][hp]
+  if (4 * lane < hp) {
+#pragma unroll
+    for (int r = 0; r < FWD_ROWS; ++r)
+      *reinterpret_cast<float4*>(part + (warp * FWD_ROWS + r) * hp + 4 * lane) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kOuts; ++i) {
+    const int o = t + FWD_THREADS * i;
+    const int r = o / hp, j = o - r * hp;
+    if (r >= FWD_ROWS) continue;
+    float h = 0.0f;
+    if (r < rows && j < H) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int g = 0; g < FWD_SPLITK; ++g) sum += part[(g * FWD_ROWS + r) * hp + j];
+      h = fmaxf(sum + bias[i], 0.0f);
+      if (drop != nullptr) h = (h * keep[i]) * inv_keep;
+      hd[(hrow0 + r) * H + j] = h;
     }
+    hs[r * (hp + 1) + j] = h;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < rows * C; i += THREADS) {
-    const int r = i / C;
-    const int c = i - r * C;
-    const float* hr = hs + r * hs_stride;
-    float acc = 0.0f;
-    for (int k = 0; k < H; ++k) acc = fmaf(hr[k], w2v[static_cast<long long>(k) * C + c], acc);
-    zbuf[(hrow0 + r) * C + c] = acc + b2[static_cast<long long>(v) * C + c];
+  // z[r][c] = sum_j hd[r][j] W2[j][c] + b2[c]: Z_GROUP lanes per output, lane q
+  // summing units q, q + Z_GROUP, ..., then a shuffle sum inside the group.
+  // The trip count is the same for every thread, so whole warps shuffle.
+  const int q = t % Z_GROUP;
+  const int group = t / Z_GROUP;
+  constexpr int kGroups = FWD_THREADS / Z_GROUP;
+  const int n_out = rows * C;
+  for (int base = 0; base < n_out; base += kGroups) {
+    const int o = base + group;
+    const int r = o / C;
+    const int c = o - r * C;
+    float sum = 0.0f;
+    if (o < n_out) {
+      const float* hr = hs + r * (hp + 1);
+      for (int j = q; j < H; j += Z_GROUP) sum = fmaf(hr[j], w2s[j * C + c], sum);
+    }
+#pragma unroll
+    for (int offset = Z_GROUP / 2; offset > 0; offset >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, offset);
+    if (o < n_out && q == 0) zbuf[(hrow0 + r) * C + c] = sum + b2s[c];
   }
 }
 
@@ -210,139 +396,225 @@ __device__ __forceinline__ float abs_grad(float pi, float pj, bool i_first) {
   return i_first ? s : -s;
 }
 
-// 2. dL/dz for all views of the block's rows, and the block's partial sums
-// (EDL, DC) at partials[2 * block]; block 0 also writes sum(rmask) at
-// partials[2 * gridDim.x]
-__global__ void __launch_bounds__(LOSS_THREADS)
-loss_kernel(float* __restrict__ zbuf, float* __restrict__ abuf, const float* __restrict__ yoh,
+// 2. dL/dz: block (32, V, LOSS_ROWS), the warp (lane, v, r) for view v of
+// row blockIdx.x * LOSS_ROWS + r, the classes across its lanes. zbuf holds z
+// and is overwritten with dL/dz. Writes the
+// block's partial sums (EDL, DC) at partials[2 * block]; block 0 also writes
+// sum(rmask) at partials[2 * gridDim.x].
+__global__ void __launch_bounds__(LOSS_ROWS * MAXV * WARP)
+loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
             const float* __restrict__ rmask, const float* __restrict__ scal,
             float* __restrict__ partials, int V, int B, int C, float fused, float lgamma_c) {
-  __shared__ float red[LOSS_THREADS];
-  __shared__ float s_sh[LOSS_ROWS][MAXV];
-  __shared__ float u_sh[LOSS_ROWS][MAXV];
-  const int r = threadIdx.x / MAXV;
-  const int v = threadIdx.x % MAXV;
+  extern __shared__ float lsm[];                      // [LOSS_ROWS * V][LOSS_ARRAYS][C]
+  __shared__ float red[LOSS_ROWS * MAXV][3];          // per warp: sum(rmask) share, EDL, DC
+  __shared__ float u_sh[LOSS_ROWS][MAXV];             // u = C / (S + eps) of each view
+  __shared__ float row_fn[LOSS_ROWS * MAXV][5];       // psi(S), psi'(S), psi(Skl), psi'(Skl),
+                                                      // gammaln(Skl) of each warp's row
+  const int lane = threadIdx.x;
+  const int v = threadIdx.y;
+  const int rr = threadIdx.z;
+  const int w = rr * V + v;                           // the hardware warp
+  const int n_warps = LOSS_ROWS * V;
+  const int b = blockIdx.x * LOSS_ROWS + rr;
+  const bool active = b < B;
+  const size_t span = static_cast<size_t>(LOSS_ARRAYS) * C;
+  float* zs = lsm + w * span;  // z
+  float* ys = zs + C;          // y
+  float* es = ys + C;          // evidence
+  float* as = es + C;          // alpha
+  float* ps = as + C;          // p = alpha / (S + eps)
+  float* kls = ps + C;         // kl = (alpha - 1)(1 - y) + 1, computed once
+  float* psa = kls + C;        // psi(alpha)
+  float* ps1a = psa + C;       // psi'(alpha)
+  float* psk = ps1a + C;       // psi(kl), where kl != alpha
+  float* ps1k = psk + C;       // psi'(kl), where kl != alpha
+  float* gps = ps1k + C;       // Gp
+  float* klist = gps + C;      // the classes whose kl != alpha, as floats
+  const float* p_row = lsm + static_cast<size_t>(rr) * V * span + 4 * C;  // p of view j: + j span
   const float coef = scal[1];
   const float gamma_t = scal[2];
   const float cf = static_cast<float>(C);
   const float vf = static_cast<float>(V);
 
+  // this warp's share of sum(rmask), added up at the block's first barrier
   float part = 0.0f;
-  for (int b = threadIdx.x; b < B; b += LOSS_THREADS) part += rmask[b];
-  const float msum = block_sum(part, red);
-  const float denom_e = fmaxf(msum * vf, 1.0f);
-  const float dc_scale = gamma_t * fused / static_cast<float>(max(1, V - 1)) / fmaxf(msum, 1.0f);
-
-  float edl_acc = 0.0f, dc_acc = 0.0f;
-  {
-    const int b = blockIdx.x * LOSS_ROWS + r;
-    const bool active = b < B && v < V;
-    const float rb = b < B ? rmask[b] : 0.0f;
-    float* zr = zbuf + (static_cast<long long>(v) * B + b) * C;
-    float* ar = abuf + (static_cast<long long>(v) * B + b) * C;
-    const float* yr = yoh + static_cast<long long>(b) * C;
-
-    // phase 1: alpha, the EDL row term and the row sums of this view
-    float S = 0.0f, Skl = 0.0f, T = 0.0f, Y = 0.0f;
-    if (active) {
-      for (int c = 0; c < C; ++c) {
-        const float a = evidence(clip10(zr[c])) + 1.0f;
-        ar[c] = a;
-        S += a;
-      }
-      const float psi_s = digamma_s(S);
-      float a_term = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float y = yr[c];
-        const float kl = (ar[c] - 1.0f) * (1.0f - y) + 1.0f;
-        if (y != 0.0f) a_term += y * (psi_s - digamma_s(ar[c]));
-        Skl += kl;
-        T += kl - 1.0f;
-        Y += y;
-      }
-      const float psi_skl = digamma_s(Skl);
-      float lg_sum = 0.0f, second = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float kl = (ar[c] - 1.0f) * (1.0f - yr[c]) + 1.0f;
-        lg_sum += gammaln_s(kl);
-        second += (kl - 1.0f) * (digamma_s(kl) - psi_skl);
-      }
-      const float first = gammaln_s(Skl) - lg_sum - lgamma_c;
-      edl_acc += (a_term + coef * (first + second)) * rb;
-      s_sh[r][v] = S;
-      u_sh[r][v] = cf / (S + kDcEps);
+  for (int i = lane + WARP * w; i < B; i += WARP * n_warps) part += rmask[i];
+  const float rb = active ? rmask[b] : 0.0f;
+  float* zr = zbuf + (static_cast<long long>(v) * B + b) * C;
+  const float* yr = yoh + static_cast<long long>(b) * C;
+  float S = 0.0f, se = 1.0f, Skl = 0.0f, T = 0.0f, Y = 0.0f, edl = 0.0f;
+  if (active) {
+    // z, y, evidence, alpha and their sum S
+    float s_part = 0.0f;
+    for (int c = lane; c < C; c += WARP) {
+      const float z = zr[c];
+      const float e = evidence(clip10(z));
+      zs[c] = z;
+      ys[c] = yr[c];
+      es[c] = e;
+      as[c] = e + 1.0f;
+      s_part += e + 1.0f;
     }
-    __syncthreads();
-
-    // phase 2: the DC term of the row, and dL/dz of this view
-    if (active) {
-      const float se = S + kDcEps;
-      const float ui = u_sh[r][v];
-      float gu = 0.0f, dc_part = 0.0f;
-      for (int j = 0; j < V; ++j) {
-        if (j == v) continue;
-        const float sej = s_sh[r][j] + kDcEps;
-        const float* aj = abuf + (static_cast<long long>(j) * B + b) * C;
-        float pd = 0.0f;
-        for (int c = 0; c < C; ++c) pd += fabsf(ar[c] / se - aj[c] / sej);
-        pd *= 0.5f;
-        const float uj = u_sh[r][j];
-        if (j > v) dc_part += 2.0f * pd * ((1.0f - ui) * (1.0f - uj));
-        gu += -2.0f * pd * (1.0f - uj);
+    S = warp_sum(s_part);
+    se = S + kDcEps;
+    // p, kl and the sums Y, Skl, T; list the classes whose kl differs from alpha
+    float y_part = 0.0f, skl_part = 0.0f, t_part = 0.0f;
+    int n_kl = 0;
+    for (int c0 = 0; c0 < C; c0 += WARP) {
+      const int c = c0 + lane;
+      bool differs = false;
+      if (c < C) {
+        const float a = as[c], y = ys[c];
+        const float kl = (a - 1.0f) * (1.0f - y) + 1.0f;
+        kls[c] = kl;
+        ps[c] = a / se;
+        y_part += y;
+        skl_part += kl;
+        t_part += kl - 1.0f;
+        differs = kl != a;
       }
-      dc_acc += dc_part / static_cast<float>(max(1, V - 1)) * rb;
+      const unsigned mask = __ballot_sync(kFull, differs);
+      if (differs) klist[n_kl + __popc(mask & ((1u << lane) - 1u))] = static_cast<float>(c);
+      n_kl += __popc(mask);
+    }
+    Y = warp_sum(y_part);
+    Skl = warp_sum(skl_part);
+    T = warp_sum(t_part);
+    __syncwarp();
 
-      if (rb != 0.0f) {
-        const float ke = rb / denom_e / vf;
-        const float kd = dc_scale * rb;
-        const float psi1_s = trigamma_s(S);
-        const float psi1_skl = trigamma_s(Skl);
-        // Gp_c for this view, and sum_c Gp_c alpha_c
-        float gpa = 0.0f;
-        for (int c = 0; c < C; ++c) {
-          const float pi = ar[c] / se;
-          float gp = 0.0f;
-          for (int j = 0; j < V; ++j) {
-            if (j == v) continue;
-            const float sej = s_sh[r][j] + kDcEps;
-            const float pj = abuf[(static_cast<long long>(j) * B + b) * C + c] / sej;
-            gp += ((1.0f - ui) * (1.0f - u_sh[r][j])) * abs_grad(pi, pj, v < j);
-          }
-          gpa += gp * ar[c];
-        }
-        for (int c = 0; c < C; ++c) {
-          const float a = ar[c];
-          const float y = yr[c];
-          const float pi = a / se;
-          float gp = 0.0f;
-          for (int j = 0; j < V; ++j) {
-            if (j == v) continue;
-            const float sej = s_sh[r][j] + kDcEps;
-            const float pj = abuf[(static_cast<long long>(j) * B + b) * C + c] / sej;
-            gp += ((1.0f - ui) * (1.0f - u_sh[r][j])) * abs_grad(pi, pj, v < j);
-          }
-          float dedl = Y * psi1_s;
-          if (y != 0.0f) dedl -= y * trigamma_s(a);
-          const float kl = (a - 1.0f) * (1.0f - y) + 1.0f;
-          dedl += coef * (1.0f - y) * ((kl - 1.0f) * trigamma_s(kl) - T * psi1_skl);
-          const float ddc = gp / se - (gpa + cf * gu) / (se * se);
-          const float dalpha = ke * dedl + kd * ddc;
-          const float z = zr[c];
-          const float zc = clip10(z);
-          const float az = fabsf(z);
-          const float clip_grad = az < 10.0f ? 1.0f : (az == 10.0f ? 0.5f : 0.0f);
-          const float sig = 1.0f / (1.0f + expf(zc - kLog1e13));
-          zr[c] = dalpha * evidence(zc) * sig * clip_grad;
-        }
+    // one argument per lane for psi and psi' (every alpha, then S, Skl and
+    // each kl that differs from its alpha: the label's, for one-hot y) and
+    // for gammaln (every kl, then Skl), in one pass
+    const int n_args = C + 2 + n_kl;
+    float lg_part = 0.0f;
+    for (int i = lane; i < n_args; i += WARP) {
+      int c = i;
+      float arg;
+      if (i < C) {
+        arg = as[i];
+      } else if (i == C) {
+        arg = S;
+      } else if (i == C + 1) {
+        arg = Skl;
       } else {
-        for (int c = 0; c < C; ++c) zr[c] = 0.0f;
+        c = static_cast<int>(klist[i - C - 2]);
+        arg = kls[c];
       }
+      float psi, psi1;
+      digamma_trigamma_s(arg, psi, psi1);
+      const float lg = gammaln_s(i < C ? kls[i] : Skl);
+      if (i < C) {
+        psa[i] = psi;
+        ps1a[i] = psi1;
+        lg_part += lg;
+      } else if (i <= C + 1) {
+        row_fn[w][2 * (i - C)] = psi;
+        row_fn[w][2 * (i - C) + 1] = psi1;
+        if (i == C) row_fn[w][4] = lg;
+      } else {
+        psk[c] = psi;
+        ps1k[c] = psi1;
+      }
+    }
+    const float lg_sum = warp_sum(lg_part);
+    __syncwarp();
+
+    // the EDL row term
+    const float psi_s = row_fn[w][0], psi_skl = row_fn[w][2];
+    float a_part = 0.0f, second_part = 0.0f;
+    for (int c = lane; c < C; c += WARP) {
+      const float a = as[c], y = ys[c], kl = kls[c];
+      if (y != 0.0f) a_part += y * (psi_s - psa[c]);
+      second_part += (kl - 1.0f) * ((kl != a ? psk[c] : psa[c]) - psi_skl);
+    }
+    const float a_term = warp_sum(a_part);
+    const float second = warp_sum(second_part);
+    const float first = row_fn[w][4] - lg_sum - lgamma_c;
+    edl = (a_term + coef * (first + second)) * rb;
+    if (lane == 0) u_sh[rr][v] = cf / se;
+  }
+  part = warp_sum(part);
+  if (lane == 0) red[w][0] = part;
+  __syncthreads();  // p and u of every view of the block's rows, the shares of sum(rmask)
+
+  float msum = 0.0f;
+  for (int i = 0; i < n_warps; ++i) msum += red[i][0];
+  float dc = 0.0f;
+  if (active) {
+    // the DC term of the row: pd_ij against every other view, the V - 1
+    // shuffle sums side by side (zeros for j = v and j >= V)
+    const float ui = u_sh[rr][v];
+    float pd[MAXV];
+#pragma unroll
+    for (int j = 0; j < MAXV; ++j) pd[j] = 0.0f;
+    for (int c = lane; c < C; c += WARP) {
+      const float pi = ps[c];
+#pragma unroll
+      for (int j = 0; j < MAXV; ++j)
+        if (j < V && j != v) pd[j] += fabsf(pi - p_row[j * span + c]);
+    }
+#pragma unroll
+    for (int j = 0; j < MAXV; ++j) pd[j] = 0.5f * warp_sum(pd[j]);
+    float gu = 0.0f, dc_part = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXV; ++j) {
+      if (j < V && j != v) {
+        const float uj = u_sh[rr][j];
+        if (j > v) dc_part += 2.0f * pd[j] * ((1.0f - ui) * (1.0f - uj));
+        gu += -2.0f * pd[j] * (1.0f - uj);
+      }
+    }
+    dc = dc_part / static_cast<float>(max(1, V - 1)) * rb;
+
+    if (rb != 0.0f) {
+      const float ke = rb / fmaxf(msum * vf, 1.0f) / vf;
+      const float kd = gamma_t * fused / static_cast<float>(max(1, V - 1)) / fmaxf(msum, 1.0f) * rb;
+      const float psi1_s = row_fn[w][1], psi1_skl = row_fn[w][3];
+      // Gp_c, once, and sum_c Gp_c alpha_c
+      float gpa_part = 0.0f;
+      for (int c = lane; c < C; c += WARP) {
+        const float pi = ps[c];
+        float gp = 0.0f;
+#pragma unroll
+        for (int j = 0; j < MAXV; ++j) {
+          if (j < V && j != v)
+            gp += ((1.0f - ui) * (1.0f - u_sh[rr][j])) * abs_grad(pi, p_row[j * span + c], v < j);
+        }
+        gps[c] = gp;
+        gpa_part += gp * as[c];
+      }
+      const float gpa = warp_sum(gpa_part);
+      for (int c = lane; c < C; c += WARP) {
+        const float a = as[c], y = ys[c], kl = kls[c];
+        float dedl = Y * psi1_s;
+        if (y != 0.0f) dedl -= y * ps1a[c];
+        dedl += coef * (1.0f - y) * ((kl - 1.0f) * (kl != a ? ps1k[c] : ps1a[c]) - T * psi1_skl);
+        const float ddc = gps[c] / se - (gpa + cf * gu) / (se * se);
+        const float dalpha = ke * dedl + kd * ddc;
+        const float z = zs[c];
+        const float zc = clip10(z);
+        const float az = fabsf(z);
+        const float clip_grad = az < 10.0f ? 1.0f : (az == 10.0f ? 0.5f : 0.0f);
+        const float sig = 1.0f / (1.0f + expf(zc - kLog1e13));
+        zr[c] = dalpha * es[c] * sig * clip_grad;
+      }
+    } else {
+      for (int c = lane; c < C; c += WARP) zr[c] = 0.0f;
     }
   }
 
-  const float edl_sum = block_sum(edl_acc, red);
-  const float dc_sum = block_sum(dc_acc, red);
-  if (threadIdx.x == 0) {
+  // the block's sums, in warp order
+  if (lane == 0) {
+    red[w][1] = edl;
+    red[w][2] = dc;
+  }
+  __syncthreads();
+  if (w == 0 && lane == 0) {
+    float edl_sum = 0.0f, dc_sum = 0.0f;
+    for (int i = 0; i < n_warps; ++i) {
+      edl_sum += red[i][1];
+      dc_sum += red[i][2];
+    }
     partials[2 * blockIdx.x] = edl_sum;
     partials[2 * blockIdx.x + 1] = dc_sum;
     if (blockIdx.x == 0) partials[2 * gridDim.x] = msum;
@@ -433,9 +705,13 @@ grad_adam_kernel(const float* __restrict__ x, const float* __restrict__ hd,
         }
       }
       if (j < H) {
-        for (int k = 0; k < dt; ++k) {
-          const long long at = (static_cast<long long>(v) * D + d0 + k) * H + j;
-          adamw(w1 + at, m1 + at, v1 + at, acc[k], bc1, bc2, lr, wd);
+        // unrolled over the tile with a guard, so acc stays in registers
+#pragma unroll
+        for (int k = 0; k < DT; ++k) {
+          if (k < dt) {
+            const long long at = (static_cast<long long>(v) * D + d0 + k) * H + j;
+            adamw(w1 + at, m1 + at, v1 + at, acc[k], bc1, bc2, lr, wd);
+          }
         }
       }
     }
@@ -468,6 +744,15 @@ grad_adam_kernel(const float* __restrict__ x, const float* __restrict__ hd,
   }
 }
 
+// dynamic shared memory above 48 KB needs the kernel's opt-in
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, int max_bytes) {
+  if (bytes > static_cast<size_t>(max_bytes)) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 }  // namespace
 
 extern "C" {
@@ -475,38 +760,39 @@ extern "C" {
 // xs (S, V, B, D), drops (S, V, B, H) or null (no dropout), yohs (S, B, C),
 // rmasks (S, B, 1), bc1s/bc2s (S, 1), scal = [lr, coef, gamma_t]; params,
 // moments and second moments (w1 (V, D, H), b1 (V, H), w2 (V, H, C),
-// b2 (V, C)) are updated in place; losses (S,); hd, dh (V, B, H),
-// zbuf, abuf (V, B, C) and partials (2 * ceil(B / 16) + 1) are scratch.
-// All float32, contiguous, on one device.
+// b2 (V, C)) are updated in place; losses (S,); hd, dh (V, B, H), zbuf
+// (V, B, C: the logits, then dL/dz) and partials (2 * ceil(B / LOSS_ROWS)
+// + 1 floats; 2 B + 1 always suffice) are scratch. All float32, contiguous,
+// on one device.
 // Launches on `stream` and returns the first CUDA error (0 when none).
 int dmf_probe_epoch(const void* xs, const void* drops, const void* yohs, const void* rmasks,
                     const void* bc1s, const void* bc2s, const void* scal, void* w1, void* b1,
                     void* w2, void* b2, void* m1, void* m2, void* m3, void* m4, void* v1,
                     void* v2, void* v3, void* v4, void* losses, void* hd, void* zbuf,
-                    void* abuf, void* dh, void* partials, int S, int V, int B, int D,
-                    int H, int C,
+                    void* dh, void* partials, int S, int V, int B, int D, int H, int C,
                     float inv_keep, float fused, float wd, float lgamma_c, void* stream) {
-  if (V < 1 || V > MAXV || B < 1 || D < 1 || H < 1 || C < 1)
+  if (V < 1 || V > MAXV || B < 1 || D < 1 || H < 1 || H > MAX_HIDDEN || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t fwd_smem = sizeof(float) * (static_cast<size_t>(TB) * KD +
-                                           static_cast<size_t>(TB) * (H + 1));
-  if (fwd_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(fwd_smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int device = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t fwd_smem = sizeof(float) * fwd_smem_floats(D, H, C);
+  const size_t loss_smem = sizeof(float) * static_cast<size_t>(LOSS_ROWS) * V * LOSS_ARRAYS * C;
   const size_t dh_smem = sizeof(float) * static_cast<size_t>(TB) * C;
-  if (dh_smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dh_smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  if ((e = allow_smem(forward_kernel, fwd_smem, max_smem)) != cudaSuccess ||
+      (e = allow_smem(loss_kernel, loss_smem, max_smem)) != cudaSuccess ||
+      (e = allow_smem(dh_kernel, dh_smem, max_smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  const dim3 fwd_grid((B + FWD_ROWS - 1) / FWD_ROWS, V);
+  const int n_loss = (B + LOSS_ROWS - 1) / LOSS_ROWS;
+  const dim3 loss_block(WARP, V, LOSS_ROWS);
   const dim3 row_grid((B + TB - 1) / TB, V);
   const int n_w1 = (D + DT - 1) / DT;
   const int n_w2 = (H * C + THREADS - 1) / THREADS;
   const dim3 grad_grid(n_w1 + n_w2 + 1, V);
-  const int n_loss = (B + LOSS_ROWS - 1) / LOSS_ROWS;
   float* pp = static_cast<float*>(partials);
   const float* x0 = static_cast<const float*>(xs);
   const float* d0 = static_cast<const float*>(drops);
@@ -514,19 +800,18 @@ int dmf_probe_epoch(const void* xs, const void* drops, const void* yohs, const v
   const float* r0 = static_cast<const float*>(rmasks);
   float* hdp = static_cast<float*>(hd);
   float* zp = static_cast<float*>(zbuf);
-  float* ap = static_cast<float*>(abuf);
   float* dhp = static_cast<float*>(dh);
   const long long vb = static_cast<long long>(V) * B;
   for (int s = 0; s < S; ++s) {
-    forward_kernel<<<row_grid, THREADS, fwd_smem, st>>>(
+    forward_kernel<<<fwd_grid, FWD_THREADS, fwd_smem, st>>>(
         x0 + s * vb * D, d0 == nullptr ? nullptr : d0 + s * vb * H,
         static_cast<const float*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(w2), static_cast<const float*>(b2), hdp, zp, B, D, H, C,
         inv_keep);
-    cudaError_t e = cudaGetLastError();
+    e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    loss_kernel<<<n_loss, LOSS_THREADS, 0, st>>>(
-        zp, ap, y0 + static_cast<long long>(s) * B * C, r0 + static_cast<long long>(s) * B,
+    loss_kernel<<<n_loss, loss_block, loss_smem, st>>>(
+        zp, y0 + static_cast<long long>(s) * B * C, r0 + static_cast<long long>(s) * B,
         static_cast<const float*>(scal), pp, V, B, C, fused, lgamma_c);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);

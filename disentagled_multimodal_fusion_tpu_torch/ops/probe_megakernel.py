@@ -20,10 +20,12 @@ S=16): ~79 MFLOP of f32 per step, 1.26 GFLOP per epoch, 19 us at
 67 TFLOP/s, against 19 MB per epoch when each input is read once and the
 state (p, m, v: 2.3 MB) read once and written once (6 us at 3.35 TB/s):
 bound by operations. This design re-reads and re-writes the state every
-step (87 MB per epoch, 26 us), because it does not fit one SM's shared
-memory; it launches four kernels per step from one C call per epoch
-(forward, loss, dh, gradient + AdamW), and launch latency, not the bound,
-sets its time.
+step (87 MB per epoch), because it does not fit one SM's shared memory; it
+launches four kernels per step from one C call per epoch (forward with W1
+brought into shared memory by bulk asynchronous copies, loss with a warp per
+(row, view), dh, gradient + AdamW). A forward block covers all of H with
+four hidden units per lane, so the kernel takes H <= 128 (the config's
+128).
 
 ``run_epoch_plain`` is the plain PyTorch version, with autograd through the
 same Stirling series and custom gradients at the ties. The wrapper takes it
@@ -47,6 +49,7 @@ from .special import digamma_stirling, gammaln_stirling
 
 KERNEL_SOURCE = "probe_epoch"
 MAX_VIEWS = 8
+MAX_HIDDEN = 128  # four hidden units per lane of a warp in the forward kernel
 DC_EPS = 1e-8  # ops/dirichlet.dc_loss
 
 
@@ -125,7 +128,7 @@ def _kernel():
 
     fn = load_library(KERNEL_SOURCE).dmf_probe_epoch
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 7 + [p] * 12 + [p] * 6 + [i32] * 6 + [f32] * 4 + [p]
+    fn.argtypes = [p] * 7 + [p] * 12 + [p] * 5 + [i32] * 6 + [f32] * 4 + [p]
     fn.restype = i32
     return fn
 
@@ -163,6 +166,8 @@ def run_epoch_kernel(xs, drops, yohs, rmasks, bc1s, bc2s, lr, coef, gamma_t,
     h, c = params[0].shape[-1], params[2].shape[-1]
     if not 1 <= v <= MAX_VIEWS:
         raise ValueError(f"the kernel takes 1 to {MAX_VIEWS} views, got {v}")
+    if h > MAX_HIDDEN:
+        raise ValueError(f"the kernel takes at most {MAX_HIDDEN} hidden units, got {h}")
     if c != num_classes:
         raise ValueError(f"w2 has {c} classes, num_classes is {num_classes}")
     state_shapes = [(v, d, h), (v, h), (v, h, c), (v, c)]
@@ -187,13 +192,13 @@ def run_epoch_kernel(xs, drops, yohs, rmasks, bc1s, bc2s, lr, coef, gamma_t,
         return tuple(params), tuple(mus), tuple(nus), losses
     scal = torch.stack([_scalar(lr, xs.device), _scalar(coef, xs.device),
                         _scalar(gamma_t, xs.device)])
-    # scratch: dropped hidden activations, logits -> dL/dz, alpha, dL/dh and
-    # the loss kernel's partial sums (two per block of 16 rows, then sum(rmask))
+    # scratch: dropped hidden activations, logits -> dL/dz, dL/dh and the
+    # loss kernel's partial sums (two per block of rows, then sum(rmask):
+    # 2 b + 1 floats hold them however many rows a block takes)
     hd = torch.empty((v, b, h), dtype=torch.float32, device=xs.device)
     zbuf = torch.empty((v, b, c), dtype=torch.float32, device=xs.device)
-    abuf = torch.empty_like(zbuf)
     dh = torch.empty_like(hd)
-    partials = torch.empty(2 * (-(-b // 16)) + 1, dtype=torch.float32, device=xs.device)
+    partials = torch.empty(2 * b + 1, dtype=torch.float32, device=xs.device)
     drop_ptr = drops.data_ptr() if keep < 1.0 else None
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -201,8 +206,7 @@ def run_epoch_kernel(xs, drops, yohs, rmasks, bc1s, bc2s, lr, coef, gamma_t,
             xs.data_ptr(), drop_ptr, yohs.data_ptr(), rmasks.data_ptr(), bc1s.data_ptr(),
             bc2s.data_ptr(), scal.data_ptr(),
             *(t.data_ptr() for t in (*params, *mus, *nus)),
-            losses.data_ptr(), hd.data_ptr(), zbuf.data_ptr(), abuf.data_ptr(), dh.data_ptr(),
-            partials.data_ptr(),
+            losses.data_ptr(), hd.data_ptr(), zbuf.data_ptr(), dh.data_ptr(), partials.data_ptr(),
             s, v, b, d, h, c,
             float(np.float32(1.0 / keep)), float(fused), float(weight_decay),
             math.lgamma(float(num_classes)),

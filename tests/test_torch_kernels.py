@@ -119,11 +119,20 @@ def test_cuda_head_kernel_refuses_a_gradient():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("v,b,d,h,c,tail", [(3, 16, 12, 8, 5, 6), (7, 100, 200, 128, 10, None)])
+@pytest.mark.parametrize("v,b,d,h,c,tail", [
+    (3, 16, 12, 8, 5, 6),
+    (7, 100, 200, 128, 10, None),
+    (8, 50, 37, 30, 68, 17),      # more classes than lanes, the most views, odd widths
+    (4, 100, 200, 128, 15, None),
+])
 def test_cuda_probe_epoch_kernel_matches_plain(v, b, d, h, c, tail):
     """One epoch of S = 3 steps, kernel against plain version on the card, at
     the tolerances of the CPU parity test (losses rtol 2e-5 / atol 2e-6;
-    p, m, v rtol 5e-3 / atol 5e-5)."""
+    p, m, v rtol 5e-3 / atol 5e-5). D and H that are not multiples of 4 take
+    the forward kernel's 4-byte copies. The moments start small and random,
+    as in chip_smoke.py: from zero moments Adam's first steps map a gradient
+    near zero to about +-lr, and at V=4, C=15 the float32 plain version
+    itself then misses its float64 twin on one W1 entry."""
     from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
 
     _needs_cuda()
@@ -145,12 +154,13 @@ def test_cuda_probe_epoch_kernel_matches_plain(v, b, d, h, c, tail):
                t((1 - np.float32(0.999) ** counts)[:, None])]
     shapes = [(v, d, h), (v, h), (v, h, c), (v, c)]
     params = tuple(t((rng.random(sh) * 2 - 1) * 0.2) for sh in shapes)
-    zeros = tuple(torch.zeros_like(p) for p in params)
+    mus = tuple(t(rng.standard_normal(sh) * 1e-3) for sh in shapes)
+    nus = tuple(t(rng.random(sh) * 1e-6) for sh in shapes)
     kw = dict(keep=keep, fused=1.0, num_classes=c, weight_decay=1e-2)
-    ref = pm.run_epoch_plain(*streams, 3e-3, 0.4, 0.68, params, zeros, zeros, **kw)
+    ref = pm.run_epoch_plain(*streams, 3e-3, 0.4, 0.68, params, mus, nus, **kw)
     before = pm.run_epoch_kernel.launches
-    got = pm.run_epoch_kernel(*streams, 3e-3, 0.4, 0.68, tuple(p.clone() for p in params),
-                              tuple(z.clone() for z in zeros), tuple(z.clone() for z in zeros),
+    clone = lambda ts: tuple(x.clone() for x in ts)  # noqa: E731
+    got = pm.run_epoch_kernel(*streams, 3e-3, 0.4, 0.68, clone(params), clone(mus), clone(nus),
                               **kw)
     torch.cuda.synchronize()
     assert pm.run_epoch_kernel.launches == before + 1
