@@ -9,14 +9,19 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    started together), its time and ptxas report (no stack frame and no
    spills in any kernel);
 3. every kernel against its plain PyTorch version on the card: the
-   evidential head at the test and serving shapes (rtol 1e-4 / atol 1e-5),
+   evidential head at the test and serving shapes and at every dataset's
+   validation shapes (HandWritten at B=400, CUB, PIE, Scene; H=256),
+   against float64 too, strided and contiguous x bitwise equal
+   (rtol 1e-4 / atol 1e-5),
    the probe epoch at the test shapes (ragged tail, ties at +10 and in
    |p_i - p_j|, odd D/H/C), at HandWritten's V = 7 and 6, over one epoch,
    five chained epochs and against float64, and at C = 68 (V = 4, 8) and
    C = 15 (V = 8) with ragged tails and ties (losses rtol 2e-5 / atol 2e-6;
    p, m, v rtol 5e-3 / atol 5e-5);
 4. kernel, plain and library times (CUDA events, profiler device time)
-   beside the least time the card could take for the same work; the
+   beside the least time the card could take for the same work, the head
+   kernel's device time at every main-path shape (serving buckets and
+   validation); the
    profiler window of the probe epoch must hold exactly its four kernels,
    16 launches each per epoch, and nothing else but the wrapper's PyTorch
    operations;
@@ -36,6 +41,12 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    through the step loop from one generator state: the same losses (rtol
    2e-5 / atol 2e-6), val_acc equal, parameters at rtol 5e-3 / atol 5e-5.
 
+The serving and training phases also count the head kernel's calls by
+shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
+of the package first on the path and prints its times at the main-path
+shapes as one JSON line: copied into an unpacked checkout of another
+commit, it times that commit's kernel in the same call.
+
 It prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
@@ -43,6 +54,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import re
 import subprocess
@@ -50,6 +63,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -137,12 +151,33 @@ def assert_outputs_match(got, ref, label):
             raise AssertionError(f"{label}: pred differs at row {row} without a tie")
 
 
+# (V, B, D, H, C) of the head kernel on the main path: the serving buckets
+# of dmvae_cml (V=7), dmvae_dis (V=6) and cml_fusion (V=6, D=240), then the
+# validation and evaluation forwards on each dataset's test split (B=400 on
+# HandWritten carries most launches): late fusion at the widest view and
+# the probes at the embedding width 200
+SERVING_SHAPES = [(v, b, d, 128, 10) for v, d in ((7, 200), (6, 200), (6, 240)) for b in BUCKETS]
+VALIDATION_SHAPES = [
+    (7, 400, 200, 128, 10), (6, 400, 200, 128, 10), (6, 400, 240, 128, 10),  # HandWritten
+    (2, 120, 1024, 128, 10), (3, 120, 200, 128, 10),  # CUB late fusion, probe
+    (3, 136, 484, 128, 68), (4, 136, 200, 128, 68),  # PIE
+    (3, 897, 59, 128, 15), (4, 897, 200, 128, 15),  # Scene
+]
+MAIN_PATH_SHAPES = SERVING_SHAPES + VALIDATION_SHAPES
+
+
+def shape_key(v, b, d, h, c):
+    return f"V={v},B={b},D={d},H={h},C={c}"
+
+
 def phase_kernel_checks(ck):
     """Kernel against plain version; returns the largest abs error at the
     serving shapes."""
     shapes = [(1, 100, 200, 128, 10), (1, 13, 47, 33, 68), (3, 32, 16, 24, 5), (1, 600, 40, 32, 10)]
     shapes += [(v, b, d, 128, 10) for v, d in ((7, 200), (6, 200), (6, 240))
                for b in (1, 8, 64, 256, 1000)]
+    # the validation shapes, a wider head (two H tiles per block of a cluster)
+    shapes += VALIDATION_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
     worst = 0.0
     for i, (v, b, d, h, c) in enumerate(shapes):
         args = head_inputs(v, b, d, h, c, seed=i)
@@ -191,17 +226,39 @@ def phase_kernel_times(ck, card):
     return main_row
 
 
-def phase_device_time(ck):
-    """Device-only time of the kernel at the probe's B=256 shape from the
-    profiler, or None when the profiler reports no device time."""
+@contextlib.contextmanager
+def head_shape_tally():
+    """Counts the head kernel's calls on the card by (V, B, D, H, C) while
+    the main path runs, through the name the probes and late-fusion heads
+    call it by; the launch count itself stays the wrapper's."""
+    from disentagled_multimodal_fusion_tpu_torch.models import probes
+
+    real = probes.evidential_heads_stacked
+    tally = collections.Counter()
+
+    def counted(x, w1, b1, w2, b2):
+        if x.device.type == "cuda":
+            tally[shape_key(*x.shape, w1.shape[-1], w2.shape[-1])] += 1
+        return real(x, w1, b1, w2, b2)
+
+    probes.evidential_heads_stacked = counted
+    try:
+        yield tally
+    finally:
+        probes.evidential_heads_stacked = real
+
+
+def head_device_ms(ck, shape, n=100):
+    """Device-only time of the head kernel at one shape from the profiler,
+    or None when the profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = head_inputs(7, 256, 200, 128, 10, seed=0)
+    args = head_inputs(*shape, seed=0)
     for _ in range(10):
         ck.evidential_heads_stacked(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(100):
+        for _ in range(n):
             ck.evidential_heads_stacked(*args)
         torch.cuda.synchronize()
     for ev in prof.key_averages():
@@ -210,6 +267,23 @@ def phase_device_time(ck):
             if total_us > 0 and ev.count:
                 return total_us / ev.count / 1e3
     return None
+
+
+def phase_device_time(ck, card):
+    """The head kernel at every main-path shape: profiler device time, CUDA
+    events per call (the wrapper's host work included, so events minus
+    device time is the wrapper's cost when the host is the limit) and the
+    bound. Returns {shape key: device ms}."""
+    device = {}
+    for shape in MAIN_PATH_SHAPES:
+        ms = head_device_ms(ck, shape)
+        events = event_ms(ck.evidential_heads_stacked, head_inputs(*shape, seed=1))
+        bound_ms, bound_by = head_bound(*shape)
+        device[shape_key(*shape)] = ms
+        log(f"device time evidential_head {shape_key(*shape)}: "
+            + (f"{ms:.5f} ms" if ms is not None else "not measured")
+            + f", events {events:.5f} ms per call, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    return device
 
 
 def epoch_inputs(s, v, b, d, h, c, seed, keep=0.9, tail=None, ties=False):
@@ -403,7 +477,6 @@ def phase_training(ck, pm, card):
     import os
     import shutil
     import tempfile
-    from pathlib import Path
 
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
     from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
@@ -416,14 +489,15 @@ def phase_training(ck, pm, card):
     old = os.environ.get("DMF_ARTIFACT_ROOT")
     os.environ["DMF_ARTIFACT_ROOT"] = scratch
     try:
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
-        t0 = time.perf_counter()
-        rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions", "Normal",
-                            "--probe-engine", "megakernel"])
-        wall = time.perf_counter() - t0
-        epoch_launches = pm.run_epoch_kernel.launches
-        head_launches = ck.evidential_heads_stacked.launches
+        with head_shape_tally() as shapes:
+            pm.run_epoch_kernel.launches = 0
+            ck.evidential_heads_stacked.launches = 0
+            t0 = time.perf_counter()
+            rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
+                                "Normal", "--probe-engine", "megakernel"])
+            wall = time.perf_counter() - t0
+            epoch_launches = pm.run_epoch_kernel.launches
+            head_launches = ck.evidential_heads_stacked.launches
     finally:
         if old is None:
             os.environ.pop("DMF_ARTIFACT_ROOT")
@@ -445,9 +519,13 @@ def phase_training(ck, pm, card):
     if head_launches < 6 * probe_epochs:
         raise AssertionError(f"evidential_head launched {head_launches} times, expected at "
                              f"least one per epoch of the six fits ({6 * probe_epochs})")
+    if sum(shapes.values()) != head_launches:
+        raise AssertionError(f"head calls by shape {dict(shapes)} do not add up to "
+                             f"{head_launches} launches")
     log(f"train: HandWritten Normal seed 0 in {wall:.1f} s; probe_epoch launched "
-        f"{epoch_launches} times, evidential_head {head_launches} times [{card}]")
-    return epoch_launches, head_launches
+        f"{epoch_launches} times, evidential_head {head_launches} times "
+        f"(by shape {dict(shapes)}) [{card}]")
+    return epoch_launches, head_launches, dict(shapes)
 
 
 def phase_engines(card):
@@ -534,13 +612,16 @@ def phase_serving(ck, card):
     from disentagled_multimodal_fusion_tpu_torch.runners import serve as runner
 
     reps = 30
-    ck.evidential_heads_stacked.launches = 0
-    reports = [runner.main(serve_args(name, "cuda") + ["--reps", str(reps)])
-               for name in SERVED_MODELS]
-    launches = ck.evidential_heads_stacked.launches
+    with head_shape_tally() as shapes:
+        ck.evidential_heads_stacked.launches = 0
+        reports = [runner.main(serve_args(name, "cuda") + ["--reps", str(reps)])
+                   for name in SERVED_MODELS]
+        launches = ck.evidential_heads_stacked.launches
     expected = len(SERVED_MODELS) * len(BUCKETS) * (reps + 1)
-    if launches != expected:
-        raise AssertionError(f"evidential_head launched {launches} times, expected {expected}")
+    if launches != expected or sum(shapes.values()) != launches:
+        raise AssertionError(f"evidential_head launched {launches} times, expected {expected} "
+                             f"(by shape {dict(shapes)})")
+    log(f"serve: evidential_head launches by shape {dict(shapes)}")
     for rep in reports:
         for row in rep["buckets"]:
             log(f"serve {rep['model']} bucket {row['bucket']}: {row['latency_ms']:.4f} ms, "
@@ -562,7 +643,7 @@ def phase_serving(ck, card):
             ref = to_host(infer_cpu(tuple(x[:b].cpu() for x in xs)))
             assert_outputs_match(got, ref, f"{name} bucket {b} card vs CPU")
         log(f"serve {name}: card outputs match the CPU plain path at buckets {list(BUCKETS)}")
-    return launches
+    return launches, dict(shapes)
 
 
 def phase_daemon_and_http(card):
@@ -627,10 +708,38 @@ def phase_daemon_and_http(card):
     log(f"daemon: all {len(answers)} answers match direct engine calls")
 
 
+def head_times_only(card):
+    """``--head-times``: build the head kernel of whichever package is first
+    on the path and print its device and event times at every main-path
+    shape as one JSON line. Run from a copy of this script placed in an
+    unpacked checkout of another commit, it times that commit's kernel in
+    the same call (parent, change, change, parent)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+
+    configure()
+    cuda_build.build([ck.KERNEL_SOURCE])
+    rows = {}
+    for shape in MAIN_PATH_SHAPES + [(7, 256, 200, 256, 10)]:
+        args = head_inputs(*shape, seed=0)
+        assert_close(ck.evidential_heads_stacked(*args), ck.evidential_heads_stacked_plain(*args),
+                     f"evidential_head {shape_key(*shape)}")
+        bound_ms, bound_by = head_bound(*shape)
+        rows[shape_key(*shape)] = dict(device_ms=head_device_ms(ck, shape),
+                                       events_ms=event_ms(ck.evidential_heads_stacked, args),
+                                       bound_ms=bound_ms, bound_by=bound_by)
+    print(json.dumps({"package": str(Path(ck.__file__).resolve().parents[1]), "card": card,
+                      "head_times": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--head-times"]:
+        return head_times_only(card_line())
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
@@ -657,14 +766,12 @@ def main() -> int:
     max_abs_err = phase_kernel_checks(ck)
     epoch_abs_err = phase_probe_epoch_checks(pm)
     timing = phase_kernel_times(ck, card)
-    device_ms = phase_device_time(ck)
-    log("profiler device time evidential_head V=7 B=256 D=200: "
-        + (f"{device_ms:.5f} ms [{card}]" if device_ms is not None else "not measured"))
+    device_by_shape = phase_device_time(ck, card)
     epoch_timing, _ = phase_probe_epoch_times(pm, card)
-    serve_launches = phase_serving(ck, card)
+    serve_launches, serve_shapes = phase_serving(ck, card)
     phase_request_profile(card)
     phase_daemon_and_http(card)
-    epoch_launches, train_head_launches = phase_training(ck, pm, card)
+    epoch_launches, train_head_launches, train_shapes = phase_training(ck, pm, card)
     phase_engines(card)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -677,6 +784,8 @@ def main() -> int:
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches},
         "max_abs_err": max_abs_err,
         **timing,
+        "device_ms_by_shape": device_by_shape,
+        "launches_by_shape": {"serving": serve_shapes, "training": train_shapes},
     }, {
         "name": "probe_epoch",
         "route": "cuda",

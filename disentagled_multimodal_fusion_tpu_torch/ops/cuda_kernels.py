@@ -9,8 +9,8 @@ V stacked heads in one launch. It replaces the Pallas TPU kernel
 On an H100 at the serving shape (B=256, V=7, D=200, H=128, C=10) the kernel
 is bound by f32 operations (96.3 MFLOP, 1.44 us at 67 TFLOP/s) more than by
 bytes (~2.26 MB, 0.68 us at 3.35 TB/s); at B=1 the weights make it bound by
-bytes. Its design keeps relu(h) in shared memory so the hidden activations
-never reach device memory (see the source for the rest).
+bytes. Its design keeps relu(h) on chip so the hidden activations never
+reach device memory (see the source for the rest).
 
 The kernel has no backward: the wrapper raises when a gradient is wanted
 (grad mode on and an input requiring grad), on any device, so a training

@@ -37,6 +37,12 @@ def _head_inputs(rng, b, d, h, c, scale, bias_scale):
         (100, 200, 128, 10, 0.05, 0.01),  # the probe head's shape
         (13, 47, 33, 68, 0.1, 0.0),       # deliberately unaligned
         (600, 40, 32, 10, 0.1, 0.0),      # ragged tail past a 512-row tile
+        # the main path's late-fusion widths, narrowed in B: CUB (D=1024),
+        # PIE (D=484, C=68), Scene (D=59, C=15), and a head wider than 128
+        (120, 1024, 128, 10, 0.03, 0.01),
+        (136, 484, 128, 68, 0.05, 0.01),
+        (97, 59, 128, 15, 0.1, 0.01),
+        (64, 200, 256, 10, 0.05, 0.01),
     ],
 )
 def test_head_matches_jax(b, d, h, c, scale, bias_scale):
@@ -85,7 +91,13 @@ def test_cuda_kernel_matches_plain():
 
     configure()  # the plain version on cuBLAS in full float32, no TF32
     rng = np.random.default_rng(7)
-    for v, b, d, h, c in [(7, 256, 200, 128, 10), (6, 1, 240, 128, 10), (1, 13, 47, 33, 68)]:
+    shapes = [(7, 256, 200, 128, 10), (6, 1, 240, 128, 10), (1, 13, 47, 33, 68)]
+    # validation on HandWritten's test split, and the other datasets' late
+    # fusion and probe widths
+    shapes += [(7, 400, 200, 128, 10), (6, 400, 240, 128, 10), (2, 120, 1024, 128, 10),
+               (3, 136, 484, 128, 68), (3, 97, 59, 128, 15), (4, 897, 200, 128, 15),
+               (7, 256, 200, 256, 10)]
+    for v, b, d, h, c in shapes:
         xs = torch.from_numpy(rng.standard_normal((v, b, d)).astype(np.float32)).cuda()
         ws = [
             torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).cuda()
