@@ -39,13 +39,37 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    probe fits and the head kernel at least once per epoch of every fit;
 9. one probe fit of 3 epochs at full width through the epoch kernel and
    through the step loop from one generator state: the same losses (rtol
-   2e-5 / atol 2e-6), val_acc equal, parameters at rtol 5e-3 / atol 5e-5.
+   2e-5 / atol 2e-6), val_acc equal, parameters at rtol 5e-3 / atol 5e-5;
+10. the head kernel under ``torch.func.vmap``: five seeds of the
+    HandWritten heads in one launch at 5 x V heads, equal to the five
+    per-seed launches (rtol 1e-4 / atol 1e-5); the stacked shapes are also
+    checked against the plain version and float64 in phase 3 and timed in
+    phase 4;
+11. the seed-batched path, ``runners/run.py --vmap-seeds`` on HandWritten
+    Normal, seeds 0-4, at full depth: every fused accuracy of every seed at
+    least 0.95, the head kernel launched once per validation epoch and once
+    per evaluation of each seed-batched fit, all at the stacked shapes;
+    each fit's wall time, and the cell's wall time per seed beside the
+    sequential seed-0 cell of phase 8;
+12. ``--vmap-seeds`` and ``--one-program-cells`` (seeds 0 1, ``--quick``)
+    give equal rows (rtol 1e-6), and ``train_many`` equals ``train`` seed by
+    seed over a short fit (losses rtol 2e-5 / atol 2e-6, parameters rtol
+    5e-3 / atol 5e-5: batched and single cuBLAS products may sum in another
+    order, and Adam's division by sqrt(v) + eps grows that on entries whose
+    gradient is near zero);
+13. restore: seed 0's ``dmvae_cml`` and ``cml_fusion`` served from phase
+    11's checkpoints through ``runners/serve.py``'s default paths, equal to
+    the in-memory models' answers, and ``runners/evaluate.py`` reporting
+    phase 11's fused accuracy of seed 0's ``dmvae_cml``.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
 of the package first on the path and prints its times at the main-path
 shapes as one JSON line: copied into an unpacked checkout of another
-commit, it times that commit's kernel in the same call.
+commit, it times that commit's kernel in the same call. ``python3
+chip_smoke.py --engine-times`` only times ``--vmap-seeds`` against
+``--one-program-cells`` on two full-depth HandWritten cells (about 35
+minutes) and checks that their reports agree.
 
 It prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -74,6 +98,7 @@ BUCKETS = (1, 8, 64, 256)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
+SEEDS = (0, 1, 2, 3, 4)
 
 
 def log(*parts):
@@ -163,7 +188,10 @@ VALIDATION_SHAPES = [
     (3, 136, 484, 128, 68), (4, 136, 200, 128, 68),  # PIE
     (3, 897, 59, 128, 15), (4, 897, 200, 128, 15),  # Scene
 ]
-MAIN_PATH_SHAPES = SERVING_SHAPES + VALIDATION_SHAPES
+# the seed-batched fits' validation and evaluation: five seeds of the
+# HandWritten heads in one launch
+STACKED_SHAPES = [(len(SEEDS) * v, b, d, h, c) for v, b, d, h, c in VALIDATION_SHAPES[:3]]
+MAIN_PATH_SHAPES = SERVING_SHAPES + VALIDATION_SHAPES + STACKED_SHAPES
 
 
 def shape_key(v, b, d, h, c):
@@ -177,7 +205,7 @@ def phase_kernel_checks(ck):
     shapes += [(v, b, d, 128, 10) for v, d in ((7, 200), (6, 200), (6, 240))
                for b in (1, 8, 64, 256, 1000)]
     # the validation shapes, a wider head (two H tiles per block of a cluster)
-    shapes += VALIDATION_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
+    shapes += VALIDATION_SHAPES + STACKED_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
     worst = 0.0
     for i, (v, b, d, h, c) in enumerate(shapes):
         args = head_inputs(v, b, d, h, c, seed=i)
@@ -228,24 +256,24 @@ def phase_kernel_times(ck, card):
 
 @contextlib.contextmanager
 def head_shape_tally():
-    """Counts the head kernel's calls on the card by (V, B, D, H, C) while
-    the main path runs, through the name the probes and late-fusion heads
-    call it by; the launch count itself stays the wrapper's."""
-    from disentagled_multimodal_fusion_tpu_torch.models import probes
+    """Counts the head kernel's launches by (V, B, D, H, C) while the main
+    path runs, at the wrapper's launch function (so a vmapped call counts
+    at the S x V heads it launches); the launch count itself stays the
+    wrapper's."""
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
 
-    real = probes.evidential_heads_stacked
+    real = ck._launch
     tally = collections.Counter()
 
     def counted(x, w1, b1, w2, b2):
-        if x.device.type == "cuda":
-            tally[shape_key(*x.shape, w1.shape[-1], w2.shape[-1])] += 1
+        tally[shape_key(*x.shape, w1.shape[-1], w2.shape[-1])] += 1
         return real(x, w1, b1, w2, b2)
 
-    probes.evidential_heads_stacked = counted
+    ck._launch = counted
     try:
         yield tally
     finally:
-        probes.evidential_heads_stacked = real
+        ck._launch = real
 
 
 def head_device_ms(ck, shape, n=100):
@@ -470,40 +498,47 @@ def phase_probe_epoch_times(pm, card):
                 library_ms=None), device_ms
 
 
-def phase_training(ck, pm, card):
-    """The training path: runners/run.py main on HandWritten Normal, seed 0,
-    with the probe fits through the epoch kernel, in a scratch artifact root
-    under chip_scratch/. Returns both kernels' launch counts over it."""
+@contextlib.contextmanager
+def artifact_root(prefix):
+    """A scratch artifact root under chip_scratch/ for the runners'
+    checkpoints, logs and reports, removed on exit."""
     import os
     import shutil
     import tempfile
 
-    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
-    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
-
-    C = make_getter(load_config())
-    probe_epochs = C("probes.model_epochs")
     root = Path(__file__).resolve().parent / "chip_scratch"
     root.mkdir(exist_ok=True)
-    scratch = tempfile.mkdtemp(prefix="train_", dir=root)
+    scratch = tempfile.mkdtemp(prefix=prefix, dir=root)
     old = os.environ.get("DMF_ARTIFACT_ROOT")
     os.environ["DMF_ARTIFACT_ROOT"] = scratch
     try:
-        with head_shape_tally() as shapes:
-            pm.run_epoch_kernel.launches = 0
-            ck.evidential_heads_stacked.launches = 0
-            t0 = time.perf_counter()
-            rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
-                                "Normal", "--probe-engine", "megakernel"])
-            wall = time.perf_counter() - t0
-            epoch_launches = pm.run_epoch_kernel.launches
-            head_launches = ck.evidential_heads_stacked.launches
+        yield scratch
     finally:
         if old is None:
             os.environ.pop("DMF_ARTIFACT_ROOT")
         else:
             os.environ["DMF_ARTIFACT_ROOT"] = old
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+def phase_training(ck, pm, card):
+    """The training path: runners/run.py main on HandWritten Normal, seed 0,
+    with the probe fits through the epoch kernel. Returns both kernels'
+    launch counts over it and the cell's wall time."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    probe_epochs = C("probes.model_epochs")
+    with artifact_root("train_"), head_shape_tally() as shapes:
+        pm.run_epoch_kernel.launches = 0
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
+                            "Normal", "--probe-engine", "megakernel"])
+        wall = time.perf_counter() - t0
+        epoch_launches = pm.run_epoch_kernel.launches
+        head_launches = ck.evidential_heads_stacked.launches
     models = rows[0]["Normal"]["HandWritten"]
     for name, info in models.items():
         acc = info["fused"]["accuracy"]
@@ -525,7 +560,7 @@ def phase_training(ck, pm, card):
     log(f"train: HandWritten Normal seed 0 in {wall:.1f} s; probe_epoch launched "
         f"{epoch_launches} times, evidential_head {head_launches} times "
         f"(by shape {dict(shapes)}) [{card}]")
-    return epoch_launches, head_launches, dict(shapes)
+    return epoch_launches, head_launches, dict(shapes), wall
 
 
 def phase_engines(card):
@@ -565,6 +600,213 @@ def phase_engines(card):
     log(f"engines: dmvae_cml 3 epochs at full width, epoch kernel vs step loop: train loss "
         f"{rk.train_loss.tolist()} vs {rs.train_loss.tolist()}, val_acc equal, params max abs "
         f"err {err:.3e} [{card}]")
+
+
+def phase_vmapped_heads(ck, card):
+    """Five seeds of each HandWritten head set through ``torch.func.vmap``:
+    one launch at 5 x V heads, equal to the five per-seed launches and to
+    the vmapped plain version."""
+    s_count = len(SEEDS)
+    for v, b, d, h, c in VALIDATION_SHAPES[:3]:
+        per_seed = [head_inputs(v, b, d, h, c, seed=100 + s) for s in range(s_count)]
+        stacked = [torch.stack(parts) for parts in zip(*per_seed)]
+        label = f"vmapped evidential_head {s_count} x {shape_key(v, b, d, h, c)}"
+        with torch.no_grad():
+            before = ck.evidential_heads_stacked.launches
+            got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
+            torch.cuda.synchronize()
+            launches = ck.evidential_heads_stacked.launches - before
+            refs = [ck.evidential_heads_stacked(*args) for args in per_seed]
+            plain = torch.func.vmap(ck.evidential_heads_stacked_plain)(*stacked)
+        if launches != 1 or tuple(got.shape) != (s_count, b, v, c):
+            raise AssertionError(f"{label}: {launches} launches, shape {tuple(got.shape)}")
+        worst = max(assert_close(got[i], ref, f"{label} seed {i}")[0] for i, ref in enumerate(refs))
+        assert_close(got, plain, f"{label} against the vmapped plain version")
+        bitwise = all(torch.equal(got[i], ref) for i, ref in enumerate(refs))
+        log(f"check {label}: one launch at V={s_count * v}, max abs err {worst:.3e} against "
+            f"the per-seed launches ({'bitwise equal' if bitwise else 'not bitwise'})")
+
+
+@contextlib.contextmanager
+def kept_checkpoints():
+    """Keeps a reference to every module the runners checkpoint, by
+    checkpoint name, while they run."""
+    from disentagled_multimodal_fusion_tpu_torch.core import checkpoint
+
+    real = checkpoint.save_checkpoint
+    kept = {}
+
+    def keep(path, module, hparams=None):
+        kept[path] = module
+        return real(path, module, hparams)
+
+    checkpoint.save_checkpoint = keep
+    try:
+        yield kept
+    finally:
+        checkpoint.save_checkpoint = real
+
+
+def phase_seed_batched(ck, card, seq_wall):
+    """The seed-batched path: runners/run.py --vmap-seeds on HandWritten
+    Normal, seeds 0-4, at full depth. Returns the head kernel's launches
+    over it, by shape, the rows and the cell's wall time."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    probe_epochs, dmvae_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
+    with head_shape_tally() as shapes:
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        rows = runner.main(["--vmap-seeds", "--seeds", *map(str, SEEDS), "--datasets",
+                            "HandWritten", "--conditions", "Normal"])
+        wall = time.perf_counter() - t0
+        launches = ck.evidential_heads_stacked.launches
+    models = {s: rows[s]["Normal"]["HandWritten"] for s in SEEDS}
+    first = models[SEEDS[0]]
+    bb_s = first["dmvae_cml"]["backbone_fit_seconds"]
+    log(f"seed-batched dmvae fit x{len(SEEDS)}: {bb_s:.2f} s, "
+        f"{1e3 * bb_s / dmvae_epochs:.3f} ms/epoch [{card}]")
+    for name, info in first.items():
+        log(f"seed-batched {name} fit x{len(SEEDS)}: {info['fit_seconds']:.2f} s, "
+            f"{1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch (evaluation and fetch "
+            f"included) [{card}]")
+    for s in SEEDS:
+        accs = {name: round(info["fused"]["accuracy"], 4) for name, info in models[s].items()}
+        log(f"seed-batched HandWritten seed {s}: fused accuracies {accs}")
+        if len(accs) != 6 or not all(a >= 0.95 for a in accs.values()):
+            raise AssertionError(f"seed {s}: a fused accuracy below 0.95 or a model missing: "
+                                 f"{accs}")
+    # per fit one launch per validation epoch and one for its evaluation:
+    # dmvae_cml and dmvae_joint at 5 x 7 heads, dmvae_dis at 5 x 6, the
+    # three late fusions at 5 x 6 of width 240
+    per_fit = probe_epochs + 1
+    expected = {shape_key(*STACKED_SHAPES[0]): 2 * per_fit,
+                shape_key(*STACKED_SHAPES[1]): per_fit,
+                shape_key(*STACKED_SHAPES[2]): 3 * per_fit}
+    if dict(shapes) != expected or launches != sum(expected.values()):
+        raise AssertionError(f"evidential_head launched {launches} times, by shape "
+                             f"{dict(shapes)}, expected {expected}")
+    log(f"seed-batched: HandWritten Normal seeds {list(SEEDS)} in {wall:.1f} s, "
+        f"{wall / len(SEEDS):.1f} s per seed; the sequential seed-0 cell of the training "
+        f"phase (probe fits through the epoch kernel) took {seq_wall:.1f} s; evidential_head "
+        f"launched {launches} times (by shape {dict(shapes)}) [{card}]")
+    return launches, dict(shapes), rows, wall
+
+
+def phase_seed_batched_engines(card):
+    """--vmap-seeds against --one-program-cells on a quick two-seed cell,
+    then train_many against train seed by seed over 3 epochs at full width."""
+    from disentagled_multimodal_fusion_tpu_torch.core import tasks
+    from disentagled_multimodal_fusion_tpu_torch.core.train import (
+        Randomness,
+        stack_params,
+        train,
+        train_many,
+    )
+    from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
+    from disentagled_multimodal_fusion_tpu_torch.eval.analysis import build_metrics_rows_datasets
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    flat = {}
+    with artifact_root("engines_"):
+        for flag in ("--vmap-seeds", "--one-program-cells"):
+            rows = runner.main([flag, "--seeds", "0", "1", "--quick", "--datasets",
+                                "HandWritten", "--conditions", "Normal", "--skip-report"])
+            flat[flag] = build_metrics_rows_datasets(rows)[1]
+    worst, bitwise = 0.0, True
+    for a, b in zip(flat["--vmap-seeds"], flat["--one-program-cells"]):
+        if a.keys() != b.keys():
+            raise AssertionError("the engines' rows have different columns")
+        for k, va in a.items():
+            if isinstance(va, float):
+                err = abs(va - b[k])
+                if err > 1e-6 * abs(b[k]):
+                    raise AssertionError(f"engines differ at {a['model']} {k}: {va} vs {b[k]}")
+                worst, bitwise = max(worst, err), bitwise and va == b[k]
+    log(f"engines: --vmap-seeds and --one-program-cells rows equal at rtol 1e-6 over "
+        f"{len(flat['--vmap-seeds'])} rows (max abs difference {worst:.3e}"
+        f"{', bitwise' if bitwise else ''}) [{card}]")
+
+    views, labels = DATASET_REGISTRY["HandWritten"]().arrays()
+    dims = [v.shape[1] for v in views]
+    backbone = tasks.build_dmvae_task(output_dim=dims, hidden_dim=512, embed_dim=200,
+                                      fused_modalities=True, device="cuda")
+    zc, zp = tasks.embed_dataset(backbone, tuple(torch.from_numpy(v).cuda() for v in views))
+    y = torch.from_numpy(labels).cuda()
+    data = {"zc": zc[:1600], "zp": zp[:1600], "y": y[:1600]}
+    val = {"zc": zc[1600:], "zp": zp[1600:], "y": y[1600:]}
+    probe = dict(num_modalities=6, num_classes=10, input_dim=200, lr=3e-3, dropout=0.1,
+                 annealing_start=50, num_epochs=3, device="cuda")
+    for name, build in (("dmvae_cml", tasks.build_probe_task),
+                        ("dmvae_dis", tasks.build_disentangled_probe_task)):
+        fits = [build(seed=s, **probe) for s in (1, 2)]
+        fit = dict(data=data, n_train=1600, optimizer=fits[0].optimizer, epochs=3,
+                   batch_size=100, val_fn=fits[0].val_fn, val_data=val)
+        many = train_many(model=fits[0].model, params=stack_params([t.model for t in fits]),
+                          loss_fn=fits[0].loss_fn, randomness=[Randomness(7 + i, "cuda")
+                                                               for i in range(2)],
+                          data_broadcast=True, **fit)
+        err = 0.0
+        for i, task in enumerate(fits):
+            res = train(model=task.model, loss_fn=task.loss_fn,
+                        randomness=Randomness(7 + i, "cuda"), **dict(fit, val_fn=task.val_fn))
+            t = torch.from_numpy
+            assert_close(many.train_loss[i].cpu(), t(res.train_loss), f"{name} train_many[{i}] "
+                         "train_loss", rtol=2e-5, atol=2e-6)
+            assert_close(many.val_loss[i].cpu(), t(res.val_loss), f"{name} train_many[{i}] "
+                         "val_loss", rtol=2e-5, atol=2e-6)
+            for k, p in task.model.named_parameters():
+                err = max(err, assert_close(many.params[k][i], p.detach(),
+                                            f"{name} train_many[{i}] {k}", rtol=5e-3,
+                                            atol=5e-5)[0])
+        log(f"engines: {name} 3 epochs at full width, train_many over 2 seeds vs train per "
+            f"seed: losses within rtol 2e-5 / atol 2e-6, params max abs err {err:.3e} [{card}]")
+
+
+def phase_restore(card, kept, rows):
+    """Seed 0's dmvae_cml and cml_fusion served from the seed-batched
+    phase's checkpoints at runners/serve.py's default paths, against the
+    in-memory models; then runners/evaluate.py on seed 0's dmvae_cml."""
+    import io
+
+    from disentagled_multimodal_fusion_tpu_torch.runners import evaluate, serve
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import (
+        backbone_checkpoint,
+        head_name,
+        load_config,
+        make_getter,
+    )
+
+    C = make_getter(load_config())
+    for name in ("dmvae_cml", "cml_fusion"):
+        args = serve.parse_args(["--model", name, "--dataset", "HandWritten", "--seed", "0",
+                                 "--buckets", "256"])
+        infer, xs = serve.load(args, C, torch.device("cuda"))
+        served = infer(xs)
+        head = kept[f"checkpoints/{head_name(name, 'HandWritten', 0, 'normal')}"]
+        with torch.no_grad():
+            if name.startswith("dmvae_"):
+                zc, zp = kept[backbone_checkpoint("HandWritten", 0, "normal")].get_embedding(xs)
+                ev = head(zc, zp)
+            else:
+                ev = head(xs)
+        if not torch.equal(served["evidence"], ev):
+            diff = float((served["evidence"] - ev).abs().max())
+            raise AssertionError(f"restored {name} serves other evidence than the in-memory "
+                                 f"model: max abs diff {diff}")
+        log(f"restore: {name} seed 0 served from its checkpoints equals the in-memory model "
+            f"bit for bit on {xs[0].shape[0]} rows")
+    with contextlib.redirect_stdout(io.StringIO()):
+        info = evaluate.main(["--model", "dmvae_cml", "--dataset", "HandWritten", "--seed", "0",
+                              "--condition", "normal"])
+    got = info["fused"]["accuracy"]
+    want = rows[0]["Normal"]["HandWritten"]["dmvae_cml"]["fused"]["accuracy"]
+    if got != want:
+        raise AssertionError(f"evaluate.py reports fused accuracy {got}, the sweep {want}")
+    log(f"restore: evaluate.py dmvae_cml HandWritten seed 0: fused accuracy {got:.4f}, as the "
+        f"seed-batched sweep reported [{card}]")
 
 
 def phase_request_profile(card):
@@ -734,12 +976,88 @@ def head_times_only(card):
     return 0
 
 
+def engine_times_only(card):
+    """``--engine-times``: ``runners/run.py --vmap-seeds`` and
+    ``--one-program-cells`` on HandWritten Normal and Conflict, seeds 0-4, at
+    full depth, each run as a user runs the module (``python -m``), in the
+    order one-program, vmap, vmap, one-program. Their reports must agree
+    (rtol 1e-6). Prints each run's sweep time and per-cell times as one JSON
+    line."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+
+    configure()
+    cuda_build.build([ck.KERNEL_SOURCE])  # the runs find it built
+    repo = Path(__file__).resolve().parent
+    (repo / "chip_scratch").mkdir(exist_ok=True)
+    runs, reports = [], {}
+    for i, flag in enumerate(("--one-program-cells", "--vmap-seeds", "--vmap-seeds",
+                              "--one-program-cells")):
+        root = tempfile.mkdtemp(prefix="engine_times_", dir=repo / "chip_scratch")
+        try:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "disentagled_multimodal_fusion_tpu_torch.runners.run",
+                 flag, "--seeds", *map(str, SEEDS), "--datasets", "HandWritten",
+                 "--conditions", "Normal", "Conflict"],
+                cwd=repo, env=dict(os.environ, DMF_ARTIFACT_ROOT=root), capture_output=True,
+                text=True, timeout=1500)
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"{flag} exited {proc.returncode}: {proc.stderr[-3000:]}")
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                if "done in" in line or "issued in" in line or "dmvae fit" in line:
+                    log(f"engine-times run {i} {flag}: {line.strip()} [{card}]")
+            sweep = [float(m) for line in lines
+                     for m in re.findall(r"^sweep done in ([0-9.]+)s", line)]
+            cells = [float(m) for line in lines
+                     for m in re.findall(r"\) (?:one-program cell )?done in ([0-9.]+)s", line)]
+            if len(sweep) != 1 or len(cells) != 2:
+                raise AssertionError(f"{flag}: no sweep or cell times in {lines[-5:]}")
+            report = Path(root) / "logs" / "dataset_analysis_all_results.csv"
+            with open(report, newline="") as f:
+                reports.setdefault(flag, list(csv.DictReader(f)))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        runs.append({"engine": flag, "process_s": wall, "sweep_s": sweep[0], "cells_s": cells})
+    a, b = reports["--vmap-seeds"], reports["--one-program-cells"]
+    if len(a) != len(b) or len(a) != 2 * 6 * len(SEEDS):
+        raise AssertionError(f"report rows: {len(a)} and {len(b)}")
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        if ra.keys() != rb.keys():
+            raise AssertionError("the engines' reports have different columns")
+        for k, va in ra.items():
+            try:
+                x, y = float(va), float(rb[k])
+            except ValueError:
+                if va != rb[k]:
+                    raise AssertionError(f"engines differ at {k}: {va} vs {rb[k]}") from None
+                continue
+            if abs(x - y) > 1e-6 * abs(y):
+                raise AssertionError(f"engines differ at {ra.get('model')} {k}: {x} vs {y}")
+            worst = max(worst, abs(x - y))
+    log(f"engine-times: the two engines' reports agree over {len(a)} rows "
+        f"(max abs difference {worst:.3e})")
+    print(json.dumps({"card": card, "engine_times": runs}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["--head-times"]:
         return head_times_only(card_line())
+    if sys.argv[1:] == ["--engine-times"]:
+        return engine_times_only(card_line())
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
@@ -771,8 +1089,14 @@ def main() -> int:
     serve_launches, serve_shapes = phase_serving(ck, card)
     phase_request_profile(card)
     phase_daemon_and_http(card)
-    epoch_launches, train_head_launches, train_shapes = phase_training(ck, pm, card)
+    epoch_launches, train_head_launches, train_shapes, seq_wall = phase_training(ck, pm, card)
     phase_engines(card)
+    phase_vmapped_heads(ck, card)
+    with artifact_root("seed_batched_"):
+        with kept_checkpoints() as kept:
+            sb_launches, sb_shapes, sb_rows, _ = phase_seed_batched(ck, card, seq_wall)
+        phase_seed_batched_engines(card)
+        phase_restore(card, kept, sb_rows)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -780,12 +1104,14 @@ def main() -> int:
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
-        "launches": serve_launches + train_head_launches,
-        "launches_by_path": {"serving": serve_launches, "training": train_head_launches},
+        "launches": serve_launches + train_head_launches + sb_launches,
+        "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
+                             "seed_batched": sb_launches},
         "max_abs_err": max_abs_err,
         **timing,
         "device_ms_by_shape": device_by_shape,
-        "launches_by_shape": {"serving": serve_shapes, "training": train_shapes},
+        "launches_by_shape": {"serving": serve_shapes, "training": train_shapes,
+                              "seed_batched": sb_shapes},
     }, {
         "name": "probe_epoch",
         "route": "cuda",

@@ -16,7 +16,8 @@ masking the loss is exact). Validation and the plateau state run after each
 epoch as in the step loop.
 
 Scope (``supports_probe_megakernel``): the fused probes with one hidden
-layer, AdamW, cosine/plateau/constant schedule.
+layer of at most 128 units and at most 8 heads, AdamW, cosine/plateau/
+constant schedule.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.adam import B1, B2
-from ..ops.probe_megakernel import run_epoch_kernel
+from ..ops.probe_megakernel import MAX_HIDDEN, MAX_VIEWS, run_epoch_kernel
 from .train import (
     OptimizerConfig,
     _finish,
@@ -56,11 +57,16 @@ class ProbeMegakernelDesc(NamedTuple):
 
 def supports_probe_megakernel(desc: Optional[ProbeMegakernelDesc],
                               optimizer: OptimizerConfig) -> bool:
-    """True when the kernel program is a drop-in for this fit."""
+    """True when the kernel program is a drop-in for this fit: an AdamW
+    probe whose heads the kernel takes (at most ``MAX_VIEWS`` heads of at
+    most ``MAX_HIDDEN`` hidden units). Any other fit runs the step loop on
+    the same randomness stream."""
     return (
         desc is not None
         and optimizer.name == "adamw"
         and optimizer.schedule in ("cosine", "plateau", "constant")
+        and desc.num_modalities + (1 if desc.has_shared else 0) <= MAX_VIEWS
+        and desc.hidden_dim <= MAX_HIDDEN
     )
 
 

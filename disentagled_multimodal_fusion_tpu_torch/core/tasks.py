@@ -12,15 +12,20 @@ everywhere. Optimizer settings are the reference's (JAX docstring, lines
 * DisentangledProbe: AdamW (wd 0.01) + plateau (factor 0.1, patience 5);
 * LateFusion: Adam + plateau (factor 0.1, patience 10).
 
-Loss closures take ``(batch, mask, epoch, randomness)`` and draw their own
-noise from ``randomness`` (dropout keep-masks, reparameterisation draws);
-validation closures take ``(data, epoch)`` and run the eval forward, which
-goes through the evidential head kernel on the card.
+Each loss closure is an :class:`~.train.Objective`: ``draw(randomness, rows)``
+makes a step's noise (dropout keep-masks, reparameterisation draws) and
+``loss(batch, mask, epoch, draws)`` computes from it, so the seed-batched
+trainer can draw per seed and run the arithmetic under ``torch.func.vmap``;
+called as ``(batch, mask, epoch, randomness)`` they draw, then compute.
+Validation closures take ``(data, epoch)`` and run the eval forward, which
+goes through the evidential head kernel on the card. :func:`embed_many` and
+:func:`evidences_many` are the frozen-backbone and eval forwards over
+stacked seeds.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -38,7 +43,7 @@ from ..ops.dirichlet import avg_trusted_loss
 from ..ops.evidence import AGGREGATIONS
 from .megakernel import ProbeMegakernelDesc
 from .setup import resolve_device
-from .train import OptimizerConfig
+from .train import Objective, OptimizerConfig, functional
 
 
 class EvidentialTask(NamedTuple):
@@ -48,7 +53,7 @@ class EvidentialTask(NamedTuple):
     evidences_fn: Callable  # data dict -> (B, V, C) evidence, eval mode
     aggregation: Callable   # (B, V, C) -> (B, C)
     num_classes: int
-    loss_fn: Optional[Callable] = None   # (batch, mask, epoch, randomness) -> (loss, aux)
+    loss_fn: Optional[Objective] = None  # (batch, mask, epoch, randomness) -> (loss, aux)
     val_fn: Optional[Callable] = None    # (data, epoch) -> (val_loss, val_acc)
     optimizer: Optional[OptimizerConfig] = None
     megakernel: Optional[ProbeMegakernelDesc] = None  # whole-epoch kernel descriptor
@@ -81,15 +86,17 @@ def _evidential_closures(model, forward, views: int, hidden, aggregation: str,
         return avg_trusted_loss(ev, y, agg(ev), annealing_step=epoch, num_views=views,
                                 annealing_start=annealing_start, fused=fused, mask=mask)
 
-    def loss_fn(batch, mask, epoch, randomness):
-        masks = _drop_masks(randomness, model.keep, batch["y"].shape[0], views, hidden)
+    def draw(randomness, rows):
+        return _drop_masks(randomness, model.keep, rows, views, hidden)
+
+    def loss_from_draws(batch, mask, epoch, masks):
         return loss(forward(batch, masks), batch["y"], epoch, mask), {}
 
     def val_fn(data, epoch):
         ev = forward(data, None)
         return loss(ev, data["y"], epoch, None), _acc(agg(ev), data["y"])
 
-    return loss_fn, val_fn
+    return Objective(draw, loss_from_draws), val_fn
 
 
 # ------------------------------------------------------------------ DMVAE
@@ -123,14 +130,15 @@ def dmvae_objective(model: FusedDMVAE, *, lr: float = 1e-4, num_epochs: int = 50
     if not isinstance(model, FusedDMVAE):
         raise NotImplementedError("only the fused DMVAE trains in the port so far")
 
-    def loss_fn(batch, mask, epoch, randomness):
-        rows = batch["xs"][0].shape[0]
-        noise = tuple(randomness.normal(s) for s in model.noise_shapes(rows))
+    def draw(randomness, rows):
+        return tuple(randomness.normal(s) for s in model.noise_shapes(rows))
+
+    def loss_from_draws(batch, mask, epoch, noise):
         return model(batch["xs"], noise, mask)
 
     opt = OptimizerConfig(name="adam", lr=lr, schedule="cosine", cosine_t_max=num_epochs,
                           eta_min=0.0)
-    return loss_fn, opt
+    return Objective(draw, loss_from_draws), opt
 
 
 @torch.no_grad()
@@ -138,6 +146,28 @@ def embed_dataset(model: nn.Module, xs):
     """Frozen-backbone embeddings: (zc (B, D), zp (B, N, D))."""
     zc, zp_list = model.get_embedding(xs)
     return zc, torch.stack(zp_list, dim=1)
+
+
+def embed_dataset_chunked(model: nn.Module, xs, chunk: int = 4096):
+    """:func:`embed_dataset` over row chunks of ``chunk``, concatenated."""
+    parts = [embed_dataset(model, tuple(x[s0:s0 + chunk] for x in xs))
+             for s0 in range(0, xs[0].shape[0], chunk)]
+    return tuple(torch.cat(p, dim=0) for p in zip(*parts))
+
+
+@torch.no_grad()
+def embed_many(model: nn.Module, params: Dict[str, torch.Tensor], xs):
+    """:func:`embed_dataset` for S stacked backbones ``params`` (S, ...) on
+    stacked views (S, B, S_i): (zc (S, B, D), zp (S, B, N, D))."""
+    return torch.func.vmap(lambda p, x: functional(model, p, embed_dataset, model, x))(params, xs)
+
+
+@torch.no_grad()
+def evidences_many(task: EvidentialTask, params: Dict[str, torch.Tensor], data):
+    """The task's eval evidence (S, B, V, C) for S stacked parameter sets on
+    stacked data, the heads of all S through one head-kernel launch."""
+    return torch.func.vmap(lambda p, d: functional(task.model, p, task.evidences_fn, d))(
+        params, data)
 
 
 # ------------------------------------------------------------------ probes

@@ -1,11 +1,12 @@
-"""Training harness: an eager loop over epochs and steps with autograd.
+"""Training harness: an eager loop over epochs and steps with autograd, and
+its seed-batched twin.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/core/train.py``
-(``train`` / ``make_train_program``, lines 43-172 and 453-563). The JAX
-package compiles a whole fit into one scan; here each step runs eagerly on
-the device, and nothing is fetched to the host until the fit ends: the
-per-step losses, the validation metrics and the plateau state stay on the
-device, and the histories come back in one copy.
+(``train``, ``train_many`` and ``make_train_program``, lines 43-172 and
+337-563). The JAX package compiles a whole fit into one scan; here each step
+runs eagerly on the device, and nothing is fetched to the host until the fit
+ends: the per-step losses, the validation metrics and the plateau state stay
+on the device.
 
 * Adam/AdamW is written by hand with optax's arithmetic
   (``ops/adam.py``), which the probe-epoch kernel shares.
@@ -16,22 +17,28 @@ device, and the histories come back in one copy.
   exact ragged size ``n % B``.
 * Randomness is explicit: a :class:`Randomness` (one ``torch.Generator``)
   draws the epoch permutation and whatever noise the loss asks for, in a
-  fixed order. A test hands in an object with the same three methods that
-  replays the JAX draws.
+  fixed order. A test hands in an object with the same methods that replays
+  the JAX draws.
+* :func:`train_many` fits S instances (stacked seeds) at once: their
+  parameters are stacked on a leading axis and each step runs under
+  ``torch.func.vmap``, so the S fits share every operation the host issues.
+  Each instance keeps its own :class:`Randomness`, drawn outside the vmapped
+  step in the order its own :func:`train` would draw (an
+  :class:`Objective` splits a loss's draws from its arithmetic).
 
-Left out (``ROADMAP.md``): ``train_many`` (seed-vmapped fits), the mesh,
-model state (BatchNorm), ``drop_last``, unshuffled epochs and mid-training
-resume.
+Left out (``ROADMAP.md``): the mesh, model state (BatchNorm), ``drop_last``,
+unshuffled epochs and the step loop's mid-training resume.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops.adam import adam_update, bias_corrections
 
@@ -83,6 +90,31 @@ class Randomness:
 
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def state(self) -> torch.Tensor:
+        """The generator's state, for an exact resume."""
+        return self.generator.get_state()
+
+    def restore(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+class Objective:
+    """A loss whose random draws are split from its arithmetic.
+
+    ``draw(randomness, rows)`` makes one step's draws (None, a tensor, or a
+    tuple or list of tensors) from ``randomness``; ``loss(batch, mask, epoch,
+    draws) -> (loss, aux)`` draws nothing, so ``torch.func.vmap`` can run it
+    over stacked seeds (vmap's default ``randomness="error"`` fails on a draw
+    left inside). Called as ``(batch, mask, epoch, randomness)`` it is the
+    step loop's ``loss_fn``: it draws, then computes.
+    """
+
+    def __init__(self, draw: Callable, loss: Callable):
+        self.draw, self.loss = draw, loss
+
+    def __call__(self, batch, mask, epoch, randomness):
+        return self.loss(batch, mask, epoch, self.draw(randomness, mask.shape[0]))
 
 
 def _cosine_lr(cfg: OptimizerConfig, epoch: int) -> float:
@@ -222,3 +254,211 @@ def train(
         val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device)
         history.append((train_loss, val_loss, val_acc))
     return _finish(history, plateau[0])
+
+
+# ------------------------------------------------------------ seed-batched fits
+class _Bound(nn.Module):
+    """Holds a module so that ``torch.func.functional_call`` can swap its
+    parameters for one call of any function that uses it."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(*args)
+
+
+def functional(model: nn.Module, params: Dict[str, torch.Tensor], fn: Callable, *args):
+    """``fn(*args)`` with ``model``'s parameters replaced by ``params`` (named
+    as in ``model.named_parameters()``) for the call. Under ``vmap`` over
+    stacked ``params`` it runs every instance's parameters through ``fn``."""
+    return torch.func.functional_call(
+        _Bound(model), {f"model.{k}": v for k, v in params.items()}, (fn, *args)
+    )
+
+
+def stack_params(models: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
+    """The models' trainable parameters stacked on a leading instance axis."""
+    named = [dict(m.named_parameters()) for m in models]
+    return {k: torch.stack([n[k].detach() for n in named])
+            for k, p in named[0].items() if p.requires_grad}
+
+
+@torch.no_grad()
+def load_params(models: Sequence[nn.Module], params: Dict[str, Any]) -> None:
+    """Copy instance ``s`` of the stacked ``params`` (tensors or numpy
+    arrays) into ``models[s]``."""
+    for s, model in enumerate(models):
+        for k, p in model.named_parameters():
+            if k in params:
+                p.copy_(torch.as_tensor(params[k][s]))
+
+
+def _stack_draws(draws):
+    """Per-instance draws (each None, a tensor, or a tuple/list of tensors)
+    stacked on a leading axis."""
+    first = draws[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(draws)
+    return type(first)(torch.stack(parts) for parts in zip(*draws))
+
+
+def _take_rows(data, idx: torch.Tensor, broadcast: bool):
+    """Every instance's rows at its own indices ``idx`` (S, rows): leaves are
+    (S, n, ...) tensors, or (n, ...) shared by all when ``broadcast``."""
+    inst = torch.arange(idx.shape[0], device=idx.device)[:, None]
+
+    def take(a):
+        if isinstance(a, (tuple, list)):
+            return type(a)(take(t) for t in a)
+        return a[idx] if broadcast else a[inst, idx]
+
+    return {k: take(v) for k, v in data.items()}
+
+
+class ManyState(NamedTuple):
+    """What an exact resume of :func:`train_many` needs."""
+
+    moments: tuple  # an (m, v) pair per parameter, stacked
+    count: int      # optimizer steps taken
+    plateau: tuple  # (lr, best, bad), each (S,)
+    rng: tuple      # each instance's generator state
+
+
+class ManyResult(NamedTuple):
+    """Stacked results of :func:`train_many`, on the device (nothing is
+    fetched to the host)."""
+
+    params: Dict[str, torch.Tensor]  # name -> (S, ...) trained parameters
+    train_loss: torch.Tensor         # (S, E)
+    val_loss: torch.Tensor           # (S, E), nan without validation
+    val_acc: torch.Tensor            # (S, E), nan without validation
+    final_lr: torch.Tensor           # (S,)
+    state: ManyState
+
+
+def train_many(
+    *,
+    model: nn.Module,
+    params: Dict[str, torch.Tensor],
+    loss_fn: Objective,
+    data: Any,
+    n_train: int,
+    optimizer: OptimizerConfig,
+    epochs: int,
+    batch_size: int,
+    randomness: Sequence,
+    val_fn: Optional[Callable] = None,
+    val_data: Any = None,
+    data_broadcast: bool = False,
+    segment_epochs: Optional[int] = None,
+) -> ManyResult:
+    """Fit S instances of ``model`` at once; instance s equals :func:`train`
+    of ``model`` with ``params[.][s]`` and ``randomness[s]``.
+
+    ``model`` is the module the closures run; its own parameters are left as
+    they are. ``params`` maps its parameter names to stacked (S, ...)
+    initial values (:func:`stack_params`). ``data`` and ``val_data`` leaves
+    carry the S axis first, or are shared by all instances when
+    ``data_broadcast``. ``loss_fn`` is an :class:`Objective`; ``val_fn(data,
+    epoch)`` runs per instance under ``vmap`` and ``no_grad``, which sends the
+    eval forward of the stacked heads through one head-kernel launch for all
+    S instances.
+
+    Each epoch draws, for every instance from its own ``randomness[s]``, the
+    permutation and then each step's draws, as :func:`train` draws them. The
+    plateau state is per instance (its LR an (S,) tensor broadcast to every
+    parameter); the cosine LR is shared.
+
+    ``segment_epochs`` runs the epochs in segments of that length, each
+    resumed exactly from the last one's optimizer, plateau and generator
+    states (:class:`ManyState`).
+    """
+    if optimizer.name == "adam" and optimizer.weight_decay > 0:
+        raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
+    fit = (model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn, val_data,
+           data_broadcast)
+    if not segment_epochs or segment_epochs >= epochs:
+        return _train_many_segment(*fit, params, 0, epochs, None)
+    parts, start, resume = [], 0, None
+    while start < epochs:
+        seg = min(segment_epochs, epochs - start)
+        r = _train_many_segment(*fit, params, start, seg, resume)
+        parts.append(r)
+        params, resume, start = r.params, r.state, start + seg
+    cat = lambda k: torch.cat([getattr(r, k) for r in parts], dim=1)  # noqa: E731
+    return parts[-1]._replace(train_loss=cat("train_loss"), val_loss=cat("val_loss"),
+                              val_acc=cat("val_acc"))
+
+
+def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn,
+                        val_data, broadcast, params, start_epoch, epochs, resume):
+    """Epochs [start_epoch, start_epoch + epochs) of :func:`train_many`,
+    from ``resume`` when given."""
+    from torch.func import grad_and_value, vmap
+
+    params = {k: v.detach().clone() for k, v in params.items()}
+    device = next(iter(params.values())).device
+    s_count = len(randomness)
+    weight_decay = optimizer.weight_decay if optimizer.name == "adamw" else 0.0
+    if resume is None:
+        moments = tuple((torch.zeros_like(p), torch.zeros_like(p)) for p in params.values())
+        count = 0
+        plateau = tuple(t.expand(s_count).clone() for t in _plateau_init(optimizer, device))
+    else:
+        moments = tuple((m.clone(), v.clone()) for m, v in resume.moments)
+        count, plateau = resume.count, resume.plateau
+        for r, st in zip(randomness, resume.rng):
+            r.restore(st)
+    sizes = batch_sizes(n_train, batch_size)
+    # the step weights made on the device: a copy from the host would wait
+    # for the device to drain
+    weights = torch.full((len(sizes),), float(batch_size), device=device)
+    weights[-1] = float(sizes[-1])
+    data_dim = None if broadcast else 0
+
+    def loss_of(p, batch, mask, epoch, draws):
+        loss, aux = functional(model, p, loss_fn.loss, batch, mask, epoch, draws)
+        return loss, loss
+
+    def val_of(p, vdata, epoch):
+        return functional(model, p, val_fn, vdata, epoch)
+
+    history = []
+    for epoch in range(start_epoch, start_epoch + epochs):
+        # each instance's draws in its own fit's order: the permutation, then
+        # each step's draws
+        perms = [r.permutation(n_train) for r in randomness]
+        draws = [[loss_fn.draw(r, rows) for rows in sizes] for r in randomness]
+        perm = torch.stack(perms)
+        lr = lr_for_epoch(optimizer, epoch, plateau[0])
+        losses = []
+        for step, idx in enumerate(epoch_batches(perm.T, batch_size)):
+            batch = _take_rows(data, idx.T, broadcast)
+            mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
+            d = _stack_draws([per_inst[step] for per_inst in draws])
+            step_fn = vmap(grad_and_value(loss_of, has_aux=True),
+                           in_dims=(0, 0, None, None, None if d is None else 0))
+            grads, (loss, _) = step_fn(params, batch, mask, epoch, d)
+            count += 1
+            bc1, bc2 = bias_corrections(count)
+            for (k, p), mv in zip(params.items(), moments):
+                step_lr = lr if isinstance(lr, float) else lr.view(-1, *[1] * (p.dim() - 1))
+                adam_update([p], [mv], [grads[k]], bc1, bc2, step_lr, weight_decay)
+            losses.append(loss.detach().float())
+        train_loss = torch.sum(torch.stack(losses, dim=1) * weights, dim=1) / weights.sum()
+        if val_fn is None:
+            val_loss = val_acc = torch.full((s_count,), math.nan, device=device)
+        else:
+            with torch.no_grad():
+                val_loss, val_acc = vmap(val_of, in_dims=(0, data_dim, None))(
+                    params, val_data, epoch)
+            val_loss, val_acc = val_loss.float(), val_acc.float()
+            plateau = _plateau_update(optimizer, plateau, val_loss)
+        history.append((train_loss, val_loss, val_acc))
+    tl, vl, va = (torch.stack(col, dim=1) for col in zip(*history))
+    state = ManyState(moments, count, plateau, tuple(r.state() for r in randomness))
+    return ManyResult(params, tl, vl, va, plateau[0], state)

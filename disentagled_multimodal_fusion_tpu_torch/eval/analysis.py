@@ -144,7 +144,7 @@ def _eval_all(evidences: torch.Tensor, fused: torch.Tensor, target: torch.Tensor
     }
 
 
-def _fetch(tree):
+def fetch(tree):
     """The tensors of ``tree`` as numpy arrays, in one device-to-host copy."""
     leaves = []
 
@@ -235,7 +235,7 @@ def format_eval_result(dev, v: int, has_shared: bool) -> Dict[str, Any]:
 def evaluate_evidences(evidences, fused, target, num_classes: int,
                        has_shared: bool) -> Dict[str, Any]:
     """Full evaluation of stacked evidences (N, V, C) and fused (N, C)."""
-    dev = _fetch(_eval_all(evidences, fused, target, num_classes))
+    dev = fetch(_eval_all(evidences, fused, target, num_classes))
     return format_eval_result(dev, evidences.shape[1], has_shared)
 
 

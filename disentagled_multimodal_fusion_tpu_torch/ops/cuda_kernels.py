@@ -16,9 +16,11 @@ The kernel has no backward: the wrapper raises when a gradient is wanted
 (grad mode on and an input requiring grad), on any device, so a training
 forward cannot silently lose its gradient. The wrapper runs the plain
 version only for tensors on the CPU. For CUDA tensors it launches the
-kernel or raises; it never falls back.
-``evidential_heads_stacked.launches`` counts the launches (a plain int,
-exact while one thread at a time launches).
+kernel or raises; it never falls back. Under ``torch.func.vmap`` (the
+seed-batched trainer's validation and evaluation) its batching rule folds
+the vmapped axis into the heads, so S seeds of V heads are one launch at
+S*V heads. ``evidential_heads_stacked.launches`` counts the launches (a
+plain int, exact while one thread at a time launches).
 """
 
 from __future__ import annotations
@@ -61,23 +63,8 @@ def _error_string(code: int) -> str:
     return lib.dmf_error_string(code).decode()
 
 
-def evidential_heads_stacked(x_stack, w1s, b1s, w2s, b2s):
-    """V evidential heads over V inputs in one kernel launch.
-
-    x_stack: (V, B, D), any strides with a unit last stride; w1s (V, D, H),
-    b1s (V, H), w2s (V, H, C), b2s (V, C) contiguous; all float32 on one
-    device. Returns (B, V, C) evidence. Forward only: raises when grad mode
-    is on and an input requires grad.
-    """
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x_stack, w1s, b1s, w2s, b2s)
-    ):
-        raise RuntimeError(
-            "evidential_heads_stacked has no backward; call it under torch.no_grad() "
-            "or use the plain path for training"
-        )
-    if x_stack.device.type == "cpu":
-        return evidential_heads_stacked_plain(x_stack, w1s, b1s, w2s, b2s)
+def _launch(x_stack, w1s, b1s, w2s, b2s):
+    """One launch of the kernel on CUDA tensors (checked), counted."""
     v, b, d = x_stack.shape
     h, c = w1s.shape[-1], w2s.shape[-1]
     expect = {"w1s": (v, d, h), "b1s": (v, h), "w2s": (v, h, c), "b2s": (v, c)}
@@ -108,6 +95,58 @@ def evidential_heads_stacked(x_stack, w1s, b1s, w2s, b2s):
         raise RuntimeError(f"evidential_head kernel launch failed: {_error_string(code)}")
     evidential_heads_stacked.launches += 1
     return out
+
+
+class _StackedHeads(torch.autograd.Function):
+    """The heads' forward as an operation ``torch.func.vmap`` can batch (it
+    has no backward).
+
+    Its vmap rule folds the vmapped axis into the heads: S instances of V
+    heads become one call at S*V heads, (S*V, B, D) -> (B, S*V, C), handed
+    back as (S, B, V, C). An input without the vmapped axis is broadcast
+    over it. On the card that is one kernel launch for all S; on the CPU the
+    plain version at S*V heads.
+    """
+
+    @staticmethod
+    def forward(x_stack, w1s, b1s, w2s, b2s):
+        if x_stack.device.type == "cpu":
+            return evidential_heads_stacked_plain(x_stack, w1s, b1s, w2s, b2s)
+        return _launch(x_stack, w1s, b1s, w2s, b2s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *inputs):
+        s = info.batch_size
+
+        def fold(t, dim):
+            t = t.expand(s, *t.shape) if dim is None else t.movedim(dim, 0)
+            return t.reshape(s * t.shape[1], *t.shape[2:])
+
+        out = evidential_heads_stacked(*(fold(t, d) for t, d in zip(inputs, in_dims)))
+        return out.unflatten(1, (s, -1)).movedim(1, 0), 0
+
+
+def evidential_heads_stacked(x_stack, w1s, b1s, w2s, b2s):
+    """V evidential heads over V inputs in one kernel launch.
+
+    x_stack: (V, B, D), any strides with a unit last stride; w1s (V, D, H),
+    b1s (V, H), w2s (V, H, C), b2s (V, C) contiguous; all float32 on one
+    device. Returns (B, V, C) evidence. Forward only: raises when grad mode
+    is on and an input requires grad. Under ``torch.func.vmap`` over S
+    instances it makes one launch at S*V heads.
+    """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x_stack, w1s, b1s, w2s, b2s)
+    ):
+        raise RuntimeError(
+            "evidential_heads_stacked has no backward; call it under torch.no_grad() "
+            "or use the plain path for training"
+        )
+    return _StackedHeads.apply(x_stack, w1s, b1s, w2s, b2s)
 
 
 evidential_heads_stacked.launches = 0

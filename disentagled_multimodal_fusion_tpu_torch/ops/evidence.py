@@ -18,12 +18,18 @@ CLIP = 10.0
 class _ClipJax(torch.autograd.Function):
     """``clamp(x, -10, 10)`` with JAX's gradient for ``jnp.clip``: 1 strictly
     inside, 0.5 at exactly +-10, 0 outside (torch's clamp gives 1 at the
-    bounds)."""
+    bounds). Written with ``setup_context`` so that ``torch.func``'s grad and
+    vmap (the seed-batched trainer) can run it."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return torch.clamp(x, -CLIP, CLIP)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, grad):
@@ -35,10 +41,15 @@ class _ClipJax(torch.autograd.Function):
 class _AbsJax(torch.autograd.Function):
     """``abs(x)`` with JAX's gradient: +1 at 0 (torch's gives 0)."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return x.abs()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, grad):

@@ -1,8 +1,9 @@
 """UQ-datasets sweep: seeds x {Normal, Conflict, Noise} x datasets x 6 models.
 
-Counterpart of ``disentagled_multimodal_fusion_tpu/runners/run.py``, its
-sequential engine (``run_condition``, ``main``, ``write_sweep_report``).
-Per (seed, condition, dataset):
+Counterpart of ``disentagled_multimodal_fusion_tpu/runners/run.py``: its
+three engines (``run_condition``, ``run_condition_vmapped``,
+``run_condition_onejit``), ``main`` and ``write_sweep_report``. Per (seed,
+condition, dataset):
 
 1. the 80/20 split on the legacy ``np.random`` stream seeded with the seed;
    Conflict (Noise) injects cross-class view conflicts (Gaussian noise) into
@@ -17,22 +18,54 @@ Per (seed, condition, dataset):
    reference quirk kept for column parity), CSV logs, checkpoints, and the
    three-sheet report at ``logs/dataset_analysis.xlsx`` with CSV mirrors.
 
-``--probe-engine``: ``step`` (the default; the JAX package's ``xla``) runs
-every fit as the eager step loop of ``core/train.py``; ``megakernel`` (the
-same name in the JAX package) runs the three probe fits through the
-whole-epoch CUDA kernel (``core/megakernel.py``). The late-fusion fits are
-Adam fits and keep the step loop either way, as in the JAX package.
+Engines:
 
-Randomness: the cell's ``cell_seed`` s fixes 16 key slots, slot k seeding
-``torch.Generator(s * 16 + k)``: slot 0 draws the backbone's weights, slot
-1 its fit's shuffles and noise, slots 2-7 the six heads' weights and slots
-8-13 their fits' shuffles and dropout masks (the JAX package's
-``keys[0..13]`` of ``jax.random.split(PRNGKey(s), 16)``). Weights are drawn
-on the CPU; a fit's draws come from a generator on its device.
+* sequential (the default): one cell per seed. ``--probe-engine step``
+  (the JAX package's ``xla``) runs every fit as the eager step loop of
+  ``core/train.py``; ``megakernel`` runs the three probe fits through the
+  whole-epoch CUDA kernel (``core/megakernel.py``). The late-fusion fits are
+  Adam fits and keep the step loop either way, as in the JAX package.
+* ``--vmap-seeds``: all seeds of a (dataset, condition) cell at once. Each
+  fit is one ``core.train.train_many`` over the stacked seeds, so one set
+  of operations per step serves all S seeds, and each eval forward is one
+  head-kernel launch at S x V heads. Rows, checkpoints and CSV logs are
+  written per seed under the sequential engine's names, so ``serve.py``
+  and ``evaluate.py`` read them.
+* ``--one-program-cells``: the fits of ``--vmap-seeds``, the whole cell in
+  one call (``core/sweep_cell.py``) with one fetch at its end; its rows,
+  checkpoints and logs are written on a thread while the next cell runs.
+  Its rows equal ``--vmap-seeds``' bit for bit.
+
+``--probe-engine megakernel`` runs the sequential engine only (the epoch
+kernel has no seed-batched program), as in the JAX package.
+``--force-vmap-seeds`` is accepted for the JAX CLI's sake: the port never
+falls back from ``--vmap-seeds`` to the sequential engine.
+
+Randomness. Let c = ``cell_seed(seed, dataset, conflict)``.
+
+* The sequential engine has 16 key slots, slot k seeding
+  ``torch.Generator(c * 16 + k)``: slot 0 draws the backbone's weights, 1
+  its fit's shuffles and noise, 2-7 the six heads' weights and 8-13 their
+  fits' shuffles and dropout masks (the JAX package's ``keys[0..13]`` of
+  ``jax.random.split(PRNGKey(c), 16)``).
+* The seed-batched engines use fold indices (the JAX package's
+  ``fold_in(PRNGKey(c), i)``), index i seeding
+  ``torch.Generator(fold_seed(c, i))`` = ``2**31 + c * 256 + i``: i = 0 the
+  backbone's weights, 1 its fit, 10 + j head j's weights and 100 + j head
+  j's fit, j in the roster order of :func:`build_cell_head_specs`. These
+  seeds lie in [2**31, 2**32), so their low 32 bits (all a CPU generator
+  keeps) never meet a sequential slot; ``runners.common.fold_seed`` refuses
+  cell seeds that could.
+
+Weights are drawn on the CPU; a fit's draws come from a generator on its
+device. So seed s of a seed-batched cell is a sequential fit of the same
+weights and generators, which ``tests/test_torch_run.py`` replays.
 
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
       --seeds 0 --datasets HandWritten --conditions Normal --probe-engine megakernel
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
+      --vmap-seeds --seeds 0 1 2 3 4 --datasets HandWritten --conditions Normal
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
       --quick --seeds 0 --datasets CUB --conditions Normal --device cpu
 """
@@ -40,7 +73,9 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,25 +85,55 @@ from ..core.setup import resolve_device
 CONDITIONS = (("Normal", False, False), ("Conflict", True, False), ("Noise", False, True))
 
 
-def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
-                  noise=False, probe_engine="step"):
-    """Train and evaluate the six models of one cell into ``rows_out``."""
-    from ..core.checkpoint import save_checkpoint
-    from ..core.logging import log_training_csv
-    from ..core.tasks import (
-        build_disentangled_probe_task,
-        build_dmvae_task,
-        build_late_fusion_task,
-        build_probe_task,
-        dmvae_objective,
-        embed_dataset,
-    )
-    from ..core.train import Randomness, train
-    from ..data.multiview import DATASET_REGISTRY
-    from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
-    from .common import cell_seed
+def condition_name(conflict: bool, noise: bool) -> str:
+    return "conflict" if conflict else ("noise" if noise else "normal")
 
-    t0 = time.time()
+
+class CellSettings(NamedTuple):
+    """The config values one cell's fits read."""
+
+    batch_size: int
+    lr: float
+    probe_hidden: tuple
+    probe_dropout: float
+    annealing_start: float
+    probe_epochs: int
+    probe_input_dim: int
+    dmvae_epochs: int
+    dmvae_hidden: int
+    embed_dim: int
+    dmvae_a: float
+    dmvae_dropout: float
+    dmvae_lr: float
+
+
+def cell_settings(C, dataset_name: str, quick: bool) -> CellSettings:
+    lr = C("optim.dataset_lr", {}).get(
+        dataset_name,
+        {"CalTech": 3e-4, "Scene": 0.01, "CUB": 3e-3, "HandWritten": 3e-3, "PIE": 3e-3}[
+            dataset_name
+        ],
+    )
+    return CellSettings(
+        batch_size=C("dataloader.batch_size", 100), lr=lr,
+        probe_hidden=tuple(C("probes.model_hidden_dim", (128,))),
+        probe_dropout=C("probes.dropout_p", 0.1),
+        annealing_start=C("probes.annealing_start", 50),
+        probe_epochs=2 if quick else C("probes.model_epochs", 200),
+        probe_input_dim=C("probes.input_dim", 200),
+        dmvae_epochs=2 if quick else C("dmvae.num_epochs", 100),
+        dmvae_hidden=C("dmvae.hidden_dim", 512), embed_dim=C("dmvae.embed_dim", 200),
+        dmvae_a=C("dmvae.a", 1e-5), dmvae_dropout=C("dmvae.dropout", 0.0),
+        dmvae_lr=C("dmvae.lr", 1e-4),
+    )
+
+
+def split_cell(C, seed: int, dataset_name: str, conflict: bool, noise: bool):
+    """The cell's split on the legacy ``np.random`` stream seeded with
+    ``seed``, with the condition's perturbation of the test rows:
+    (views, labels, train_idx, test_idx, dims, num_classes)."""
+    from ..data.multiview import DATASET_REGISTRY
+
     np.random.seed(seed)
     dataset = DATASET_REGISTRY[dataset_name]()
     n = len(dataset)
@@ -87,8 +152,69 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
             ratio_conflict=pp.get("ratio_conflict", 1.0),
             rng=None,
         )
-
     views, labels = dataset.arrays()
+    dims = [int(d[0]) for d in dataset.dims]
+    return views, labels, train_idx, test_idx, dims, dataset.num_classes
+
+
+def build_backbone(st: CellSettings, dims, seed: int, device):
+    from ..core.tasks import build_dmvae_task
+
+    return build_dmvae_task(seed=seed, output_dim=dims, hidden_dim=st.dmvae_hidden,
+                            embed_dim=st.embed_dim, a=st.dmvae_a, dropout=st.dmvae_dropout,
+                            fused_modalities=True, device=device)
+
+
+def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device):
+    """The cell's head roster, one for every engine: [(name, builder(seed) ->
+    task, kind, shared_layout)], kind 'probe' (trains on embeddings) or 'raw'
+    (trains on views), in the JAX package's order. The order fixes each
+    head's key slots and fold indices."""
+    from ..core.tasks import (
+        build_disentangled_probe_task,
+        build_late_fusion_task,
+        build_probe_task,
+    )
+
+    head = dict(num_classes=num_classes, hidden_dim=st.probe_hidden, lr=st.lr,
+                dropout=st.probe_dropout, annealing_start=st.annealing_start, device=device)
+    probe = dict(head, num_modalities=len(dims), input_dim=st.probe_input_dim,
+                 num_epochs=st.probe_epochs)
+
+    def dis(seed):
+        return build_disentangled_probe_task(seed=seed, **probe)
+
+    def shared_private(agg):
+        return lambda seed: build_probe_task(seed=seed, aggregation=agg, fused=1.0, **probe)
+
+    def late(agg):
+        return lambda seed: build_late_fusion_task(seed=seed, output_dims=dims, aggregation=agg,
+                                                   fused=1.0, **head)
+
+    return [
+        ("dmvae_dis", dis, "probe", False),
+        ("dmvae_cml", shared_private("cml"), "probe", True),
+        ("dmvae_joint", shared_private("joint"), "probe", True),
+        ("dbf_fusion", late("dbf"), "raw", True),
+        ("cml_fusion", late("cml"), "raw", True),
+        ("avg_fusion", late("avg"), "raw", True),
+    ]
+
+
+def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
+                  noise=False, probe_engine="step"):
+    """Train and evaluate the six models of one cell into ``rows_out``."""
+    from ..core.checkpoint import save_checkpoint
+    from ..core.logging import log_training_csv
+    from ..core.sweep_cell import head_data
+    from ..core.tasks import dmvae_objective, embed_dataset
+    from ..core.train import Randomness, train
+    from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
+    from .common import backbone_checkpoint, cell_seed, head_name
+
+    t0 = time.time()
+    views, labels, train_idx, test_idx, dims, num_classes = split_cell(
+        C, seed, dataset_name, conflict, noise)
 
     def upload(rows):
         return (tuple(torch.from_numpy(np.ascontiguousarray(v[rows])).to(device) for v in views),
@@ -96,87 +222,45 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
 
     xs_tr, y_tr = upload(train_idx)
     xs_te, y_te = upload(test_idx)
-    num_classes = dataset.num_classes
-    dims = [int(d[0]) for d in dataset.dims]
     n_train = len(train_idx)
-    batch_size = C("dataloader.batch_size", 100)
-    lr = C("optim.dataset_lr", {}).get(
-        dataset_name,
-        {"CalTech": 3e-4, "Scene": 0.01, "CUB": 3e-3, "HandWritten": 3e-3, "PIE": 3e-3}[
-            dataset_name
-        ],
-    )
-    probe_hidden = tuple(C("probes.model_hidden_dim", (128,)))
-    probe_dropout = C("probes.dropout_p", 0.1)
-    annealing_start = C("probes.annealing_start", 50)
-    probe_epochs = 2 if quick else C("probes.model_epochs", 200)
-    dmvae_epochs = 2 if quick else C("dmvae.num_epochs", 100)
-    embed_dim = C("dmvae.embed_dim", 200)
-    probe_input_dim = C("probes.input_dim", 200)
+    st = cell_settings(C, dataset_name, quick)
     base = cell_seed(seed, dataset_name, conflict)
 
     def slot(k):
         return base * 16 + k
 
-    cond = "conflict" if conflict else ("noise" if noise else "normal")
-    backbone = build_dmvae_task(
-        seed=slot(0), output_dim=dims, hidden_dim=C("dmvae.hidden_dim", 512),
-        embed_dim=embed_dim, a=C("dmvae.a", 1e-5), dropout=C("dmvae.dropout", 0.0),
-        fused_modalities=True, device=device,
-    )
-    loss_fn, opt = dmvae_objective(backbone, lr=C("dmvae.lr", 1e-4), num_epochs=dmvae_epochs)
+    cond = condition_name(conflict, noise)
+    backbone = build_backbone(st, dims, slot(0), device)
+    loss_fn, opt = dmvae_objective(backbone, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
     t_fit = time.perf_counter()
     res = train(model=backbone, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
-                optimizer=opt, epochs=dmvae_epochs, batch_size=batch_size,
+                optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
                 randomness=Randomness(slot(1), device))
     fit_s = time.perf_counter() - t_fit
     print(f"  [{dataset_name}/{cond}/seed{seed}] dmvae fit: {fit_s:.2f} s, "
-          f"{1e3 * fit_s / dmvae_epochs:.3f} ms/epoch, last train loss "
+          f"{1e3 * fit_s / st.dmvae_epochs:.3f} ms/epoch, last train loss "
           f"{float(res.train_loss[-1]):.4f}", flush=True)
-    save_checkpoint(f"checkpoints/dmvae_dataset{dataset_name}_seed{seed}_a1e-05_{cond}",
-                    backbone, {"dataset": dataset_name, "seed": seed, "cond": cond})
-    zc_tr, zp_tr = embed_dataset(backbone, xs_tr)
-    zc_te, zp_te = embed_dataset(backbone, xs_te)
-    probe_train = {"zc": zc_tr, "zp": zp_tr, "y": y_tr}
-    probe_test = {"zc": zc_te, "zp": zp_te, "y": y_te}
-    lf_train = {"xs": xs_tr, "y": y_tr}
-    lf_test = {"xs": xs_te, "y": y_te}
-    num_modalities = len(dims)
-    head = dict(num_classes=num_classes, hidden_dim=probe_hidden, lr=lr, dropout=probe_dropout,
-                annealing_start=annealing_start, device=device)
-    probe = dict(head, num_modalities=num_modalities, input_dim=probe_input_dim,
-                 num_epochs=probe_epochs)
+    save_checkpoint(backbone_checkpoint(dataset_name, seed, cond), backbone,
+                    {"dataset": dataset_name, "seed": seed, "cond": cond})
+    data = head_data(embed_dataset(backbone, xs_tr), embed_dataset(backbone, xs_te),
+                     xs_tr, xs_te, y_tr, y_te)
 
-    # the six models, in the JAX package's order (its lines 167-199)
-    jobs = [("dmvae_dis", build_disentangled_probe_task(seed=slot(2), **probe),
-             probe_train, probe_test)]
-    for k, agg in ((3, "cml"), (4, "joint")):
-        jobs.append((f"dmvae_{agg}",
-                     build_probe_task(seed=slot(k), aggregation=agg, fused=1.0, **probe),
-                     probe_train, probe_test))
-    for k, agg in ((5, "dbf"), (6, "cml"), (7, "avg")):
-        jobs.append((f"{agg}_fusion",
-                     build_late_fusion_task(seed=slot(k), output_dims=dims, aggregation=agg,
-                                            fused=1.0, **head),
-                     lf_train, lf_test))
-
-    for i, (name, task, tr_data, te_data) in enumerate(jobs):
+    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device)
+    for j, (name, builder, kind, shared_layout) in enumerate(specs):
+        task = builder(slot(2 + j))
+        tr_data, te_data = data[kind]
         t_fit = time.perf_counter()
         res_m = train(
             model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
-            optimizer=task.optimizer, epochs=probe_epochs, batch_size=batch_size,
-            randomness=Randomness(slot(8 + i), device), val_fn=task.val_fn, val_data=te_data,
+            optimizer=task.optimizer, epochs=st.probe_epochs, batch_size=st.batch_size,
+            randomness=Randomness(slot(8 + j), device), val_fn=task.val_fn, val_data=te_data,
             megakernel=task.megakernel if probe_engine == "megakernel" else None,
         )
         fit_s = time.perf_counter() - t_fit
-        if name == "dmvae_dis":
-            info = evaluate_subjective_model(task, te_data)
-        else:
-            info = evaluate_subjective_model_with_shared(task, te_data)
-        # the doubled suffix of late fusion (cml_fusion_fusion_ds...) is the
-        # reference's own name template, kept so artifact names match
-        model_name = (f"{name}_fusion_ds{dataset_name}_seed{seed}"
-                      + ("_conflict" if conflict else "_noise" if noise else ""))
+        evaluate = (evaluate_subjective_model_with_shared if shared_layout
+                    else evaluate_subjective_model)
+        info = evaluate(task, te_data)
+        model_name = head_name(name, dataset_name, seed, cond)
         log_training_csv(model_name, res_m)
         info["path"] = save_checkpoint(f"checkpoints/{model_name}", task.model,
                                        {"model": name, "dataset": dataset_name, "seed": seed})
@@ -186,10 +270,202 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
             f"  [{dataset_name}/{cond}/seed{seed}] {name}: "
             f"fused_acc={info['fused']['accuracy']:.4f} "
             f"val_acc_last={float(res_m.val_acc[-1]):.4f} "
-            f"fit {fit_s:.2f} s, {1e3 * fit_s / probe_epochs:.3f} ms/epoch",
+            f"fit {fit_s:.2f} s, {1e3 * fit_s / st.probe_epochs:.3f} ms/epoch",
             flush=True,
         )
     print(f"  {dataset_name}/{cond}/seed{seed} done in {time.time() - t0:.1f}s", flush=True)
+
+
+# ------------------------------------------------------------ seed-batched engines
+def prepare_cell_data(*, C, seeds, dataset_name, conflict, noise, device):
+    """Every seed's split (the sequential engine's, seed by seed), stacked on
+    a leading seed axis on ``device``: (xs_tr (S, n, S_i) per view, xs_te,
+    y_tr (S, n), y_te, dims, num_classes)."""
+    splits = [split_cell(C, seed, dataset_name, conflict, noise) for seed in seeds]
+    dims, num_classes = splits[0][4:]
+
+    def stack(arrays):
+        return torch.from_numpy(np.stack(arrays)).to(device)
+
+    xs_tr = tuple(stack([sp[0][v][sp[2]] for sp in splits]) for v in range(len(dims)))
+    xs_te = tuple(stack([sp[0][v][sp[3]] for sp in splits]) for v in range(len(dims)))
+    y_tr = stack([sp[1][sp[2]] for sp in splits])
+    y_te = stack([sp[1][sp[3]] for sp in splits])
+    return xs_tr, xs_te, y_tr, y_te, dims, num_classes
+
+
+class _SeedBatchedCell(NamedTuple):
+    """What both seed-batched engines set up for one cell."""
+
+    cond: str
+    data: tuple        # (xs_tr, xs_te, y_tr, y_te)
+    n_train: int
+    settings: CellSettings
+    backbones: list    # one per seed, holding its initial weights
+    bb_loss_fn: object
+    bb_optimizer: object
+    bb_randomness: list
+    jobs: list         # core.sweep_cell.CellJob per head, in roster order
+
+
+def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, device):
+    from ..core.sweep_cell import CellJob
+    from ..core.tasks import dmvae_objective
+    from ..core.train import Randomness
+    from .common import cell_seed, fold_seed
+
+    xs_tr, xs_te, y_tr, y_te, dims, num_classes = prepare_cell_data(
+        C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict, noise=noise,
+        device=device)
+    st = cell_settings(C, dataset_name, quick)
+    cells = [cell_seed(s, dataset_name, conflict) for s in seeds]
+    backbones = [build_backbone(st, dims, fold_seed(c, 0), device) for c in cells]
+    loss_fn, opt = dmvae_objective(backbones[0], lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
+    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device)
+    jobs = [
+        CellJob(name=name, tasks=[builder(fold_seed(c, 10 + j)) for c in cells],
+                randomness=[Randomness(fold_seed(c, 100 + j), device) for c in cells],
+                kind=kind, epochs=st.probe_epochs, shared_layout=shared_layout)
+        for j, (name, builder, kind, shared_layout) in enumerate(specs)
+    ]
+    return _SeedBatchedCell(
+        cond=condition_name(conflict, noise), data=(xs_tr, xs_te, y_tr, y_te),
+        n_train=xs_tr[0].shape[1], settings=st, backbones=backbones, bb_loss_fn=loss_fn,
+        bb_optimizer=opt, bb_randomness=[Randomness(fold_seed(c, 1), device) for c in cells],
+        jobs=jobs,
+    )
+
+
+def _save_backbones(cell: _SeedBatchedCell, params, seeds, dataset_name):
+    from ..core.checkpoint import save_checkpoint
+    from ..core.train import load_params
+    from .common import backbone_checkpoint
+
+    load_params(cell.backbones, params)
+    for backbone, seed in zip(cell.backbones, seeds):
+        save_checkpoint(backbone_checkpoint(dataset_name, seed, cell.cond), backbone,
+                        {"dataset": dataset_name, "seed": seed, "cond": cell.cond})
+
+
+def _write_job(job, fetched, seeds, dataset_name, cond, rows_by_seed, **extra):
+    """Rows, CSV logs and checkpoints of one fetched head fit, per seed,
+    under the sequential engine's names."""
+    from ..core.checkpoint import save_checkpoint
+    from ..core.logging import log_training_csv
+    from ..core.sweep_cell import job_rows
+    from ..core.train import TrainResult, load_params
+    from .common import head_name
+
+    rows = job_rows(job, fetched, seeds)
+    load_params([t.model for t in job.tasks], fetched["params"])
+    for s, seed in enumerate(seeds):
+        model_name = head_name(job.name, dataset_name, seed, cond)
+        log_training_csv(model_name, TrainResult(
+            train_loss=fetched["train_loss"][s], val_loss=fetched["val_loss"][s],
+            val_acc=fetched["val_acc"][s], final_lr=float(fetched["final_lr"][s])))
+        info = rows[int(seed)]
+        info["path"] = save_checkpoint(f"checkpoints/{model_name}", job.tasks[s].model,
+                                       {"model": job.name, "dataset": dataset_name, "seed": seed})
+        info.update(extra)
+        rows_by_seed[seed][job.name] = info
+    accs = [rows_by_seed[s][job.name]["fused"]["accuracy"] for s in seeds]
+    return f"fused_acc {np.mean(accs):.4f} +/- {np.std(accs):.4f}"
+
+
+def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
+                          noise=False):
+    """All seeds of one cell at once, each fit a ``train_many`` over the
+    stacked seeds, its results fetched and written when it ends. Every head
+    row carries ``fit_seconds`` (its seed-batched fit, evaluation and fetch)
+    and ``backbone_fit_seconds``."""
+    from ..core.sweep_cell import fit_job, head_data
+    from ..core.tasks import embed_many
+    from ..core.train import stack_params, train_many
+    from ..eval.analysis import fetch
+
+    t0 = time.time()
+    cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
+                               noise=noise, quick=quick, device=device)
+    st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
+    xs_tr, xs_te, y_tr, y_te = cell.data
+    t_fit = time.perf_counter()
+    res = train_many(model=cell.backbones[0], params=stack_params(cell.backbones),
+                     loss_fn=cell.bb_loss_fn, data={"xs": xs_tr}, n_train=cell.n_train,
+                     optimizer=cell.bb_optimizer, epochs=st.dmvae_epochs,
+                     batch_size=st.batch_size, randomness=cell.bb_randomness)
+    last = res.train_loss[:, -1].tolist()
+    bb_s = time.perf_counter() - t_fit
+    print(f"  {tag} dmvae fit x{s_count} seeds: {bb_s:.2f} s, "
+          f"{1e3 * bb_s / st.dmvae_epochs:.3f} ms/epoch, last train losses "
+          f"{[round(x, 4) for x in last]}", flush=True)
+    _save_backbones(cell, res.params, seeds, dataset_name)
+    data = head_data(embed_many(cell.backbones[0], res.params, xs_tr),
+                     embed_many(cell.backbones[0], res.params, xs_te), xs_tr, xs_te, y_tr, y_te)
+    for job in cell.jobs:
+        t_fit = time.perf_counter()
+        fetched = fetch(fit_job(job, data[job.kind], cell.n_train, st.batch_size))
+        fit_s = time.perf_counter() - t_fit
+        accs = _write_job(job, fetched, seeds, dataset_name, cell.cond, rows_by_seed,
+                          fit_seconds=fit_s, backbone_fit_seconds=bb_s)
+        print(f"  {tag} {job.name} x{s_count}: {accs}, fit {fit_s:.2f} s, "
+              f"{1e3 * fit_s / st.probe_epochs:.3f} ms/epoch", flush=True)
+    print(f"  {dataset_name}/{cell.cond} ({s_count} seeds) done in {time.time() - t0:.1f}s",
+          flush=True)
+
+
+def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
+                         noise=False, defer_artifacts=False):
+    """The whole cell, all seeds, in one ``core.sweep_cell.run_cell`` call
+    with one fetch at its end; the same fits as :func:`run_condition_vmapped`.
+
+    With ``defer_artifacts`` it returns ``finish()``, which fetches the
+    result and writes the rows, checkpoints and CSV logs, for the caller to
+    run while the next cell runs on the device. On CUDA the fetch runs on a
+    stream of its own that waits only for this cell's last operation, so it
+    never waits for what the next cell has issued since."""
+    from ..core.sweep_cell import run_cell
+    from ..core.train import stack_params
+    from ..eval.analysis import fetch
+
+    t0 = time.time()
+    cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
+                               noise=noise, quick=quick, device=device)
+    st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
+    xs_tr, xs_te, y_tr, y_te = cell.data
+    result = run_cell(
+        backbone=cell.backbones[0], bb_params=stack_params(cell.backbones),
+        bb_loss_fn=cell.bb_loss_fn, bb_optimizer=cell.bb_optimizer, bb_epochs=st.dmvae_epochs,
+        bb_randomness=cell.bb_randomness, jobs=cell.jobs, xs_tr=xs_tr, xs_te=xs_te, y_tr=y_tr,
+        y_te=y_te, n_train=cell.n_train, batch_size=st.batch_size,
+    )
+    ready = None
+    if device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    t_issued = time.time()
+    print(f"  {tag} one-program cell ({s_count} seeds x {len(cell.jobs) + 1} fits) issued in "
+          f"{t_issued - t0:.1f}s", flush=True)
+
+    def finish():
+        if ready is None:
+            fetched = fetch(result)
+        else:
+            side = torch.cuda.Stream(device=device)
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                fetched = fetch(result)
+        _save_backbones(cell, fetched["backbone_params"], seeds, dataset_name)
+        for job in cell.jobs:
+            accs = _write_job(job, fetched["jobs"][job.name], seeds, dataset_name, cell.cond,
+                              rows_by_seed)
+            print(f"  {tag} {job.name} x{s_count}: {accs}", flush=True)
+        print(f"  {dataset_name}/{cell.cond} ({s_count} seeds) one-program cell done in "
+              f"{time.time() - t0:.1f}s (artifacts {time.time() - t_issued:.1f}s)", flush=True)
+
+    if defer_artifacts:
+        return finish
+    finish()
+    return None
 
 
 def write_sweep_report(rows, excel_path):
@@ -215,13 +491,14 @@ def write_sweep_report(rows, excel_path):
 
 
 NOT_PORTED = {
-    "vmap_seeds": "--vmap-seeds", "one_program_cells": "--one-program-cells",
     "rows_file": "--rows-file", "profile": "--profile",
     "intermediate_fusion": "--intermediate-fusion",
 }
 
 
 def parse_args(argv=None):
+    from .common import add_force_vmap_flag
+
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
@@ -232,7 +509,13 @@ def parse_args(argv=None):
     parser.add_argument("--probe-engine", choices=["step", "megakernel"], default="step",
                         help="'step' (the JAX package's 'xla'): every fit as the eager step "
                              "loop; 'megakernel': the probe fits through the whole-epoch "
-                             "CUDA kernel")
+                             "CUDA kernel (sequential engine only)")
+    parser.add_argument("--vmap-seeds", action="store_true",
+                        help="train all seeds of each (dataset, condition) cell at once, "
+                             "each fit over the stacked seeds (same math per seed)")
+    parser.add_argument("--one-program-cells", action="store_true",
+                        help="run each (dataset, condition) cell, all seeds, as one call "
+                             "with one fetch at its end; the fits of --vmap-seeds")
     parser.add_argument("--skip-report", action="store_true", help="skip the report write")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
@@ -242,12 +525,16 @@ def parse_args(argv=None):
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
+    add_force_vmap_flag(parser)
     for dest, flag in NOT_PORTED.items():
         if dest in ("rows_file", "intermediate_fusion"):
             parser.add_argument(flag, nargs="*", default=None)
         else:
             parser.add_argument(flag, action="store_true")
     args = parser.parse_args(argv)
+    if args.probe_engine == "megakernel" and (args.vmap_seeds or args.one_program_cells):
+        parser.error("--probe-engine megakernel runs the sequential engine only "
+                     "(the epoch kernel has no seed-batched program)")
     used = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest)]
     if args.backbone != "dmvae":
         used.append("--backbone dssl")
@@ -272,24 +559,66 @@ def main(argv=None):
                                    ["CUB", "HandWritten", "PIE", "Scene"])
     conflict_ds = args.datasets or C("experiment.conflict_datasets",
                                      ["CUB", "HandWritten", "PIE", "Scene"])
+    cells = [(cond_name, ds_name, is_conflict, is_noise)
+             for cond_name, is_conflict, is_noise in CONDITIONS if cond_name in args.conditions
+             for ds_name in (normal_ds if cond_name == "Normal" else conflict_ds)]
     t_start = time.time()
-    rows = {}
-    for seed in seeds:
-        rows[seed] = {}
-        for cond_name, is_conflict, is_noise in CONDITIONS:
-            if cond_name not in args.conditions:
-                continue
-            rows[seed][cond_name] = {}
-            for ds_name in (normal_ds if cond_name == "Normal" else conflict_ds):
-                rows[seed][cond_name][ds_name] = {}
+    rows = {seed: {} for seed in seeds}
+    if args.vmap_seeds or args.one_program_cells:
+        _run_seed_batched(args, C, seeds, cells, device, rows)
+    else:
+        for seed in seeds:
+            for cond_name, ds_name, is_conflict, is_noise in cells:
+                out = rows[seed].setdefault(cond_name, {}).setdefault(ds_name, {})
                 run_condition(C=C, seed=seed, dataset_name=ds_name, conflict=is_conflict,
-                              noise=is_noise, quick=args.quick, device=device,
-                              rows_out=rows[seed][cond_name][ds_name],
+                              noise=is_noise, quick=args.quick, device=device, rows_out=out,
                               probe_engine=args.probe_engine)
     if not args.skip_report:
         write_sweep_report(rows, C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
     print(f"sweep done in {time.time() - t_start:.1f}s")
     return rows
+
+
+def _run_seed_batched(args, C, seeds, cells, device, rows):
+    """The cells through ``--vmap-seeds`` or ``--one-program-cells``. A
+    one-program cell's artifacts are written on a thread while the next
+    cell runs; at most one such thread is outstanding, and it is joined
+    before this returns or raises, so a finished cell's files are always
+    complete."""
+    pending = []
+
+    def flush():
+        while pending:
+            thread, err = pending.pop()
+            thread.join()
+            if err:
+                raise err[0]
+
+    try:
+        for cond_name, ds_name, is_conflict, is_noise in cells:
+            rows_by_seed = {s: {} for s in seeds}
+            for s in seeds:
+                rows[s].setdefault(cond_name, {})[ds_name] = rows_by_seed[s]
+            kw = dict(C=C, seeds=seeds, dataset_name=ds_name, conflict=is_conflict,
+                      noise=is_noise, quick=args.quick, device=device, rows_by_seed=rows_by_seed)
+            if not args.one_program_cells:
+                run_condition_vmapped(**kw)
+                continue
+            finish = run_condition_onejit(**kw, defer_artifacts=True)
+            flush()  # the previous cell's artifacts
+            err = []
+
+            def work(finish=finish, err=err):
+                try:
+                    finish()
+                except Exception as e:  # re-raised by flush
+                    err.append(e)
+
+            thread = threading.Thread(target=work, name="cell-artifacts")
+            thread.start()
+            pending.append((thread, err))
+    finally:
+        flush()
 
 
 if __name__ == "__main__":

@@ -1,13 +1,21 @@
-"""Serving CLI: build a model, time its inference path per batch bucket,
-optionally load-test the micro-batching daemon and serve it over HTTP.
+"""Serving CLI: restore a sweep checkpoint, time its inference path per
+batch bucket, optionally load-test the micro-batching daemon and serve it
+over HTTP.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/runners/serve.py``. The
 frozen DMVAE backbone and the evidential head run on the CUDA card (the
-head through the evidential head kernel), unless ``--device cpu``.
-Checkpoint restore is not ported yet: serve from ``--random-init`` weights
-(serving speed does not depend on the weights).
+head through the evidential head kernel), unless ``--device cpu``. The
+model is restored from the checkpoints ``runners/run.py`` writes, at the
+JAX package's default paths (``checkpoints/dmvae_dataset{ds}_seed{seed}_
+a1e-05_normal`` and ``checkpoints/{model}_fusion_ds{ds}_seed{seed}``) or at
+``--dmvae-checkpoint`` / ``--checkpoint``; ``--random-init`` skips the
+restore (serving speed does not depend on the weights). ``torch.export``
+artifacts (the JAX ``--export-dir``) are not ported yet.
 
 Examples:
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
+      --model dmvae_cml --dataset HandWritten --seed 0
+
   python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
       --model dmvae_cml --dataset HandWritten --random-init
 
@@ -34,9 +42,12 @@ def load(args, C, device):
     """(infer_fn, xs): the model named by ``args`` on ``device``, and the
     dataset's views tiled up to the largest bucket, as tensors there.
 
-    The backbone draws its weights from ``torch.Generator(seed)`` and the
-    head from ``seed + 1``.
+    The model is restored from its checkpoints (the sweep's names for
+    ``--seed`` unless ``--checkpoint`` / ``--dmvae-checkpoint`` name
+    others); with ``--random-init`` the backbone keeps the weights drawn
+    from ``torch.Generator(seed)`` and the head those from ``seed + 1``.
     """
+    from ..core.checkpoint import restore_checkpoint
     from ..core.serve import build_inference_fn
     from ..core.tasks import (
         build_disentangled_probe_task,
@@ -45,6 +56,7 @@ def load(args, C, device):
         build_probe_task,
     )
     from ..data.multiview import DATASET_REGISTRY
+    from .common import backbone_checkpoint, head_name
 
     seed, name = args.seed, args.model
     dataset = DATASET_REGISTRY[args.dataset]()
@@ -63,6 +75,9 @@ def load(args, C, device):
             embed_dim=C("dmvae.embed_dim", 200), fused_modalities=not args.no_fused_dmvae,
             device=device,
         )
+        if not args.random_init:
+            restore_checkpoint(args.dmvae_checkpoint
+                               or backbone_checkpoint(args.dataset, seed, "normal"), backbone)
         kw = dict(
             seed=seed + 1, num_modalities=len(dims), num_classes=dataset.num_classes,
             input_dim=C("probes.input_dim", 200), hidden_dim=probe_hidden, device=device,
@@ -77,6 +92,10 @@ def load(args, C, device):
             seed=seed + 1, output_dims=dims, num_classes=dataset.num_classes,
             hidden_dim=probe_hidden, aggregation=name.split("_")[0], device=device,
         )
+    if not args.random_init:
+        restore_checkpoint(args.checkpoint
+                           or f"checkpoints/{head_name(name, args.dataset, seed, 'normal')}",
+                           task.model)
     return build_inference_fn(task, backbone=backbone), xs
 
 
@@ -164,11 +183,17 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the "
                              "plain PyTorch path)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="the head's checkpoint (default: the sweep's name for "
+                             "--model, --dataset and --seed)")
+    parser.add_argument("--dmvae-checkpoint", default=None,
+                        help="the backbone's checkpoint (default: the sweep's name, "
+                             "Normal condition)")
     parser.add_argument("--no-fused-dmvae", action="store_true",
-                        help="use the unfused per-modality DMVAE")
+                        help="the checkpoint is of the unfused per-modality DMVAE")
     parser.add_argument("--random-init", action="store_true",
-                        help="serve weights drawn from --seed (checkpoint restore "
-                             "is not ported yet, so this is required)")
+                        help="skip the restore and serve weights drawn from --seed "
+                             "(a program-speed profile)")
     parser.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 64, 256])
     parser.add_argument("--reps", type=int, default=30)
     parser.add_argument("--daemon", action="store_true",
@@ -184,10 +209,7 @@ def parse_args(argv=None):
                         help="after the bench, serve over HTTP until interrupted "
                              "(POST /v1/infer, GET /v1/stats, /healthz)")
     parser.add_argument("--http-host", default="127.0.0.1")
-    args = parser.parse_args(argv)
-    if not args.random_init:
-        parser.error("checkpoint restore is not ported yet; pass --random-init")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None):
@@ -195,7 +217,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     from .common import load_config, make_getter
 
-    infer, xs = load(args, make_getter(load_config()), device)
+    try:
+        infer, xs = load(args, make_getter(load_config()), device)
+    except FileNotFoundError as e:
+        raise SystemExit(f"serve: {e}; train the model with runners/run.py, name its "
+                         f"checkpoint, or pass --random-init") from e
     rows = [bench_bucket(infer, xs, b, args.reps, device) for b in sorted(args.buckets)]
     engine = (make_engine(infer, xs, args.buckets)
               if (args.daemon or args.http_port is not None) else None)
@@ -206,7 +232,7 @@ def main(argv=None):
         "dataset": args.dataset,
         "backend": device.type,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "random_init": True,
+        "random_init": args.random_init,
         "buckets": rows,
         "daemon": daemon_stats,
     }

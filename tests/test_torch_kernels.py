@@ -83,6 +83,60 @@ def test_plain_path_is_not_counted_as_a_launch():
     assert ck.evidential_heads_stacked.launches == before
 
 
+def _stacked_head_inputs(rng, s, v, b, d, h, c):
+    shapes = ((s, v, b, d), (s, v, d, h), (s, v, h), (s, v, h, c), (s, v, c))
+    return [torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32))
+            for shape in shapes]
+
+
+def test_head_wrapper_under_vmap_folds_seeds_into_heads(monkeypatch):
+    """Under torch.func.vmap the wrapper makes one call at S * V heads (on
+    the CPU its plain version; on the card one launch), equal to the
+    per-seed calls and to the plain version vmapped; an input without the
+    vmapped axis (one dataset shared by every seed) is broadcast."""
+    s, v, b, d, h, c = 3, 4, 9, 12, 8, 5
+    stacked = _stacked_head_inputs(np.random.default_rng(5), s, v, b, d, h, c)
+    plain = ck.evidential_heads_stacked_plain
+    calls = []
+
+    def recorded(*args):
+        calls.append(tuple(args[0].shape))
+        return plain(*args)
+
+    monkeypatch.setattr(ck, "evidential_heads_stacked_plain", recorded)
+    with torch.no_grad():
+        got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
+        shared = torch.func.vmap(ck.evidential_heads_stacked, in_dims=(None, 0, 0, 0, 0))(
+            stacked[0][0], *stacked[1:])
+    assert calls == [(s * v, b, d), (s * v, b, d)]
+    assert got.shape == (s, b, v, c)
+    np.testing.assert_array_equal(got.numpy(), torch.func.vmap(plain)(*stacked).numpy())
+    for i in range(s):
+        np.testing.assert_allclose(got[i].numpy(), plain(*(t[i] for t in stacked)).numpy(),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(shared[i].numpy(),
+                                   plain(stacked[0][0], *(t[i] for t in stacked[1:])).numpy(),
+                                   rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_cuda_head_kernel_under_vmap_is_one_launch():
+    _needs_cuda()
+    seeds = 5
+    for v, b, d in ((7, 400, 200), (6, 400, 200), (6, 400, 240)):
+        stacked = [t.cuda() for t in _stacked_head_inputs(np.random.default_rng(v + d), seeds,
+                                                         v, b, d, 128, 10)]
+        before = ck.evidential_heads_stacked.launches
+        with torch.no_grad():
+            got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
+        torch.cuda.synchronize()
+        assert ck.evidential_heads_stacked.launches == before + 1
+        for i in range(seeds):
+            ref = ck.evidential_heads_stacked(*(t[i] for t in stacked))
+            np.testing.assert_allclose(got[i].cpu().numpy(), ref.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():

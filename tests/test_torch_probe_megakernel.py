@@ -245,3 +245,34 @@ def test_supports_guard():
     assert tmk.supports_probe_megakernel(desc, adamw)
     assert not tmk.supports_probe_megakernel(None, adamw)
     assert not tmk.supports_probe_megakernel(desc, OptimizerConfig(name="adam", lr=1e-3))
+
+
+@pytest.mark.parametrize("mods,hidden", [(3, 129), (8, 16)])  # H = 129; V = 8 + 1 = 9 heads
+def test_probes_the_kernel_refuses_run_the_step_loop(mods, hidden, monkeypatch):
+    """The epoch kernel takes at most 8 heads of at most 128 hidden units:
+    the predicate declines wider probes, so train() fits them through the
+    step loop on the same randomness stream, as the JAX package trains
+    them."""
+    task = ttasks.build_probe_task(num_modalities=mods, num_classes=5, input_dim=12,
+                                   hidden_dim=(hidden,), lr=3e-3, dropout=0.3,
+                                   annealing_start=2, num_epochs=2, device="cpu")
+    assert not tmk.supports_probe_megakernel(task.megakernel, task.optimizer)
+
+    def refuse(**kw):
+        raise AssertionError("the epoch-kernel program was built for a fit it cannot run")
+
+    monkeypatch.setattr(tmk, "make_probe_megakernel_program", refuse)
+    rng = np.random.default_rng(mods)
+    data = {"zc": torch.from_numpy(rng.standard_normal((40, 12)).astype(np.float32)),
+            "zp": torch.from_numpy(rng.standard_normal((40, mods, 12)).astype(np.float32)),
+            "y": torch.from_numpy(rng.integers(0, 5, 40))}
+    kernel = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=40,
+                   optimizer=task.optimizer, epochs=2, batch_size=16,
+                   randomness=Randomness(3, "cpu"), megakernel=task.megakernel)
+    task = ttasks.build_probe_task(num_modalities=mods, num_classes=5, input_dim=12,
+                                   hidden_dim=(hidden,), lr=3e-3, dropout=0.3,
+                                   annealing_start=2, num_epochs=2, device="cpu")
+    step = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=40,
+                 optimizer=task.optimizer, epochs=2, batch_size=16,
+                 randomness=Randomness(3, "cpu"))
+    np.testing.assert_array_equal(kernel.train_loss, step.train_loss)

@@ -8,7 +8,11 @@ JAX package's.
 * a whole ``run_condition`` on the CPU at tiny widths: it finishes, and its
   report columns equal those the JAX flatteners give for the same rows;
 * the CLI on the CPU (quick CUB cell, report files), its refusal of the
-  options it does not have, and the port's imports.
+  options it does not have, and the port's imports;
+* the seed-batched engines: ``--one-program-cells`` rows equal
+  ``--vmap-seeds`` rows bit for bit, a ``--vmap-seeds`` cell equals its
+  per-seed replay by the sequential trainer from the same generators, and
+  the fold seeds never meet the sequential slots.
 """
 
 import subprocess
@@ -128,7 +132,7 @@ def test_cli_trains_a_quick_cell_on_the_cpu_and_writes_the_report(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--vmap-seeds"], ["--one-program-cells"], ["--backbone", "dssl"], ["--dtype", "bfloat16"],
+    ["--backbone", "dssl"], ["--dtype", "bfloat16"],
     ["--rows-file", "rows.json"], ["--profile"], ["--intermediate-fusion", "lrtf"],
     ["--data-parallel", "2"],
 ])
@@ -137,6 +141,151 @@ def test_cli_refuses_what_is_not_ported(flags):
 
     with pytest.raises(SystemExit):
         runner.parse_args(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("engine", ["--vmap-seeds", "--one-program-cells"])
+def test_cli_refuses_the_epoch_kernel_with_a_seed_batched_engine(engine):
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    assert getattr(runner.parse_args([engine]), engine[2:].replace("-", "_"))
+    with pytest.raises(SystemExit):
+        runner.parse_args([engine, "--probe-engine", "megakernel"])
+
+
+def test_force_vmap_seeds_is_accepted_and_never_falls_back(monkeypatch):
+    from disentagled_multimodal_fusion_tpu_torch.runners import common
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    def sequential(**kw):
+        raise AssertionError("--vmap-seeds fell back to the sequential engine")
+
+    tiny = _tiny_config()
+    monkeypatch.setattr(common, "make_getter", lambda cfg: tiny)
+    monkeypatch.setattr(runner, "run_condition", sequential)
+    rows = runner.main(["--vmap-seeds", "--force-vmap-seeds", "--quick", "--seeds", "0", "1",
+                        "--datasets", "CUB", "--conditions", "Normal", "--device", "cpu",
+                        "--skip-report"])
+    assert [len(rows[s]["Normal"]["CUB"]) for s in (0, 1)] == [6, 6]
+
+
+def test_a_failing_cell_still_waits_for_the_previous_cells_artifacts(monkeypatch):
+    """--one-program-cells writes a cell's artifacts on a thread while the
+    next cell runs; if that cell raises, the writes still finish first."""
+    import time
+
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    issued, written = [], []
+
+    def onejit(*, dataset_name, defer_artifacts, **kw):
+        assert defer_artifacts
+        issued.append(dataset_name)
+        if len(issued) == 2:
+            raise RuntimeError("the second cell failed")
+
+        def finish():
+            time.sleep(0.2)
+            written.append(dataset_name)
+
+        return finish
+
+    monkeypatch.setattr(runner, "run_condition_onejit", onejit)
+    with pytest.raises(RuntimeError, match="second cell"):
+        runner.main(["--one-program-cells", "--seeds", "0", "--datasets", "CUB", "PIE",
+                     "--conditions", "Normal", "--device", "cpu", "--skip-report"])
+    assert written == ["CUB"]
+
+
+def test_fold_seeds_never_meet_the_sequential_slots():
+    """A CPU generator keeps a seed's low 32 bits: the seed-batched engines'
+    fold seeds and the sequential engine's slots must differ there."""
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import (
+        MAX_FOLD_CELL,
+        cell_seed,
+        fold_seed,
+    )
+
+    cells = [cell_seed(s, ds, c) for s in range(8) for ds in ("CUB", "HandWritten", "PIE", "Scene")
+             for c in (False, True)]
+    slots = {(c * 16 + k) % 2**32 for c in cells + [MAX_FOLD_CELL - 1] for k in range(16)}
+    folds = {fold_seed(c, i) % 2**32 for c in cells + [MAX_FOLD_CELL - 1]
+             for i in [0, 1, *range(10, 16), *range(100, 106)]}
+    assert not slots & folds
+    assert len(folds) == (len(cells) + 1) * 14  # no two fold indices share a seed
+    for bad in ((MAX_FOLD_CELL, 0), (-1, 0), (0, 256)):
+        with pytest.raises(ValueError):
+            fold_seed(*bad)
+
+
+def _strip(info):
+    return {k: v for k, v in info.items() if k not in ("path", "fit_seconds",
+                                                        "backbone_fit_seconds")}
+
+
+@pytest.fixture(scope="module")
+def seed_batched_rows():
+    """A tiny Conflict cell on CUB, seeds 0 and 1, through both seed-batched
+    engines."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    out = {}
+    for engine in (runner.run_condition_vmapped, runner.run_condition_onejit):
+        rows = {0: {}, 1: {}}
+        engine(C=_tiny_config(), seeds=[0, 1], dataset_name="CUB", conflict=True, quick=False,
+               device=torch.device("cpu"), rows_by_seed=rows)
+        out[engine.__name__] = rows
+    return out
+
+
+def test_one_program_rows_equal_vmapped_rows_bit_for_bit(seed_batched_rows):
+    vmapped, onejit = (seed_batched_rows[k] for k in ("run_condition_vmapped",
+                                                       "run_condition_onejit"))
+    for seed in (0, 1):
+        assert list(onejit[seed]) == list(vmapped[seed]) == [
+            "dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion", "avg_fusion"]
+        for name, info in vmapped[seed].items():
+            assert _strip(onejit[seed][name]) == _strip(info), name
+            assert Path(info["path"]).exists()
+
+
+def test_seed_batched_cell_equals_its_per_seed_sequential_replay(seed_batched_rows):
+    """Each seed of the --vmap-seeds cell, replayed by the sequential
+    trainer from the same fold-index generators, gives the same rows
+    (rtol 1e-6)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.tasks import dmvae_objective, embed_dataset
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import cell_seed, fold_seed
+
+    C, cpu = _tiny_config(), torch.device("cpu")
+    st = runner.cell_settings(C, "CUB", False)
+    for seed in (0, 1):
+        views, labels, tr, te, dims, num_classes = runner.split_cell(C, seed, "CUB", True, False)
+        xs_tr, xs_te = (tuple(torch.from_numpy(v[rows]) for v in views) for rows in (tr, te))
+        y_tr, y_te = torch.from_numpy(labels[tr]), torch.from_numpy(labels[te])
+        c = cell_seed(seed, "CUB", True)
+        backbone = runner.build_backbone(st, dims, fold_seed(c, 0), cpu)
+        loss_fn, opt = dmvae_objective(backbone, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
+        train(model=backbone, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=len(tr),
+              optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
+              randomness=Randomness(fold_seed(c, 1), cpu))
+        (zc_tr, zp_tr), (zc_te, zp_te) = embed_dataset(backbone, xs_tr), embed_dataset(backbone,
+                                                                                       xs_te)
+        data = {"probe": ({"zc": zc_tr, "zp": zp_tr, "y": y_tr},
+                          {"zc": zc_te, "zp": zp_te, "y": y_te}),
+                "raw": ({"xs": xs_tr, "y": y_tr}, {"xs": xs_te, "y": y_te})}
+        specs = runner.build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=cpu)
+        for j, (name, builder, kind, shared_layout) in enumerate(specs):
+            task = builder(fold_seed(c, 10 + j))
+            train(model=task.model, loss_fn=task.loss_fn, data=data[kind][0], n_train=len(tr),
+                  optimizer=task.optimizer, epochs=st.probe_epochs, batch_size=st.batch_size,
+                  randomness=Randomness(fold_seed(c, 100 + j), cpu), val_fn=task.val_fn,
+                  val_data=data[kind][1])
+            evaluate = (tanalysis.evaluate_subjective_model_with_shared if shared_layout
+                        else tanalysis.evaluate_subjective_model)
+            replay = evaluate(task, data[kind][1])
+            _assert_same_tree(_strip(seed_batched_rows["run_condition_vmapped"][seed][name]),
+                              replay, f"seed {seed} {name}")
 
 
 def test_cell_seed_matches_jax():
@@ -160,9 +309,12 @@ import chip_smoke
 banned = ("jax", "flax", "optax", "pandas", "disentagled_multimodal_fusion_tpu")
 loaded = [m for m in sys.modules if m in banned or m.split(".")[0] in banned]
 assert not loaded, loaded
+# the seed-batched engines, restore and evaluate among them
+for name in ("core.sweep_cell", "core.checkpoint", "runners.evaluate", "runners.run"):
+    assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 33

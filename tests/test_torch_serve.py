@@ -234,10 +234,14 @@ def test_runner_serves_handwritten_on_cpu(extra):
         assert report["daemon"]["requests"] > 0
 
 
-def test_runner_refuses_to_run_without_random_init():
+def test_runner_refuses_to_run_without_random_init(tmp_path, monkeypatch):
+    """Without --random-init the runner serves a checkpoint, and stops,
+    naming the missing file, when there is none."""
     from disentagled_multimodal_fusion_tpu_torch.runners import serve as runner
 
-    with pytest.raises(SystemExit):
+    monkeypatch.setenv("DMF_ARTIFACT_ROOT", str(tmp_path))
+    missing = tmp_path / "checkpoints" / "cml_fusion_fusion_dsHandWritten_seed0.pt"
+    with pytest.raises(SystemExit, match=f"no checkpoint at {missing}.*--random-init"):
         runner.main(["--model", "cml_fusion", "--dataset", "HandWritten", "--device", "cpu"])
 
 
