@@ -1,6 +1,12 @@
-"""The sections of ``disentagled_multimodal_fusion_tpu/configs/config.yaml``
-that the port reads, as Python (the port needs no YAML parser).
-``tests/test_torch_serve.py`` holds this copy equal to the YAML."""
+"""The JAX package's configs as Python (the port needs no YAML parser).
+
+``CONFIG`` is the sections of ``disentagled_multimodal_fusion_tpu/configs/config.yaml``
+that the port reads (``tests/test_torch_serve.py`` holds it equal to the
+YAML). ``SYNTHETIC_CONFIG`` is the whole of ``configs/synthetic_config.yaml``,
+the synthetic dependence sweep's (``tests/test_torch_synthetic.py``). The
+DisentangledSSL backbone's ``dssl.*`` keys have no section in either YAML,
+so the code defaults apply (hidden 512, a 1.0, vmf, kappa 1.0, lr 1e-3).
+"""
 
 CONFIG = {
     "experiment": {
@@ -48,5 +54,65 @@ CONFIG = {
     },
     "logging": {
         "datasets_excel_path": "logs/dataset_analysis.xlsx",
+    },
+}
+
+
+_SYNTHETIC_COMMON = dict(n_samples=10000, d_signal=16)
+
+SYNTHETIC_CONFIG = {
+    "experiment": {
+        "seeds": [0, 1, 2, 3, 4],
+        "deps": [0, 25, 50, 75, 100],
+    },
+    "data": {
+        # expected fused accuracy bands: easy 90-98%, med 70-90%, hard 55-75%
+        "common_easy": dict(
+            _SYNTHETIC_COMMON, d_spurious=4, alpha_shared=0.9, beta_specific=0.8,
+            class_sep_shared=1.5, class_sep_private=1.3, noise_std=0.3, hetero_noise=False,
+            hetero_scale=0.2, nonlinear_shared=False, nonlinear_specific=False,
+            conflict_frac=0.1, conflict_strength=0.3,
+        ),
+        "common_med": dict(
+            _SYNTHETIC_COMMON, d_spurious=16, alpha_shared=0.7, beta_specific=0.6,
+            class_sep_shared=1.1, class_sep_private=0.9, noise_std=0.7, hetero_noise=True,
+            hetero_scale=0.4, nonlinear_shared=True, nonlinear_specific=False,
+            conflict_frac=0.4, conflict_strength=0.7,
+        ),
+        "common_hard": dict(
+            _SYNTHETIC_COMMON, d_spurious=48, alpha_shared=0.5, beta_specific=0.4,
+            class_sep_shared=0.8, class_sep_private=0.6, noise_std=1.2, hetero_noise=True,
+            hetero_scale=0.6, nonlinear_shared=True, nonlinear_specific=True,
+            conflict_frac=0.7, conflict_strength=0.9,
+        ),
+    },
+    "dmvae": {
+        "a": 1.0e-5,
+        "hidden_dim": 512,
+        "embed_dim": 16,
+        "lr": 0.001,
+        "output_dim": [32, 32],
+        "num_epochs": 100,
+    },
+    "dmvae_fusion": {
+        "annealing_start": 10,
+        "lr": 0.0003,
+        "num_classes": 3,
+        "num_epochs": 50,
+        "dropout": 0.1,
+        "aggregation": "cml",
+        "input_dim": 16,
+        "hidden_dim": [128],
+    },
+    "latefusion": {
+        "annealing_start": 10,
+        "dropout": 0.1,
+        "output_dims": [32, 32],
+        "num_classes": 3,
+        "hidden_dim": [128],
+        "lr": 0.0003,
+    },
+    "logging": {
+        "excel_path": "logs/synthetic_dataset.xlsx",
     },
 }

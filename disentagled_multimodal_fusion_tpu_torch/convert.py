@@ -11,7 +11,11 @@ flax path                                      port state-dict key
 ``encoders_0/TorchLinear_1/Dense_0/kernel``    ``encoders.0.layers.1.weight``
 ``x_specs_2/MLP_0/TorchLinear_0/Dense_0/bias`` ``x_specs.2.mlp.layers.0.bias``
 ``StackedMLP_0/w2`` (fused probe, late fusion) ``stack.w2``
+``encoder_x1s/TorchLinear_2/Dense_0/kernel``   ``encoder_x1s.layers.2.weight``
 =============================================  ==============================
+
+The last row is DisentangledSSL's: its four encoders (``encoder_x1s``,
+``encoder_x2s``, ``encoder_x1``, ``encoder_x2``) keep their flax names.
 
 A Dense ``kernel`` (in, out) becomes ``weight`` (out, in). Stacked weights
 keep the JAX layout (N, in, out).

@@ -12,8 +12,11 @@ then one (rows, V, H) keep-mask per step at the step's exact row count, from
 the same :class:`~.train.Randomness`. So a kernel fit and a step fit from
 one generator state can be compared at float tolerance. The ragged tail
 becomes a zero-padded, row-masked extra step (the probes are stateless, so
-masking the loss is exact). Validation and the plateau state run after each
-epoch as in the step loop.
+masking the loss is exact); with ``drop_last`` there is no tail and no extra
+step (JAX ``core/megakernel.py:113-124``), so an epoch of n = 8000 rows at
+B = 128 is 62 steps, and Adam counts 62 steps per epoch. Unshuffled epochs
+(``shuffle=False``) take the rows in order and draw no permutation.
+Validation and the plateau state run after each epoch as in the step loop.
 
 Scope (``supports_probe_megakernel``): the fused probes with one hidden
 layer of at most 128 units and at most 8 heads, AdamW, cosine/plateau/
@@ -36,6 +39,7 @@ from .train import (
     _plateau_init,
     batch_sizes,
     epoch_batches,
+    epoch_order,
     lr_for_epoch,
     validate,
 )
@@ -109,11 +113,13 @@ def make_probe_megakernel_program(
     epochs: int,
     batch_size: int,
     val_fn,
+    drop_last: bool = False,
+    shuffle: bool = True,
 ):
     """``program(stack, randomness, data, val_data) -> TrainResult``, which
     fits the probe's :class:`~..models.dmvae_fused.StackedMLP` ``stack`` in
     place."""
-    sizes = batch_sizes(n_train, batch_size)
+    sizes = batch_sizes(n_train, batch_size, drop_last)
     s_total = len(sizes)
     v_heads = desc.num_modalities + (1 if desc.has_shared else 0)
     keep = 1.0 - desc.dropout
@@ -135,11 +141,11 @@ def make_probe_megakernel_program(
         count = 0
         history = []
         for epoch in range(epochs):
-            perm = randomness.permutation(n_train)
+            perm = epoch_order(randomness, n_train, shuffle, device)
             lr = lr_for_epoch(optimizer, epoch, plateau[0])
 
             # the epoch's batches, the tail zero-padded to B rows
-            steps = epoch_batches(perm, batch_size)
+            steps = epoch_batches(perm, batch_size, drop_last)
             xs = torch.stack([_pad_rows(xin_all.index_select(0, i), batch_size) for i in steps])
             ys = torch.stack([_pad_rows(yoh_all.index_select(0, i), batch_size) for i in steps])
             xs = xs.transpose(1, 2).contiguous()                     # (S, V, B, pad)

@@ -46,7 +46,8 @@ class CellJob(NamedTuple):
     shared_layout: bool
 
 
-def fit_job(job: CellJob, data, n_train: int, batch_size: int) -> Dict[str, Any]:
+def fit_job(job: CellJob, data, n_train: int, batch_size: int,
+            drop_last: bool = False) -> Dict[str, Any]:
     """Fit the job's S heads at once on ``data = (train, test)`` and evaluate
     them on the test split; every value stays on the device."""
     train_data, test_data = data
@@ -55,7 +56,7 @@ def fit_job(job: CellJob, data, n_train: int, batch_size: int) -> Dict[str, Any]
         model=task.model, params=stack_params([t.model for t in job.tasks]),
         loss_fn=task.loss_fn, data=train_data, n_train=n_train, optimizer=task.optimizer,
         epochs=job.epochs, batch_size=batch_size, randomness=job.randomness,
-        val_fn=task.val_fn, val_data=test_data,
+        val_fn=task.val_fn, val_data=test_data, drop_last=drop_last,
     )
     ev = evidences_many(task, res.params, test_data)
     metrics = tuple(

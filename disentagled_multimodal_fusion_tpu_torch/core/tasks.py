@@ -8,6 +8,7 @@ everywhere. Optimizer settings are the reference's (JAX docstring, lines
 8-18):
 
 * DMVAE: Adam + cosine (T_max = num_epochs, eta_min 0);
+* DisentangledSSL: Adam + cosine (T_max = epochs, eta_min 0);
 * EvidentialProbe: AdamW (wd 1e-4) + cosine (eta_min 1e-6);
 * DisentangledProbe: AdamW (wd 0.01) + plateau (factor 0.1, patience 5);
 * LateFusion: Adam + plateau (factor 0.1, patience 10).
@@ -20,7 +21,9 @@ called as ``(batch, mask, epoch, randomness)`` they draw, then compute.
 Validation closures take ``(data, epoch)`` and run the eval forward, which
 goes through the evidential head kernel on the card. :func:`embed_many` and
 :func:`evidences_many` are the frozen-backbone and eval forwards over
-stacked seeds.
+stacked seeds. The DisentangledSSL objective draws a whole epoch at once
+(its vMF rejection sampler syncs with the host once per block, not per
+step) and takes the global step for its lambda schedule.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch import nn
 
 from ..models.baselines import FusedLateFusion, LateFusion
 from ..models.dmvae import DMVAE
+from ..models.disentangledssl import DisentangledSSL
 from ..models.dmvae_fused import FusedDMVAE
 from ..models.probes import (
     DisentangledEvidentialProbe,
@@ -141,11 +145,55 @@ def dmvae_objective(model: FusedDMVAE, *, lr: float = 1e-4, num_epochs: int = 50
     return Objective(draw, loss_from_draws), opt
 
 
+# ------------------------------------------------------------------ SSL
+def build_disentangledssl_task(
+    *,
+    output_dim: Sequence[int],
+    seed: int = 0,
+    hidden_dim: int = 512,
+    embed_dim: int = 100,
+    a: float = 1.0,
+    distribution: str = "vmf",
+    vmfkappa: float = 1.0,
+    lr: float = 1e-4,
+    lmd_start_value: float = 0.0,
+    lmd_end_value: float = 0.0,
+    lmd_n_iterations: int = 8000,
+    lmd_start_iteration: int = 0,
+    condzs: bool = True,
+    usezsx: bool = False,
+    epochs: int = 50,
+    device=None,
+):
+    """(model, loss_fn, optimizer) of the DisentangledSSL backbone
+    (disentangledssl.py:17-194; JAX ``core/tasks.py:616-675``): Adam + cosine
+    over ``epochs``. The loss ignores the row mask, since SupCon couples all
+    rows of a batch, so train it with ``drop_last``."""
+    model = _build(DisentangledSSL, seed, device, output_dim=tuple(output_dim),
+                   hidden_dim=hidden_dim, embed_dim=embed_dim, a=a, distribution=distribution,
+                   vmfkappa=vmfkappa, lmd_start_value=lmd_start_value,
+                   lmd_end_value=lmd_end_value, lmd_n_iterations=lmd_n_iterations,
+                   lmd_start_iteration=lmd_start_iteration, condzs=condzs, usezsx=usezsx)
+
+    def loss(batch, mask, epoch, draws, step):
+        del mask, epoch
+        return model.loss(batch["xs"], draws, step)
+
+    opt = OptimizerConfig(name="adam", lr=lr, schedule="cosine", cosine_t_max=epochs,
+                          eta_min=0.0)
+    return model, Objective(None, loss, draw_epoch=model.draw, with_step=True), opt
+
+
 @torch.no_grad()
 def embed_dataset(model: nn.Module, xs):
     """Frozen-backbone embeddings: (zc (B, D), zp (B, N, D))."""
     zc, zp_list = model.get_embedding(xs)
     return zc, torch.stack(zp_list, dim=1)
+
+
+# the JAX package's name for the DisentangledSSL backbone's embeddings: Zc
+# (B, 2E) is the two shared codes side by side, Zp (B, 2, E)
+embed_dataset_ssl = embed_dataset
 
 
 def embed_dataset_chunked(model: nn.Module, xs, chunk: int = 4096):

@@ -13,12 +13,13 @@ on the device.
 * The epoch index is the annealing step; validation runs after the train
   pass; cosine LR is closed-form per epoch; ReduceLROnPlateau is a carried
   (lr, best, bad) state.
-* Each epoch is a shuffle and ``n // B`` full batches plus one batch of the
-  exact ragged size ``n % B``.
+* Each epoch is a shuffle (or the rows in order, ``shuffle=False``) and
+  ``n // B`` full batches, plus one batch of the exact ragged size ``n % B``
+  unless ``drop_last`` drops it (JAX ``_epoch_batches``, lines 150-170).
 * Randomness is explicit: a :class:`Randomness` (one ``torch.Generator``)
-  draws the epoch permutation and whatever noise the loss asks for, in a
-  fixed order. A test hands in an object with the same methods that replays
-  the JAX draws.
+  draws the epoch permutation and then every step's draws of the loss (an
+  :class:`Objective`), in a fixed order. A test hands in an object with the
+  same methods that replays the JAX draws.
 * :func:`train_many` fits S instances (stacked seeds) at once: their
   parameters are stacked on a leading axis and each step runs under
   ``torch.func.vmap``, so the S fits share every operation the host issues.
@@ -26,8 +27,8 @@ on the device.
   step in the order its own :func:`train` would draw (an
   :class:`Objective` splits a loss's draws from its arithmetic).
 
-Left out (``ROADMAP.md``): the mesh, model state (BatchNorm), ``drop_last``,
-unshuffled epochs and the step loop's mid-training resume.
+Left out (``ROADMAP.md``): the mesh, model state (BatchNorm) and the step
+loop's mid-training resume.
 """
 
 from __future__ import annotations
@@ -74,12 +75,15 @@ class TrainResult(NamedTuple):
 
 class Randomness:
     """The random draws of one fit, from one ``torch.Generator`` on the
-    fit's device: the epoch permutation, Bernoulli keep-masks and standard
-    normals, in the order the fit asks for them."""
+    fit's device: the epoch permutation, Bernoulli keep-masks, standard
+    normals, uniforms, integers and vMF marginals, in the order the fit asks
+    for them. ``vmf_syncs`` counts the host syncs of the vMF rejection
+    sampler."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.vmf_syncs = 0
 
     def permutation(self, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=self.generator, device=self.device)
@@ -90,6 +94,22 @@ class Randomness:
 
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        """Uniform on [0, 1)."""
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def integers(self, high: int, shape) -> torch.Tensor:
+        """Uniform integers in [0, high)."""
+        return torch.randint(0, high, shape, generator=self.generator, device=self.device)
+
+    def vmf_w(self, kappa: float, m: int, n: int) -> torch.Tensor:
+        """n draws of the vMF marginal w in R^m (``ops.vmf.sample_w``)."""
+        from ..ops.vmf import sample_w
+
+        w, syncs = sample_w(self, kappa, m, n)
+        self.vmf_syncs += syncs
+        return w
 
     def state(self) -> torch.Tensor:
         """The generator's state, for an exact resume."""
@@ -106,15 +126,33 @@ class Objective:
     tuple or list of tensors) from ``randomness``; ``loss(batch, mask, epoch,
     draws) -> (loss, aux)`` draws nothing, so ``torch.func.vmap`` can run it
     over stacked seeds (vmap's default ``randomness="error"`` fails on a draw
-    left inside). Called as ``(batch, mask, epoch, randomness)`` it is the
-    step loop's ``loss_fn``: it draws, then computes.
+    left inside). The trainers draw a whole epoch at once, after its
+    permutation: :meth:`draw_epoch` (by default ``draw`` per step, in step
+    order; ``draw_epoch=`` replaces it, and then ``draw`` may be None). With
+    ``with_step`` the loss also takes the global step, the optimizer steps
+    taken before this one (the JAX package's ``StepInfo.step``):
+    ``loss(batch, mask, epoch, draws, step)``. Called as ``(batch, mask,
+    epoch, randomness)`` it draws one step, then computes (at step 0).
     """
 
-    def __init__(self, draw: Callable, loss: Callable):
-        self.draw, self.loss = draw, loss
+    def __init__(self, draw: Optional[Callable], loss: Callable, *,
+                 draw_epoch: Optional[Callable] = None, with_step: bool = False):
+        self.draw, self.loss, self.with_step = draw, loss, with_step
+        self._draw_epoch = draw_epoch
+
+    def draw_epoch(self, randomness, sizes: Sequence[int]) -> list:
+        """Every step's draws of an epoch whose steps take ``sizes`` rows."""
+        if self._draw_epoch is not None:
+            return self._draw_epoch(randomness, sizes)
+        return [self.draw(randomness, rows) for rows in sizes]
+
+    def compute(self, batch, mask, epoch, draws, step: int = 0):
+        if self.with_step:
+            return self.loss(batch, mask, epoch, draws, step)
+        return self.loss(batch, mask, epoch, draws)
 
     def __call__(self, batch, mask, epoch, randomness):
-        return self.loss(batch, mask, epoch, self.draw(randomness, mask.shape[0]))
+        return self.compute(batch, mask, epoch, self.draw_epoch(randomness, [mask.shape[0]])[0])
 
 
 def _cosine_lr(cfg: OptimizerConfig, epoch: int) -> float:
@@ -153,15 +191,34 @@ def lr_for_epoch(cfg: OptimizerConfig, epoch: int, plateau_lr):
     return cfg.lr
 
 
-def epoch_batches(perm: torch.Tensor, batch_size: int):
-    """An epoch's row indices: the full batches, then the EXACT-size ragged
-    tail of n % B rows when there is one."""
-    return list(torch.split(perm, batch_size))
+def epoch_batches(perm: torch.Tensor, batch_size: int, drop_last: bool = False):
+    """An epoch's row indices (along perm's last axis): the full batches,
+    then the EXACT-size ragged tail of n % B rows when there is one and
+    ``drop_last`` is off."""
+    parts = list(torch.split(perm, batch_size, dim=-1))
+    if drop_last and parts[-1].shape[-1] < batch_size:
+        parts.pop()
+    return parts
 
 
-def batch_sizes(n: int, batch_size: int):
-    """Row counts of an epoch's steps."""
-    return [batch_size] * (n // batch_size) + ([n % batch_size] if n % batch_size else [])
+def batch_sizes(n: int, batch_size: int, drop_last: bool = False):
+    """Row counts of an epoch's steps. Raises ``ValueError`` when
+    ``drop_last`` leaves no step (n < batch_size)."""
+    if drop_last and n // batch_size == 0:
+        raise ValueError(
+            f"drop_last=True with n_train={n} < batch_size={batch_size}: zero optimizer steps "
+            f"per epoch (the loss would be 0/0=NaN and params would never update); shrink "
+            f"batch_size or use drop_last=False")
+    tail = 0 if drop_last else n % batch_size
+    return [batch_size] * (n // batch_size) + ([tail] if tail else [])
+
+
+def epoch_order(randomness, n: int, shuffle: bool, device) -> torch.Tensor:
+    """The epoch's row order: a permutation drawn from ``randomness``, or
+    the rows in order (nothing drawn) when ``shuffle`` is off."""
+    if shuffle:
+        return randomness.permutation(n)
+    return torch.arange(n, device=device)
 
 
 def gather_rows(data, idx: torch.Tensor):
@@ -205,13 +262,18 @@ def train(
     val_fn: Optional[Callable] = None,
     val_data: Any = None,
     megakernel: Any = None,
+    drop_last: bool = False,
+    shuffle: bool = True,
 ) -> TrainResult:
     """Fit ``model``'s parameters in place.
 
-    ``loss_fn(batch, mask, epoch, randomness) -> (loss, aux)``: ``batch`` is
-    ``data`` at the step's rows, ``mask`` (rows,) is all ones (the tail is
-    exact-size). ``val_fn(val_data, epoch) -> (val_loss, val_acc)`` runs
-    under ``no_grad`` after each epoch's train pass.
+    ``loss_fn`` is an :class:`Objective`: each epoch draws its permutation
+    (unless ``shuffle`` is off), then every step's draws, then computes
+    ``loss(batch, mask, epoch, draws) -> (loss, aux)`` per step: ``batch``
+    is ``data`` at the step's rows, ``mask`` (rows,) is all ones (the tail
+    is exact-size, or dropped with ``drop_last``). ``val_fn(val_data,
+    epoch) -> (val_loss, val_acc)`` runs under ``no_grad`` after each
+    epoch's train pass.
 
     ``megakernel``: a :class:`~.megakernel.ProbeMegakernelDesc` (probe tasks
     carry one). When the fit qualifies (``supports_probe_megakernel``), the
@@ -226,7 +288,7 @@ def train(
         if supports_probe_megakernel(megakernel, optimizer):
             program = make_probe_megakernel_program(
                 desc=megakernel, n_train=n_train, optimizer=optimizer, epochs=epochs,
-                batch_size=batch_size, val_fn=val_fn,
+                batch_size=batch_size, val_fn=val_fn, drop_last=drop_last, shuffle=shuffle,
             )
             return program(model.stack, randomness, data, val_data)
 
@@ -235,17 +297,19 @@ def train(
     moments = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
     weight_decay = optimizer.weight_decay if optimizer.name == "adamw" else 0.0
     plateau = _plateau_init(optimizer, device)
-    weights = torch.tensor(batch_sizes(n_train, batch_size), dtype=torch.float32).to(device)
+    sizes = batch_sizes(n_train, batch_size, drop_last)
+    weights = torch.tensor(sizes, dtype=torch.float32).to(device)
     count = 0
     history = []
     for epoch in range(epochs):
-        perm = randomness.permutation(n_train)
+        perm = epoch_order(randomness, n_train, shuffle, device)
+        draws = loss_fn.draw_epoch(randomness, sizes)
         lr = lr_for_epoch(optimizer, epoch, plateau[0])
         losses = []
-        for idx in epoch_batches(perm, batch_size):
+        for idx, step_draws in zip(epoch_batches(perm, batch_size, drop_last), draws):
             batch = gather_rows(data, idx)
             mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
-            loss, _ = loss_fn(batch, mask, epoch, randomness)
+            loss, _ = loss_fn.compute(batch, mask, epoch, step_draws, count)
             grads = torch.autograd.grad(loss, params)
             count += 1
             adam_update(params, moments, grads, *bias_corrections(count), lr, weight_decay)
@@ -355,6 +419,8 @@ def train_many(
     val_data: Any = None,
     data_broadcast: bool = False,
     segment_epochs: Optional[int] = None,
+    drop_last: bool = False,
+    shuffle: bool = True,
 ) -> ManyResult:
     """Fit S instances of ``model`` at once; instance s equals :func:`train`
     of ``model`` with ``params[.][s]`` and ``randomness[s]``.
@@ -369,7 +435,8 @@ def train_many(
     S instances.
 
     Each epoch draws, for every instance from its own ``randomness[s]``, the
-    permutation and then each step's draws, as :func:`train` draws them. The
+    permutation (unless ``shuffle`` is off) and then each step's draws, as
+    :func:`train` draws them; ``drop_last`` drops the ragged tail. The
     plateau state is per instance (its LR an (S,) tensor broadcast to every
     parameter); the cosine LR is shared.
 
@@ -380,7 +447,7 @@ def train_many(
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
     fit = (model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn, val_data,
-           data_broadcast)
+           data_broadcast, drop_last, shuffle)
     if not segment_epochs or segment_epochs >= epochs:
         return _train_many_segment(*fit, params, 0, epochs, None)
     parts, start, resume = [], 0, None
@@ -395,7 +462,8 @@ def train_many(
 
 
 def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn,
-                        val_data, broadcast, params, start_epoch, epochs, resume):
+                        val_data, broadcast, drop_last, shuffle, params, start_epoch, epochs,
+                        resume):
     """Epochs [start_epoch, start_epoch + epochs) of :func:`train_many`,
     from ``resume`` when given."""
     from torch.func import grad_and_value, vmap
@@ -413,15 +481,15 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
         count, plateau = resume.count, resume.plateau
         for r, st in zip(randomness, resume.rng):
             r.restore(st)
-    sizes = batch_sizes(n_train, batch_size)
+    sizes = batch_sizes(n_train, batch_size, drop_last)
     # the step weights made on the device: a copy from the host would wait
     # for the device to drain
     weights = torch.full((len(sizes),), float(batch_size), device=device)
     weights[-1] = float(sizes[-1])
     data_dim = None if broadcast else 0
 
-    def loss_of(p, batch, mask, epoch, draws):
-        loss, aux = functional(model, p, loss_fn.loss, batch, mask, epoch, draws)
+    def loss_of(p, batch, mask, epoch, draws, step):
+        loss, aux = functional(model, p, loss_fn.compute, batch, mask, epoch, draws, step)
         return loss, loss
 
     def val_of(p, vdata, epoch):
@@ -431,18 +499,20 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
     for epoch in range(start_epoch, start_epoch + epochs):
         # each instance's draws in its own fit's order: the permutation, then
         # each step's draws
-        perms = [r.permutation(n_train) for r in randomness]
-        draws = [[loss_fn.draw(r, rows) for rows in sizes] for r in randomness]
+        perms, draws = [], []
+        for r in randomness:
+            perms.append(epoch_order(r, n_train, shuffle, device))
+            draws.append(loss_fn.draw_epoch(r, sizes))
         perm = torch.stack(perms)
         lr = lr_for_epoch(optimizer, epoch, plateau[0])
         losses = []
-        for step, idx in enumerate(epoch_batches(perm.T, batch_size)):
-            batch = _take_rows(data, idx.T, broadcast)
-            mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
+        for step, idx in enumerate(epoch_batches(perm, batch_size, drop_last)):
+            batch = _take_rows(data, idx, broadcast)
+            mask = torch.ones(idx.shape[1], dtype=torch.float32, device=device)
             d = _stack_draws([per_inst[step] for per_inst in draws])
             step_fn = vmap(grad_and_value(loss_of, has_aux=True),
-                           in_dims=(0, 0, None, None, None if d is None else 0))
-            grads, (loss, _) = step_fn(params, batch, mask, epoch, d)
+                           in_dims=(0, 0, None, None, None if d is None else 0, None))
+            grads, (loss, _) = step_fn(params, batch, mask, epoch, d, count)
             count += 1
             bc1, bc2 = bias_corrections(count)
             for (k, p), mv in zip(params.items(), moments):

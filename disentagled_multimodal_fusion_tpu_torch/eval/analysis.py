@@ -310,6 +310,22 @@ def _flatten_common(row: dict, sample_info: Dict[str, Any]) -> dict:
     return row
 
 
+def flatten_sample_info(sample_info: Dict[str, Any], *, seed: Union[int, str],
+                        pct: Union[int, float, str], model: str) -> Dict[str, Any]:
+    """One tidy row per (seed, dep, model) of the synthetic sweep."""
+    return _flatten_common({"seed": seed, "dep": pct, "model": model}, sample_info)
+
+
+def build_metrics_rows(nested) -> tuple:
+    """nested[seed][dep][model] = sample_info -> (columns, rows), as
+    :func:`build_metrics_rows_datasets` (the JAX ``build_metrics_dataframe``)."""
+    rows = [flatten_sample_info(info, seed=seed, pct=pct, model=model)
+            for seed, d_pct in nested.items() for pct, d_model in d_pct.items()
+            for model, info in d_model.items()]
+    id_cols = ["seed", "dep", "model"]
+    return id_cols + sorted({c for r in rows for c in r} - set(id_cols)), rows
+
+
 def flatten_sample_info_datasets(sample_info: Dict[str, Any], *, seed: Union[int, str],
                                  typ: str, ds: str, model: str) -> Dict[str, Any]:
     """One tidy row per (seed, type, dataset, model)."""

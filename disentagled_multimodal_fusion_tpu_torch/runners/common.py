@@ -16,13 +16,16 @@ import math
 import zlib
 from typing import Dict, List, Sequence
 
-from ..configs.config import CONFIG
+from ..configs.config import CONFIG, SYNTHETIC_CONFIG
 from ..core.artifacts import artifact_path
 
+CONFIGS = {"config.yaml": CONFIG, "synthetic_config.yaml": SYNTHETIC_CONFIG}
 
-def load_config() -> dict:
-    """A private copy of the port's config (``configs/config.py``)."""
-    return copy.deepcopy(CONFIG)
+
+def load_config(name: str = "config.yaml") -> dict:
+    """A private copy of the port's copy of the JAX package's config
+    ``name`` (``configs/config.py``)."""
+    return copy.deepcopy(CONFIGS[name])
 
 
 def make_getter(cfg: dict):
@@ -150,8 +153,10 @@ def fold_seed(cell: int, i: int) -> int:
     return FOLD_BASE + cell * 256 + i
 
 
-def backbone_checkpoint(dataset: str, seed: int, cond: str) -> str:
+def backbone_checkpoint(dataset: str, seed: int, cond: str, backbone: str = "dmvae") -> str:
     """The sweep's backbone checkpoint name (the JAX package's layout)."""
+    if backbone == "dssl":
+        return f"checkpoints/dssl_dataset{dataset}_seed{seed}_{cond}"
     return f"checkpoints/dmvae_dataset{dataset}_seed{seed}_a1e-05_{cond}"
 
 

@@ -8,7 +8,9 @@ condition, dataset):
 1. the 80/20 split on the legacy ``np.random`` stream seeded with the seed;
    Conflict (Noise) injects cross-class view conflicts (Gaussian noise) into
    the test rows only;
-2. the FusedDMVAE backbone fit (Adam + cosine, exact ragged tail);
+2. the backbone fit: FusedDMVAE (Adam + cosine, exact ragged tail), or
+   with ``--backbone dssl`` DisentangledSSL (Adam + cosine, ``drop_last``:
+   SupCon couples the whole batch), for two-view datasets only;
 3. frozen embeddings of both splits;
 4. six head fits with val = test: ``dmvae_dis`` (private-only probe),
    ``dmvae_cml`` and ``dmvae_joint`` (shared + private probes), and
@@ -17,6 +19,14 @@ condition, dataset):
    the with-shared layout, which labels late fusion's view 0 "shared", a
    reference quirk kept for column parity), CSV logs, checkpoints, and the
    three-sheet report at ``logs/dataset_analysis.xlsx`` with CSV mirrors.
+
+Over the DisentangledSSL backbone the probes' shared input is the two
+shared codes side by side (2E wide) and their private inputs are E wide,
+with E = ``dssl.embed_dim`` (default ``dmvae.embed_dim``). The backbone's
+checkpoint is ``dssl_dataset{ds}_seed{s}_{cond}``, the probes report and
+checkpoint as ``dssl_dis``, ``dssl_cml`` and ``dssl_joint``, and the report
+goes to ``logs/dssl_dataset_analysis.xlsx``, so a DSSL sweep never
+overwrites the DMVAE one.
 
 Engines:
 
@@ -37,7 +47,8 @@ Engines:
   Its rows equal ``--vmap-seeds``' bit for bit.
 
 ``--probe-engine megakernel`` runs the sequential engine only (the epoch
-kernel has no seed-batched program), as in the JAX package.
+kernel has no seed-batched program), as in the JAX package; so does
+``--backbone dssl``.
 ``--force-vmap-seeds`` is accepted for the JAX CLI's sake: the port never
 falls back from ``--vmap-seeds`` to the sequential engine.
 
@@ -75,6 +86,7 @@ from __future__ import annotations
 import argparse
 import threading
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -165,11 +177,14 @@ def build_backbone(st: CellSettings, dims, seed: int, device):
                             fused_modalities=True, device=device)
 
 
-def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device):
+def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
+                          input_dim=None, shared_input_dim=None):
     """The cell's head roster, one for every engine: [(name, builder(seed) ->
     task, kind, shared_layout)], kind 'probe' (trains on embeddings) or 'raw'
     (trains on views), in the JAX package's order. The order fixes each
-    head's key slots and fold indices."""
+    head's key slots and fold indices. ``input_dim`` and
+    ``shared_input_dim`` override the probes' input widths (the DSSL
+    backbone's)."""
     from ..core.tasks import (
         build_disentangled_probe_task,
         build_late_fusion_task,
@@ -178,14 +193,15 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device):
 
     head = dict(num_classes=num_classes, hidden_dim=st.probe_hidden, lr=st.lr,
                 dropout=st.probe_dropout, annealing_start=st.annealing_start, device=device)
-    probe = dict(head, num_modalities=len(dims), input_dim=st.probe_input_dim,
+    probe = dict(head, num_modalities=len(dims), input_dim=input_dim or st.probe_input_dim,
                  num_epochs=st.probe_epochs)
 
     def dis(seed):
         return build_disentangled_probe_task(seed=seed, **probe)
 
     def shared_private(agg):
-        return lambda seed: build_probe_task(seed=seed, aggregation=agg, fused=1.0, **probe)
+        return lambda seed: build_probe_task(seed=seed, aggregation=agg, fused=1.0,
+                                             shared_input_dim=shared_input_dim, **probe)
 
     def late(agg):
         return lambda seed: build_late_fusion_task(seed=seed, output_dims=dims, aggregation=agg,
@@ -201,13 +217,51 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device):
     ]
 
 
+def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: int,
+                 seeds: tuple, device, tag: str, drop_last: bool):
+    """Build and fit the cell's backbone, DMVAE or DisentangledSSL (weights
+    from generator seed ``seeds[0]``, fit draws from ``seeds[1]``), and print
+    its fit time (and the vMF sampler's host syncs per epoch); returns
+    (model, the probes' input widths over it, {backbone_fit_seconds,
+    vmf_syncs_per_epoch})."""
+    from ..core.tasks import build_disentangledssl_task, dmvae_objective
+    from ..core.train import Randomness, train
+
+    widths = {}
+    if backbone == "dssl":
+        if len(dims) != 2:
+            raise ValueError(f"--backbone dssl is 2-modal (disentangledssl.py:17-194); {tag} "
+                             f"has {len(dims)} views; use CUB")
+        embed = C("dssl.embed_dim", st.embed_dim)
+        model, loss_fn, opt = build_disentangledssl_task(
+            seed=seeds[0], output_dim=dims, hidden_dim=C("dssl.hidden_dim", 512),
+            embed_dim=embed, a=C("dssl.a", 1.0), distribution=C("dssl.distribution", "vmf"),
+            vmfkappa=C("dssl.vmfkappa", 1.0), lr=C("dssl.lr", 1e-3), epochs=st.dmvae_epochs,
+            device=device)
+        widths = dict(input_dim=embed, shared_input_dim=2 * embed)
+    else:
+        model = build_backbone(st, dims, seeds[0], device)
+        loss_fn, opt = dmvae_objective(model, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
+    randomness = Randomness(seeds[1], device)
+    t_fit = time.perf_counter()
+    res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
+                optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
+                randomness=randomness, drop_last=drop_last)
+    fit_s = time.perf_counter() - t_fit
+    syncs = randomness.vmf_syncs / st.dmvae_epochs
+    print(f"  {tag} {backbone} fit: {fit_s:.2f} s, {1e3 * fit_s / st.dmvae_epochs:.3f} ms/epoch"
+          + (f", {syncs:.2f} vMF syncs/epoch" if backbone == "dssl" else "")
+          + f", last train loss {float(res.train_loss[-1]):.4f}", flush=True)
+    return model, widths, {"backbone_fit_seconds": fit_s, "vmf_syncs_per_epoch": syncs}
+
+
 def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
-                  noise=False, probe_engine="step"):
+                  noise=False, probe_engine="step", backbone="dmvae"):
     """Train and evaluate the six models of one cell into ``rows_out``."""
     from ..core.checkpoint import save_checkpoint
     from ..core.logging import log_training_csv
     from ..core.sweep_cell import head_data
-    from ..core.tasks import dmvae_objective, embed_dataset
+    from ..core.tasks import embed_dataset
     from ..core.train import Randomness, train
     from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
     from .common import backbone_checkpoint, cell_seed, head_name
@@ -230,23 +284,20 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
         return base * 16 + k
 
     cond = condition_name(conflict, noise)
-    backbone = build_backbone(st, dims, slot(0), device)
-    loss_fn, opt = dmvae_objective(backbone, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
-    t_fit = time.perf_counter()
-    res = train(model=backbone, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
-                optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
-                randomness=Randomness(slot(1), device))
-    fit_s = time.perf_counter() - t_fit
-    print(f"  [{dataset_name}/{cond}/seed{seed}] dmvae fit: {fit_s:.2f} s, "
-          f"{1e3 * fit_s / st.dmvae_epochs:.3f} ms/epoch, last train loss "
-          f"{float(res.train_loss[-1]):.4f}", flush=True)
-    save_checkpoint(backbone_checkpoint(dataset_name, seed, cond), backbone,
+    model, widths, _ = fit_backbone(C=C, st=st, backbone=backbone, dims=dims, xs_tr=xs_tr,
+                                    n_train=n_train, seeds=(slot(0), slot(1)), device=device,
+                                    tag=f"[{dataset_name}/{cond}/seed{seed}]",
+                                    drop_last=backbone == "dssl")
+    save_checkpoint(backbone_checkpoint(dataset_name, seed, cond, backbone), model,
                     {"dataset": dataset_name, "seed": seed, "cond": cond})
-    data = head_data(embed_dataset(backbone, xs_tr), embed_dataset(backbone, xs_te),
+    data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_te),
                      xs_tr, xs_te, y_tr, y_te)
 
-    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device)
+    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device,
+                                  **widths)
     for j, (name, builder, kind, shared_layout) in enumerate(specs):
+        if backbone == "dssl":  # the probes over SSL report and checkpoint as dssl_*
+            name = name.replace("dmvae_", "dssl_")
         task = builder(slot(2 + j))
         tr_data, te_data = data[kind]
         t_fit = time.perf_counter()
@@ -520,8 +571,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "PyTorch path)")
+    parser.add_argument("--backbone", choices=["dmvae", "dssl"], default="dmvae",
+                        help="disentangling backbone: DMVAE, or DisentangledSSL (two-view "
+                             "datasets, sequential engine)")
     # options of the JAX runner that the port does not have yet (ROADMAP.md)
-    parser.add_argument("--backbone", choices=["dmvae", "dssl"], default="dmvae")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
@@ -535,9 +588,10 @@ def parse_args(argv=None):
     if args.probe_engine == "megakernel" and (args.vmap_seeds or args.one_program_cells):
         parser.error("--probe-engine megakernel runs the sequential engine only "
                      "(the epoch kernel has no seed-batched program)")
+    if args.backbone == "dssl" and (args.vmap_seeds or args.one_program_cells):
+        parser.error("--backbone dssl runs the sequential engine only (the SSL backbone has "
+                     "no seed-batched trainer, as in the JAX package)")
     used = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest)]
-    if args.backbone != "dmvae":
-        used.append("--backbone dssl")
     if args.dtype != "float32":
         used.append("--dtype bfloat16")
     if args.data_parallel > 1 or args.model_parallel > 1:
@@ -572,9 +626,12 @@ def main(argv=None):
                 out = rows[seed].setdefault(cond_name, {}).setdefault(ds_name, {})
                 run_condition(C=C, seed=seed, dataset_name=ds_name, conflict=is_conflict,
                               noise=is_noise, quick=args.quick, device=device, rows_out=out,
-                              probe_engine=args.probe_engine)
+                              probe_engine=args.probe_engine, backbone=args.backbone)
     if not args.skip_report:
-        write_sweep_report(rows, C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
+        report = Path(C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
+        if args.backbone == "dssl":
+            report = report.with_name(f"dssl_{report.name}")
+        write_sweep_report(rows, str(report))
     print(f"sweep done in {time.time() - t_start:.1f}s")
     return rows
 

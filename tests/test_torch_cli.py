@@ -6,7 +6,11 @@
   artifacts written on a thread), prints its ``sweep done`` line, and
   leaves every seed's backbone and head checkpoints behind;
 * ``runners/evaluate.py``, run on those checkpoints, reports the fused
-  accuracy the sweep printed (to the 4 decimals it prints).
+  accuracy the sweep printed (to the 4 decimals it prints);
+* ``runners/run_synthetic.py`` trains a quick (seed 0, dep 50) cell, prints
+  its ``sweep done`` line and leaves its JAX-named checkpoints, and
+  ``runners/evaluate.py --dataset synthetic`` reports the fused accuracy it
+  printed for each of its three models.
 """
 
 import json
@@ -64,3 +68,31 @@ def test_evaluate_reports_the_sweeps_fused_accuracy_when_run_as_a_module(sweep):
                else r"\[CUB/normal\] dmvae_cml x2: fused_acc ([0-9.]+) \+/-")
     printed = float(re.search(pattern, out).group(1))
     assert abs(np.mean(accs) - printed) <= 5e-5 + 1e-12, (accs, printed)
+
+
+@pytest.fixture(scope="module")
+def synthetic_sweep(tmp_path_factory):
+    root = tmp_path_factory.mktemp("synthetic")
+    out = _run("run_synthetic", ["--quick", "--seeds", "0", "--deps", "50", "--device", "cpu"],
+               root)
+    return root, out
+
+
+def test_the_synthetic_sweep_trains_when_run_as_a_module(synthetic_sweep):
+    root, out = synthetic_sweep
+    assert re.search(r"^sweep done in [0-9.]+s$", out, re.M), out
+    for name in ("dmvae_seed0_dep50", "dmvae_fusion_seed0_dep50", "late_fusion_seed0_dep50_aggcml",
+                 "late_fusion_seed0_dep50_aggavg"):
+        assert (root / "checkpoints" / f"{name}.pt").is_file(), name
+    assert (root / "logs" / "synthetic_dataset.xlsx").is_file()
+
+
+@pytest.mark.parametrize("model,label", [("dmvae_cml", "dmvae_cml"), ("cml_fusion", "cml"),
+                                         ("avg_fusion", "avg")])
+def test_evaluate_synthetic_reports_the_sweeps_fused_accuracy_when_run_as_a_module(
+        synthetic_sweep, model, label):
+    root, out = synthetic_sweep
+    info = json.loads(_run("evaluate", ["--model", model, "--dataset", "synthetic", "--seed", "0",
+                                        "--dep", "50", "--quick", "--device", "cpu"], root))
+    printed = float(re.search(rf"\[seed 0 dep 50\] {label}: fused_acc=([0-9.]+)", out).group(1))
+    assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)

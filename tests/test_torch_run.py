@@ -132,7 +132,7 @@ def test_cli_trains_a_quick_cell_on_the_cpu_and_writes_the_report(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "dssl"], ["--dtype", "bfloat16"],
+    ["--backbone", "dssl", "--vmap-seeds"], ["--dtype", "bfloat16"],
     ["--rows-file", "rows.json"], ["--profile"], ["--intermediate-fusion", "lrtf"],
     ["--data-parallel", "2"],
 ])
@@ -309,8 +309,9 @@ import chip_smoke
 banned = ("jax", "flax", "optax", "pandas", "disentagled_multimodal_fusion_tpu")
 loaded = [m for m in sys.modules if m in banned or m.split(".")[0] in banned]
 assert not loaded, loaded
-# the seed-batched engines, restore and evaluate among them
-for name in ("core.sweep_cell", "core.checkpoint", "runners.evaluate", "runners.run"):
+# the seed-batched engines, restore, evaluate and the synthetic sweep among them
+for name in ("core.sweep_cell", "core.checkpoint", "runners.evaluate", "runners.run",
+             "runners.run_synthetic", "models.disentangledssl", "ops.vmf", "data.synthetic"):
     assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
