@@ -20,11 +20,14 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    p, m, v rtol 5e-3 / atol 5e-5); and both kernels at the synthetic
    sweep's shapes (C = 3: the head at V = 3 and 2, B = 2000, D = 16 and 32,
    and at 5 seeds x V; the epoch at V = 3, B = 128, 62 steps with no tail,
-   D = 16 and 32, fused = 0);
+   D = 16 and 32, fused = 0); the epoch also at the CUB cells' shapes
+   (S = 5 with a tail of 80, V = 3 and 2, C = 10) and the head at phase
+   21's two Scene seeds in one launch (S x V = 6 and 8, B = 897, C = 15);
 4. kernel, plain and library times (CUDA events, profiler device time)
    beside the least time the card could take for the same work, the head
    kernel's device time at every main-path shape (serving buckets,
-   validation, the synthetic sweep); the profiler window of the probe epoch
+   validation, the synthetic sweep, the Scene seeds; plain and library
+   times too at the synthetic, CUB and Scene shapes); the profiler window of the probe epoch
    must hold exactly its four kernels, S launches each per epoch (S = 16 on
    HandWritten, 62 on the synthetic sweep), and nothing else but the
    wrapper's PyTorch operations;
@@ -50,8 +53,8 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     phase 4;
 11. the seed-batched path, ``runners/run.py --vmap-seeds`` on HandWritten
     Normal, seeds 0-4, at half depth (50 DMVAE and 100 head epochs, so the
-    synthetic phases fit the script's time): every fused accuracy of every seed at
-    least 0.95, the head kernel launched once per validation epoch and once
+    later phases fit the script's time): every fused accuracy of every seed
+    at least 0.95, the head kernel launched once per validation epoch and once
     per evaluation of each seed-batched fit, all at the stacked shapes;
     each fit's wall time, and the cell's wall time per seed beside the
     sequential seed-0 cell of phase 8;
@@ -71,12 +74,16 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     embed 16, 100/50/50 epochs): dmvae_cml, cml and avg each at fused
     accuracy >= 0.70 (the med preset's documented band is 70-90 %), the
     epoch kernel launched once per probe epoch (50), the head kernel once
-    per validation epoch and evaluation at (3, 2000, 16) and (2, 2000, 32);
+    per validation epoch and evaluation at (3, 2000, 16) and (2, 2000, 32)
+    (the cuts of phases 11 and 15 keep the script well inside its time:
+    ``SEED_BATCHED_CUT``, ``DSSL_CUT``);
     each fit's wall time and ms/epoch;
 15. the same cell with ``--backbone dssl`` in its own artifact root (the
-    probes' checkpoint names are the same): the same checks, the head at
-    (3, 2000, 32), and the DSSL fit's ms/epoch and vMF sampler host syncs
-    per epoch;
+    probes' checkpoint names are the same), the DSSL backbone at a quarter
+    of its depth (25 epochs) and late fusion, a repeat of phase 14's on the
+    same views, at 10 epochs: the same checks,
+    the head at (3, 2000, 32), and the DSSL fit's ms/epoch and vMF sampler
+    host syncs per epoch;
 16. ``run_synthetic.py --vmap-seeds --seeds 0 1 2 3 4 --deps 50 --quick``:
     the head kernel once per validation and evaluation at S x V heads; then
     each seed's ``train_many`` fit against its ``train`` fit on the card
@@ -87,7 +94,36 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     near zero, so its parameters are reported, not held to the probes'
     tolerance);
 17. ``runners/evaluate.py --dataset synthetic --model dmvae_cml --seed 0
-    --dep 50`` on phase 14's checkpoints gives phase 14's fused accuracy.
+    --dep 50`` on phase 14's checkpoints gives phase 14's fused accuracy;
+18. the fusion library on the card against float64 on the CPU: every
+    registry fusion, and IntermediateFusion over it, at CUB's widths (1024,
+    300), B = 100, and mi3 at Scene's (20, 59, 40): the forward, and the
+    gradients with respect to the inputs and every parameter under one
+    random cotangent, each within 1e-4 (forward) or 1e-3 (gradients) of the
+    reference's largest magnitude (PERF.md section 2); mi3's forward under
+    ``no_grad`` at B = 100 allocates under 16 MB above what was allocated
+    before it (the per-sample weight tensor would take 60 MB);
+19. the intermediate-fusion path, ``runners/run.py --datasets CUB
+    --conditions Normal --seeds 0 --probe-engine megakernel
+    --include-intermediate --intermediate-fusion concat_linear mi_matrix
+    mi_vector tensor lrtf lft mi3 --rows-file ...`` at full width and depth:
+    13 fitted rows and mi3's skip row; the six base models at fused accuracy
+    >= 0.85, intermediate concat, concat_linear, mi_vector and lrtf at >=
+    0.80, mi_matrix, tensor and lft with finite metrics and their accuracy
+    printed (beside the JAX package's 0.1250 for the first two); the epoch
+    kernel launched once per probe epoch (600), the head kernel once per
+    validation epoch and evaluation of the six stacked-head fits; each fit's
+    wall time and ms/epoch. The same command again resumes from the rows
+    file: it announces 1 completed cell, trains nothing, launches no kernel
+    and returns the same rows;
+20. the same cell with ``--no-fused-dmvae`` (the six base models): each at
+    fused accuracy >= 0.85, the same launch counts, and the unfused DMVAE
+    fit's ms/epoch beside phase 19's fused one;
+21. ``runners/run.py --vmap-seeds --seeds 0 1 --datasets Scene --conditions
+    Normal --quick --intermediate-fusion mi3 tensor lrtf --profile``: both
+    seeds' nine rows with finite metrics, the head kernel once per
+    validation epoch and evaluation of the six stacked-head fits, and a
+    trace file that names the head kernel.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -212,6 +248,7 @@ SERVING_SHAPES = [(v, b, d, 128, 10) for v, d in ((7, 200), (6, 200), (6, 240)) 
 VALIDATION_SHAPES = [
     (7, 400, 200, 128, 10), (6, 400, 200, 128, 10), (6, 400, 240, 128, 10),  # HandWritten
     (2, 120, 1024, 128, 10), (3, 120, 200, 128, 10),  # CUB late fusion, probe
+    (2, 120, 200, 128, 10),  # CUB dmvae_dis
     (3, 136, 484, 128, 68), (4, 136, 200, 128, 68),  # PIE
     (3, 897, 59, 128, 15), (4, 897, 200, 128, 15),  # Scene
 ]
@@ -225,8 +262,15 @@ STACKED_SHAPES = [(len(SEEDS) * v, b, d, h, c) for v, b, d, h, c in VALIDATION_S
 SYNTHETIC_SHAPES = [(3, 2000, 16, 128, 3), (3, 2000, 32, 128, 3), (2, 2000, 32, 128, 3)]
 SYNTHETIC_STACKED_SHAPES = [(len(SEEDS) * v, 2000, d, 128, 3) for v, d in ((3, 16), (2, 32))]
 SYNTHETIC_QUICK_SHAPES = [(len(SEEDS) * v, 200, d, 128, 3) for v, d in ((3, 16), (2, 32))]
+# the CUB cells of phases 19-20 (dmvae_dis, the shared + private probes,
+# late fusion at the widest view), and phase 21's two Scene seeds in one
+# launch (S x V = 6 and 8 heads, late fusion at Scene's widest view, 59)
+CUB_SHAPES = [(2, 120, 200, 128, 10), (3, 120, 200, 128, 10), (2, 120, 1024, 128, 10)]
+SCENE_STACKED_SHAPES = [(2 * v, 897, d, 128, 15) for v, d in ((3, 200), (4, 200), (3, 59))]
 MAIN_PATH_SHAPES = (SERVING_SHAPES + VALIDATION_SHAPES + STACKED_SHAPES + SYNTHETIC_SHAPES
-                    + SYNTHETIC_STACKED_SHAPES)
+                    + SYNTHETIC_STACKED_SHAPES + SCENE_STACKED_SHAPES)
+# times at these besides the device time: plain and library
+TIMED_SHAPES = SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + CUB_SHAPES + SCENE_STACKED_SHAPES
 # (S, V, B, D, H, C) of the probe epoch: dmvae_cml on HandWritten (16 steps
 # of 100 rows), then on the synthetic sweep (62 steps of 128 rows, the tail
 # dropped; D=16 over DMVAE, 32 over DSSL)
@@ -246,6 +290,7 @@ def phase_kernel_checks(ck):
     # the validation shapes, a wider head (two H tiles per block of a cluster)
     shapes += VALIDATION_SHAPES + STACKED_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
     shapes += SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + SYNTHETIC_QUICK_SHAPES
+    shapes += SCENE_STACKED_SHAPES
     worst = 0.0
     for i, (v, b, d, h, c) in enumerate(shapes):
         args = head_inputs(v, b, d, h, c, seed=i)
@@ -344,9 +389,9 @@ def phase_device_time(ck, card):
     """The head kernel at every main-path shape: profiler device time, CUDA
     events per call (the wrapper's host work included, so events minus
     device time is the wrapper's cost when the host is the limit) and the
-    bound; at the synthetic shapes also the plain and library times.
-    Returns {shape key: device ms} and {synthetic shape key: times}."""
-    device, synthetic = {}, {}
+    bound; at ``TIMED_SHAPES`` also the plain and library times. Returns
+    {shape key: device ms} and {timed shape key: times}."""
+    device, timed = {}, {}
     for shape in MAIN_PATH_SHAPES:
         ms = head_device_ms(ck, shape)
         args = head_inputs(*shape, seed=1)
@@ -354,18 +399,18 @@ def phase_device_time(ck, card):
         bound_ms, bound_by = head_bound(*shape)
         device[shape_key(*shape)] = ms
         extra = ""
-        if shape in SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES:
+        if shape in TIMED_SHAPES:
             plain_ms = event_ms(ck.evidential_heads_stacked_plain, args)
             library_ms = event_ms(library_heads, args)
-            synthetic[shape_key(*shape)] = dict(device_ms=ms, ms=events, plain_ms=plain_ms,
-                                                library_ms=library_ms, bound_ms=bound_ms,
-                                                bound_by=bound_by)
+            timed[shape_key(*shape)] = dict(device_ms=ms, ms=events, plain_ms=plain_ms,
+                                            library_ms=library_ms, bound_ms=bound_ms,
+                                            bound_by=bound_by)
             extra = f", plain {plain_ms:.5f} ms, library {library_ms:.5f} ms"
         log(f"device time evidential_head {shape_key(*shape)}: "
             + (f"{ms:.5f} ms" if ms is not None else "not measured")
             + f", events {events:.5f} ms per call{extra}, bound {bound_ms:.6f} ms ({bound_by}) "
               f"[{card}]")
-    return device, synthetic
+    return device, timed
 
 
 def epoch_inputs(s, v, b, d, h, c, seed, keep=0.9, tail=None, ties=False, fused=1.0):
@@ -484,6 +529,18 @@ def phase_probe_epoch_checks(pm):
         err64 = assert_epoch_close(epoch_to_double(got),
                                    run_epoch(pm.run_epoch_plain, to_double(inp)),
                                    f"{label} float64")
+        log(f"check {label}: max abs err {err:.3e} (vs float64 plain {err64:.3e})")
+    # the CUB cells' probes: 480 rows in four steps of 100 and a tail of 80,
+    # V = 3 (dmvae_cml, dmvae_joint) and 2 (dmvae_dis), C = 10
+    for v in (3, 2):
+        inp = epoch_inputs(5, v, 100, 200, 128, 10, seed=40 + v, tail=80)
+        label = f"probe_epoch S=5 V={v} B=100 (tail 80) D=200 H=128 C=10"
+        got = run_epoch(pm.run_epoch_kernel, inp)
+        err = assert_epoch_close(got, run_epoch(pm.run_epoch_plain, inp), label)
+        err64 = assert_epoch_close(epoch_to_double(got),
+                                   run_epoch(pm.run_epoch_plain, to_double(inp)),
+                                   f"{label} float64")
+        worst = max(worst, err)
         log(f"check {label}: max abs err {err:.3e} (vs float64 plain {err64:.3e})")
     # the synthetic sweep's probe: C = 3, V = 3, 62 full steps (the tail
     # dropped), fused = 0 (no DC term). One epoch only: five chained epochs
@@ -752,14 +809,14 @@ def kept_checkpoints():
 
 
 @contextlib.contextmanager
-def cut_config(changes):
-    """The port's copy of config.yaml with ``changes`` ({"section.key":
+def cut_config(changes, name="config.yaml"):
+    """The port's copy of config ``name`` with ``changes`` ({"section.key":
     value}) while the block runs, for a path whose depth is cut."""
     import copy
 
     from disentagled_multimodal_fusion_tpu_torch.runners.common import CONFIGS
 
-    cfg = CONFIGS["config.yaml"]
+    cfg = CONFIGS[name]
     saved = copy.deepcopy(cfg)
     for path, value in changes.items():
         section, key = path.split(".")
@@ -771,9 +828,14 @@ def cut_config(changes):
         cfg.update(saved)
 
 
-# the seed-batched HandWritten path runs at half depth, so the synthetic
-# phases fit in the script's time (PERF.md section 4)
+# depth cut from earlier paths so that the script, phases 18-21 included,
+# stays well inside its time on a slow host (PERF.md section 4): the
+# seed-batched HandWritten path at half its depth (a quarter leaves a probe
+# below 0.95), and the DSSL phase's backbone at a quarter and its late
+# fusion, a repeat of phase 14's on the same views, at a fifth
+# (synthetic_config.yaml)
 SEED_BATCHED_CUT = {"dmvae.num_epochs": 50, "probes.model_epochs": 100}
+DSSL_CUT = {"dmvae.num_epochs": 25, "latefusion.num_epochs": 10}
 
 
 def phase_seed_batched(ck, card, seq_wall):
@@ -1269,6 +1331,307 @@ def phase_daemon_and_http(card):
     log(f"daemon: all {len(answers)} answers match direct engine calls")
 
 
+# phase 18's limits (PERF.md section 2): float32 against float64, normwise
+# over each tensor, for sums of up to 307 200 terms (tensor fusion's head)
+FUSION_FWD_TOL, FUSION_GRAD_TOL = 1e-4, 1e-3
+CUB_DIMS, SCENE_DIMS = (1024, 300), (20, 59, 40)
+MI3_PEAK_BYTES = 16 * 2**20
+
+
+def _fusion_grads(module, views, cot, chunk):
+    """(output, input gradients, parameter gradients) of sum(module(views) *
+    cot), row chunk by row chunk (every fusion treats rows apart), the
+    parameter gradients summed over the chunks."""
+    params = list(module.parameters())
+    outs, x_grads, p_grads = [], [[] for _ in views], [torch.zeros_like(p) for p in params]
+    for s0 in range(0, views[0].shape[0], chunk):
+        xs = [v[s0:s0 + chunk].detach().clone().requires_grad_() for v in views]
+        out = module(xs)
+        grads = torch.autograd.grad(torch.sum(out * cot[s0:s0 + chunk]), xs + params,
+                                    allow_unused=True)
+        outs.append(out.detach())
+        for i, g in enumerate(grads[:len(xs)]):
+            x_grads[i].append(g)
+        for acc, g in zip(p_grads, grads[len(xs):]):
+            if g is not None:
+                acc += g
+    return torch.cat(outs), [torch.cat(g) for g in x_grads], p_grads
+
+
+def _normwise(got, ref, tol, label, scale=None):
+    """max |got - ref| / max |ref|, which must be at most ``tol``; ``scale``
+    replaces max |ref| for a tensor that is zero in exact arithmetic."""
+    err = float((got.double().cpu() - ref).abs().max())
+    scale = float(ref.abs().max()) if scale is None else scale
+    if not err <= tol * max(scale, 1e-30):
+        raise AssertionError(f"{label}: max abs err {err:.3e} > {tol} x max |ref| {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def _check_on_card(module, views, label, card):
+    """module in float32 on the card against its float64 copy on the CPU;
+    returns (worst forward, worst gradient relative error, card ms of one
+    forward and backward)."""
+    import copy
+
+    cot = torch.randn(views[0].shape[0], *module([v[:1] for v in views]).shape[1:],
+                      generator=torch.Generator().manual_seed(1))
+    chunk = 10 if "lft" in label else views[0].shape[0]  # lft's attention in f64
+    ref = _fusion_grads(copy.deepcopy(module).double(), [v.double() for v in views],
+                        cot.double(), chunk)
+    card_mod = module.cuda()
+    cviews, ccot = [v.cuda() for v in views], cot.cuda()
+    got = _fusion_grads(card_mod, cviews, ccot, views[0].shape[0])
+    fwd = _normwise(got[0], ref[0], FUSION_FWD_TOL, f"{label} forward")
+    grad = 0.0
+    names = [f"input {i}" for i in range(len(views))] + [n for n, _ in module.named_parameters()]
+    refs = dict(zip(names, ref[1] + ref[2]))
+    for name, g, r in zip(names, got[1] + got[2], ref[1] + ref[2]):
+        # softmax is shift-invariant: the key bias's gradient is zero but for
+        # rounding, so its error is held against the key weight's gradient
+        scale = (float(refs[name[:-len("bias")] + "weight"].abs().max())
+                 if name.endswith("attn.key.bias") else None)
+        grad = max(grad, _normwise(g, r, FUSION_GRAD_TOL, f"{label} gradient of {name}", scale))
+    ms = event_ms(lambda: _fusion_grads(card_mod, cviews, ccot, views[0].shape[0]), (),
+                  iters=5, warmup=1)
+    log(f"fusion {label}: forward rel err {fwd:.2e}, gradient rel err {grad:.2e}, "
+        f"forward + backward {ms:.3f} ms at B={views[0].shape[0]} [{card}]")
+    return fwd, grad, ms
+
+
+def phase_fusions(card):
+    """Every registry fusion and IntermediateFusion over it at CUB's widths
+    (mi3 at Scene's), B = 100, on the card against float64; mi3's peak
+    memory under no_grad."""
+    from disentagled_multimodal_fusion_tpu_torch.models.baselines import IntermediateFusion
+    from disentagled_multimodal_fusion_tpu_torch.models.fusions import (
+        INTERMEDIATE_FUSIONS,
+        build_fusion,
+    )
+
+    out = {}
+    for name in INTERMEDIATE_FUSIONS:
+        dims = SCENE_DIMS if name == "mi3" else CUB_DIMS
+        g = torch.Generator().manual_seed(0)
+        views = [torch.randn(100, d, generator=g) for d in dims]
+        fusion, _ = build_fusion(name, dims, generator=torch.Generator().manual_seed(1))
+        model = IntermediateFusion(dims, 10, torch.Generator().manual_seed(2), fusion=name).eval()
+        out[name] = {"fusion": _check_on_card(fusion, views, name, card),
+                     "intermediate": _check_on_card(model, views, f"intermediate {name}", card)}
+    mi3, _ = build_fusion("mi3", SCENE_DIMS, generator=torch.Generator().manual_seed(1))
+    mi3 = mi3.cuda()
+    xs = [torch.randn(100, d).cuda() for d in SCENE_DIMS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        mi3(xs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    per_sample = 4 * 100 * SCENE_DIMS[1] * SCENE_DIMS[2] * 64
+    log(f"fusion mi3 at Scene's widths, B=100: peak {peak / 2**20:.2f} MiB above the inputs "
+        f"and parameters (the per-sample weight tensor would take {per_sample / 2**20:.1f} "
+        f"MiB) [{card}]")
+    if not peak < MI3_PEAK_BYTES:
+        raise AssertionError(f"mi3 forward allocated {peak} bytes >= {MI3_PEAK_BYTES}")
+    return out, peak
+
+
+# phase 19: the fusions of the CUB intermediate cell, the JAX package's CPU
+# accuracies on it (ISSUE context: JAX runners/run.py, seed 0, full depth)
+CUB_FUSIONS = ("concat_linear", "mi_matrix", "mi_vector", "tensor", "lrtf", "lft", "mi3")
+JAX_CUB_ACCURACY = {"intermediate_mi_matrix": 0.1250, "intermediate_tensor": 0.1250}
+FLOORS = {**{m: 0.85 for m in ("dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion",
+                               "cml_fusion", "avg_fusion")},
+          **{m: 0.80 for m in ("intermediate_fusion", "intermediate_concat_linear",
+                               "intermediate_mi_vector", "intermediate_lrtf")}}
+
+
+def _finite_row(name, info):
+    fused = info["fused"]
+    values = [fused[k] for k in ("accuracy", "ece", "evidence_mean", "epistemic_mean",
+                                 "aleatoric_mean")]
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"{name}: non-finite fused metrics {values}")
+
+
+def _cub_head_shapes(epochs):
+    from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
+
+    c = DATASET_REGISTRY["CUB"]().num_classes
+    per_fit = epochs + 1  # each validation epoch and the evaluation
+    return {shape_key(2, 120, 200, 128, c): per_fit,           # dmvae_dis
+            shape_key(3, 120, 200, 128, c): 2 * per_fit,       # dmvae_cml, dmvae_joint
+            shape_key(2, 120, max(CUB_DIMS), 128, c): 3 * per_fit}  # the late fusions
+
+
+def _run_cub_cell(ck, pm, card, argv, label):
+    """runners/run.py main on the CUB Normal cell of seed 0 with ``argv``:
+    (rows, epoch launches, head launches, head launches by shape, wall, the
+    backbone fits' seconds)."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    fits, real = [], runner.fit_backbone
+
+    def fit_backbone(**kw):  # the backbone's fit time, which the rows do not carry
+        out = real(**kw)
+        fits.append(out[2]["backbone_fit_seconds"])
+        return out
+
+    runner.fit_backbone = fit_backbone
+    try:
+        with head_shape_tally() as shapes:
+            pm.run_epoch_kernel.launches = 0
+            ck.evidential_heads_stacked.launches = 0
+            t0 = time.perf_counter()
+            rows = runner.main(["--seeds", "0", "--datasets", "CUB", "--conditions", "Normal",
+                                "--probe-engine", "megakernel", *argv])
+            wall = time.perf_counter() - t0
+            epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+    finally:
+        runner.fit_backbone = real
+    log(f"{label}: CUB Normal seed 0 in {wall:.1f} s; probe_epoch launched {epochs} times, "
+        f"evidential_head {heads} times (by shape {dict(shapes)}) [{card}]")
+    return rows, epochs, heads, dict(shapes), wall, fits
+
+
+def _check_cub_cell(rows, epochs, heads, shapes, probe_epochs, label, card):
+    models = rows[0]["Normal"]["CUB"]
+    for name, info in models.items():
+        if "skipped" in info:
+            log(f"{label} {name}: skipped ({info['skipped']})")
+            continue
+        _finite_row(name, info)
+        acc = info["fused"]["accuracy"]
+        jax_acc = (f" (the JAX package on the CPU: {JAX_CUB_ACCURACY[name]:.4f})"
+                   if name in JAX_CUB_ACCURACY else "")
+        log(f"{label} {name}: fused accuracy {acc:.4f}{jax_acc}, fit {info['fit_seconds']:.2f} "
+            f"s, {1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch [{card}]")
+        if name in FLOORS and not acc >= FLOORS[name]:
+            raise AssertionError(f"{label} {name} fused accuracy {acc:.4f} < {FLOORS[name]}")
+    if epochs != 3 * probe_epochs:
+        raise AssertionError(f"{label}: probe_epoch launched {epochs} times, expected "
+                             f"{3 * probe_epochs}")
+    expected = _cub_head_shapes(probe_epochs)
+    if shapes != expected or heads != sum(expected.values()):
+        raise AssertionError(f"{label}: evidential_head launched {heads} times, by shape "
+                             f"{shapes}, expected {expected}")
+    return models
+
+
+def phase_intermediate(ck, pm, card):
+    """The CUB intermediate-fusion cell at full width and depth, then its
+    resume from the rows file. Returns (rows, epoch launches, head launches,
+    head launches by shape, the DMVAE fit's ms/epoch)."""
+    import io
+
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    probe_epochs, bb_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
+    with artifact_root("intermediate_") as root:
+        argv = ["--include-intermediate", "--intermediate-fusion", *CUB_FUSIONS, "--rows-file",
+                str(Path(root) / "rows.json")]
+        rows, epochs, heads, shapes, wall, fits = _run_cub_cell(ck, pm, card, argv,
+                                                                "intermediate")
+        models = _check_cub_cell(rows, epochs, heads, shapes, probe_epochs, "intermediate", card)
+        fitted = [m for m, info in models.items() if "skipped" not in info]
+        # the six heads, concat and every fusion but mi3, which CUB's two views skip
+        if len(fitted) != 6 + len(CUB_FUSIONS) or models.get("intermediate_mi3", {}).get(
+                "skipped") != (
+                "mi3 fuses exactly 3 views, got 2"):
+            raise AssertionError(f"intermediate: rows {sorted(models)}")
+        bb_ms = 1e3 * fits[0] / bb_epochs
+        # the same command again: everything is in the rows file
+        calls = []
+        real = runner.run_condition
+        runner.run_condition = lambda **kw: calls.append(kw) or real(**kw)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                again = _run_cub_cell(ck, pm, card, argv, "intermediate resume")
+        finally:
+            runner.run_condition = real
+        text = out.getvalue()
+        log(text.rstrip())
+        if "--rows-file: resuming; 1 completed cell(s) found" not in text:
+            raise AssertionError("intermediate resume: no resume line")
+        if calls or again[5] or again[1] or again[2] or again[4] > 60.0:
+            raise AssertionError(f"intermediate resume trained: {len(calls)} cells, "
+                                 f"{again[1]} + {again[2]} launches, {again[4]:.1f} s")
+        if json.dumps(again[0], sort_keys=True) != json.dumps(rows, sort_keys=True):
+            raise AssertionError("intermediate resume: the rows differ")
+    log(f"intermediate: {len(fitted)} fits and a skip row in {wall:.1f} s; fused DMVAE {bb_ms:.3f} "
+        f"ms/epoch; resumed in {again[4]:.1f} s with nothing trained [{card}]")
+    return rows, epochs, heads, shapes, bb_ms
+
+
+def phase_unfused_dmvae(ck, pm, card, fused_bb_ms):
+    """The CUB cell's six base models over the per-modality DMVAE."""
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    probe_epochs, bb_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
+    with artifact_root("unfused_"):
+        rows, epochs, heads, shapes, _, fits = _run_cub_cell(ck, pm, card,
+                                                             ["--no-fused-dmvae"], "unfused")
+    models = _check_cub_cell(rows, epochs, heads, shapes, probe_epochs, "unfused", card)
+    if len(models) != 6:
+        raise AssertionError(f"unfused: {len(models)} models")
+    bb_ms = 1e3 * fits[0] / bb_epochs
+    log(f"unfused DMVAE fit {bb_ms:.3f} ms/epoch, fused {fused_bb_ms:.3f} ms/epoch "
+        f"(CUB, batch 100) [{card}]")
+    return epochs, heads, shapes, bb_ms
+
+
+def _file_mentions(path, needle):
+    """Whether the text file at ``path`` holds ``needle``, read in chunks."""
+    tail = ""
+    with open(path, encoding="utf-8", errors="replace") as f:
+        while True:
+            block = f.read(1 << 24)
+            if not block:
+                return False
+            if needle in tail + block:
+                return True
+            tail = block[-len(needle):]
+
+
+def phase_seed_batched_profile(ck, card):
+    """Scene's quick Normal cell, seeds 0 and 1, --vmap-seeds with mi3,
+    tensor and lrtf, under --profile."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    with artifact_root("profile_") as root, head_shape_tally() as shapes:
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        rows = runner.main(["--vmap-seeds", "--seeds", "0", "1", "--datasets", "Scene",
+                            "--conditions", "Normal", "--quick", "--intermediate-fusion", "mi3",
+                            "tensor", "lrtf", "--profile"])
+        wall = time.perf_counter() - t0
+        heads = ck.evidential_heads_stacked.launches
+        trace = Path(root) / "logs" / "traces" / "uq_sweep" / "trace.json"
+        size = trace.stat().st_size
+        if not _file_mentions(trace, "evidential_heads_kernel"):
+            raise AssertionError(f"{trace} does not name the head kernel")
+    for seed in (0, 1):
+        models = rows[seed]["Normal"]["Scene"]
+        if len(models) != 9:
+            raise AssertionError(f"profile: seed {seed} rows {sorted(models)}")
+        for name, info in models.items():
+            _finite_row(name, info)
+            log(f"profile seed {seed} {name}: fused accuracy {info['fused']['accuracy']:.4f}, "
+                f"fit {info['fit_seconds']:.2f} s [{card}]")
+    if heads != 6 * 3 or sum(shapes.values()) != heads:
+        raise AssertionError(f"profile: evidential_head launched {heads} times "
+                             f"({dict(shapes)}), expected 18")
+    log(f"profile: Scene --vmap-seeds --quick in {wall:.1f} s; trace {size / 2**20:.1f} MiB "
+        f"names evidential_heads_kernel; evidential_head {heads} times (by shape "
+        f"{dict(shapes)}) [{card}]")
+    return heads, dict(shapes)
+
+
 def head_times_only(card):
     """``--head-times``: build the head kernel of whichever package is first
     on the path and print its device and event times at every main-path
@@ -1403,7 +1766,7 @@ def main() -> int:
     max_abs_err = phase_kernel_checks(ck)
     epoch_abs_err = phase_probe_epoch_checks(pm)
     timing = phase_kernel_times(ck, card)
-    device_by_shape, head_synthetic_times = phase_device_time(ck, card)
+    device_by_shape, head_times_by_shape = phase_device_time(ck, card)
     epoch_timing, epoch_times_by_shape = phase_probe_epoch_times(pm, card)
     epoch_timing = {k: epoch_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
@@ -1420,7 +1783,8 @@ def main() -> int:
         phase_restore(card, kept, sb_rows)
     with artifact_root("synthetic_dmvae_"):
         syn = phase_synthetic(ck, pm, card, "dmvae")
-        with artifact_root("synthetic_dssl_"):  # the probes' checkpoints share their names
+        # the probes' checkpoints share their names, so DSSL has its own root
+        with artifact_root("synthetic_dssl_"), cut_config(DSSL_CUT, "synthetic_config.yaml"):
             dssl = phase_synthetic(ck, pm, card, "dssl")
         with artifact_root("synthetic_vmap_"):
             syn_sb_launches, syn_sb_shapes = phase_synthetic_seed_batched(ck, card)
@@ -1429,6 +1793,11 @@ def main() -> int:
     syn_epoch_launches = syn[1] + dssl[1]
     syn_shapes = dict(collections.Counter(syn[3]) + collections.Counter(dssl[3])
                       + collections.Counter(syn_sb_shapes))
+    phase_fusions(card)
+    _, im_epochs, im_heads, im_shapes, fused_bb_ms = phase_intermediate(ck, pm, card)
+    uf_epochs, uf_heads, uf_shapes, _ = phase_unfused_dmvae(ck, pm, card, fused_bb_ms)
+    prof_heads, prof_shapes = phase_seed_batched_profile(ck, card)
+    cub_shapes = dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -1436,22 +1805,27 @@ def main() -> int:
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
-        "launches": serve_launches + train_head_launches + sb_launches + syn_head_launches,
+        "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
+                     + im_heads + uf_heads + prof_heads),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
-                             "seed_batched": sb_launches, "synthetic": syn_head_launches},
+                             "seed_batched": sb_launches, "synthetic": syn_head_launches,
+                             "cub_intermediate": im_heads, "cub_unfused": uf_heads,
+                             "scene_profile": prof_heads},
         "max_abs_err": max_abs_err,
         **timing,
         "device_ms_by_shape": device_by_shape,
-        "synthetic_times_by_shape": head_synthetic_times,
+        "times_by_shape": head_times_by_shape,
         "launches_by_shape": {"serving": serve_shapes, "training": train_shapes,
-                              "seed_batched": sb_shapes, "synthetic": syn_shapes},
+                              "seed_batched": sb_shapes, "synthetic": syn_shapes,
+                              "cub": cub_shapes, "scene_profile": prof_shapes},
     }, {
         "name": "probe_epoch",
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/probe_epoch.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/probe_megakernel.py:246",
-        "launches": epoch_launches + syn_epoch_launches,
-        "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches},
+        "launches": epoch_launches + syn_epoch_launches + im_epochs + uf_epochs,
+        "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
+                             "cub_intermediate": im_epochs, "cub_unfused": uf_epochs},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

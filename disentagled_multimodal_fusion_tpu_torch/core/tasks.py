@@ -11,7 +11,8 @@ everywhere. Optimizer settings are the reference's (JAX docstring, lines
 * DisentangledSSL: Adam + cosine (T_max = epochs, eta_min 0);
 * EvidentialProbe: AdamW (wd 1e-4) + cosine (eta_min 1e-6);
 * DisentangledProbe: AdamW (wd 0.01) + plateau (factor 0.1, patience 5);
-* LateFusion: Adam + plateau (factor 0.1, patience 10).
+* LateFusion: Adam + plateau (factor 0.1, patience 10);
+* IntermediateFusion: Adam + plateau (factor 0.1, patience 5).
 
 Each loss closure is an :class:`~.train.Objective`: ``draw(randomness, rows)``
 makes a step's noise (dropout keep-masks, reparameterisation draws) and
@@ -19,9 +20,10 @@ makes a step's noise (dropout keep-masks, reparameterisation draws) and
 trainer can draw per seed and run the arithmetic under ``torch.func.vmap``;
 called as ``(batch, mask, epoch, randomness)`` they draw, then compute.
 Validation closures take ``(data, epoch)`` and run the eval forward, which
-goes through the evidential head kernel on the card. :func:`embed_many` and
-:func:`evidences_many` are the frozen-backbone and eval forwards over
-stacked seeds. The DisentangledSSL objective draws a whole epoch at once
+goes through the evidential head kernel on the card for the stacked heads
+(IntermediateFusion's one head is plain PyTorch, as it is plain XLA in the
+JAX package). :func:`embed_many` and :func:`evidences_many` are the
+frozen-backbone and eval forwards over stacked seeds. The DisentangledSSL objective draws a whole epoch at once
 (its vMF rejection sampler syncs with the host once per block, not per
 step) and takes the global step for its lambda schedule.
 """
@@ -33,7 +35,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from ..models.baselines import FusedLateFusion, LateFusion
+from ..models.baselines import FusedLateFusion, IntermediateFusion, LateFusion
 from ..models.dmvae import DMVAE
 from ..models.disentangledssl import DisentangledSSL
 from ..models.dmvae_fused import FusedDMVAE
@@ -43,7 +45,7 @@ from ..models.probes import (
     FusedDisentangledEvidentialProbe,
     FusedEvidentialProbe,
 )
-from ..ops.dirichlet import avg_trusted_loss
+from ..ops.dirichlet import avg_trusted_loss, single_evidential_loss
 from ..ops.evidence import AGGREGATIONS
 from .megakernel import ProbeMegakernelDesc
 from .setup import resolve_device
@@ -113,32 +115,32 @@ def build_dmvae_task(
     poe_temperature: float = 1.5,
     a: float = 1.0,
     dropout: float = 0.0,
+    lambda_per_modality: Optional[Sequence[float]] = None,
     fused_modalities: bool = False,
     device=None,
 ) -> nn.Module:
-    """The DMVAE backbone (FusedDMVAE when ``fused_modalities``). Train it
-    with :func:`dmvae_objective`."""
-    if dropout:
-        raise NotImplementedError("DMVAE dropout is not ported yet (the configs use 0)")
-    if fused_modalities:
-        return _build(FusedDMVAE, seed, device, x_dims=tuple(output_dim),
-                      hidden_dim=hidden_dim, embed_dim=embed_dim,
-                      poe_temperature=poe_temperature, a=a)
-    return _build(DMVAE, seed, device, x_dims=tuple(output_dim), hidden_dim=hidden_dim,
-                  embed_dim=embed_dim, poe_temperature=poe_temperature)
+    """The DMVAE backbone, FusedDMVAE when ``fused_modalities`` and the
+    per-modality DMVAE otherwise. Train it with :func:`dmvae_objective`."""
+    cls = FusedDMVAE if fused_modalities else DMVAE
+    return _build(cls, seed, device, x_dims=tuple(output_dim), hidden_dim=hidden_dim,
+                  embed_dim=embed_dim, poe_temperature=poe_temperature, a=a, dropout=dropout,
+                  lambda_per_modality=lambda_per_modality)
 
 
-def dmvae_objective(model: FusedDMVAE, *, lr: float = 1e-4, num_epochs: int = 50):
-    """(loss_fn, optimizer) of a FusedDMVAE fit: the ELBO with its three
-    standard-normal draws from the fit's randomness, Adam + cosine."""
-    if not isinstance(model, FusedDMVAE):
-        raise NotImplementedError("only the fused DMVAE trains in the port so far")
+def dmvae_objective(model, *, lr: float = 1e-4, num_epochs: int = 50):
+    """(loss_fn, optimizer) of a DMVAE or FusedDMVAE fit: the ELBO with its
+    three standard-normal draws and, with dropout, its keep-masks from the
+    fit's randomness; Adam + cosine."""
+    if not isinstance(model, (DMVAE, FusedDMVAE)):
+        raise TypeError(f"not a DMVAE: {type(model).__name__}")
 
     def draw(randomness, rows):
-        return tuple(randomness.normal(s) for s in model.noise_shapes(rows))
+        noise = tuple(randomness.normal(s) for s in model.noise_shapes(rows))
+        masks = tuple(randomness.bernoulli(model.keep, s) for s in model.drop_shapes(rows))
+        return noise + masks
 
-    def loss_from_draws(batch, mask, epoch, noise):
-        return model(batch["xs"], noise, mask)
+    def loss_from_draws(batch, mask, epoch, draws):
+        return model(batch["xs"], draws[:3], mask, draws[3:] or None)
 
     opt = OptimizerConfig(name="adam", lr=lr, schedule="cosine", cosine_t_max=num_epochs,
                           eta_min=0.0)
@@ -337,3 +339,52 @@ def build_late_fusion_task(
                           plateau_patience=10)
     return EvidentialTask(model, forward, AGGREGATIONS[aggregation], num_classes, loss_fn,
                           val_fn, opt)
+
+
+def build_intermediate_fusion_task(
+    *,
+    output_dims: Sequence[int],
+    num_classes: int,
+    seed: int = 0,
+    hidden_dim: int = 32,
+    dropout: float = 0.3,
+    lr: float = 1e-4,
+    annealing_start: float = 20,
+    fusion: str = "concat",
+    fusion_output_dim: int = 64,
+    fusion_rank: int = 8,
+    device=None,
+) -> EvidentialTask:
+    """Fusion -> one evidential head (baselines.py:153-252; JAX
+    ``core/tasks.py:508-613``). ``fusion`` names the library fusion
+    (``models.fusions.INTERMEDIATE_FUSIONS``). The loss is the one-head EDL
+    loss; the head's dropout masks are drawn from the fit's randomness
+    before the step. Evidence is (B, 1, C) to the evaluator, which reads it
+    in the per-view layout. Data: {'xs': N views (B, S_i), 'y'}."""
+    model = _build(IntermediateFusion, seed, device, output_dims=tuple(output_dims),
+                   num_classes=num_classes, hidden_dim=hidden_dim, dropout=dropout,
+                   fusion=fusion, fusion_output_dim=fusion_output_dim,
+                   fusion_rank=fusion_rank)
+
+    def loss(ev, y, epoch, mask):
+        return single_evidential_loss(ev, y, annealing_step=epoch,
+                                      annealing_start=annealing_start, mask=mask)
+
+    head = model.head.mlp
+
+    def draw(randomness, rows):
+        if head.keep >= 1.0:
+            return None
+        return [randomness.bernoulli(head.keep, (rows, h)) for h in head.hidden]
+
+    def loss_from_draws(batch, mask, epoch, masks):
+        return loss(model(batch["xs"], masks), batch["y"], epoch, mask), {}
+
+    def val_fn(data, epoch):
+        ev = model(data["xs"])
+        return loss(ev, data["y"], epoch, None), _acc(ev, data["y"])
+
+    opt = OptimizerConfig(name="adam", lr=lr, schedule="plateau", plateau_factor=0.1,
+                          plateau_patience=5)
+    return EvidentialTask(model, lambda d: model(d["xs"])[:, None, :], lambda ev: ev[:, 0, :],
+                          num_classes, Objective(draw, loss_from_draws), val_fn, opt)

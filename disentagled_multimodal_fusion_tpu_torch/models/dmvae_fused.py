@@ -7,15 +7,17 @@ per-modality MLPs are stacked weight tensors (N, Dmax, H) / (N, H, H) /
 its own modality's fan sizes and the padding stays zero, so padded input
 columns contribute nothing.
 
-``FusedDMVAE.forward`` is the training ELBO (JAX lines 200-292). Its three
-reparameterisation draws are inputs, so a test can feed the JAX draws. The
+``FusedDMVAE.forward`` is the training ELBO (JAX lines 200-292), each
+modality's reconstruction weighted by ``lambda_per_modality``. Its three
+reparameterisation draws, and with ``dropout`` its keep-masks
+(``drop_shapes``), are inputs, so a test can feed the JAX draws. The
 training forward keeps the reference's PoE temperature 1.5 whatever
 ``poe_temperature`` is (that one is ``get_embedding``'s).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -84,13 +86,16 @@ class FusedDMVAE(nn.Module):
 
     def __init__(self, x_dims: Sequence[int], generator: torch.Generator,
                  hidden_dim: int = 512, embed_dim: int = 100,
-                 poe_temperature: float = 1.5, a: float = 1.0, cross_weight: float = 1.0):
+                 poe_temperature: float = 1.5, a: float = 1.0, cross_weight: float = 1.0,
+                 dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
         n = len(x_dims)
         self.x_dims = tuple(x_dims)
         self.embed_dim = embed_dim
+        self.hidden_dim = hidden_dim
+        self.keep = 1.0 - dropout
         self.poe_temperature = poe_temperature
         self.a = a
         self.cross_weight = cross_weight
@@ -103,6 +108,8 @@ class FusedDMVAE(nn.Module):
         # each modality's true width, and its valid columns of the padded width
         dims = torch.tensor(self.x_dims, dtype=torch.float32)
         self.register_buffer("dims", dims, persistent=False)
+        self.register_buffer("lam", torch.tensor(list(lambda_per_modality or [1.0] * n),
+                                                 dtype=torch.float32), persistent=False)
         self.register_buffer("dim_mask", (torch.arange(max(x_dims))[None] < dims[:, None]).float(),
                              persistent=False)
 
@@ -128,17 +135,30 @@ class FusedDMVAE(nn.Module):
         n, e = len(self.x_dims), self.embed_dim
         return (rows, n, e), (rows, n, e), (rows, e)
 
-    def forward(self, xs, noise, mask=None):
+    def drop_shapes(self, rows: int):
+        """Shapes of the keep-masks of :meth:`forward`, none without
+        dropout: the encoder's two hidden layers (rows, N, H), then the
+        decoder's (N, rows, N, H), which decodes all N joint and cross rows."""
+        if self.keep >= 1.0:
+            return []
+        n, h = len(self.x_dims), self.hidden_dim
+        return [(rows, n, h)] * 2 + [(n, rows, n, h)] * 2
+
+    def forward(self, xs, noise, mask=None, drop_masks=None):
         """Training ELBO of N views (B, S_i) -> (loss, logs).
 
         ``noise`` is (eps_p (B, N, E), eps_u (B, N, E), eps_s (B, E)), the
         draws of the private, unimodal-shared and PoE-shared latents;
-        ``mask`` (B,) {0, 1} restricts every mean to the rows it keeps.
+        ``drop_masks`` the masks of :meth:`drop_shapes` (None without
+        dropout); ``mask`` (B,) {0, 1} restricts every mean to the rows it
+        keeps.
         """
         n, e = len(self.x_dims), self.embed_dim
+        enc_masks, dec_masks = (None, None) if not drop_masks else (drop_masks[:2],
+                                                                    drop_masks[2:])
         x = pad_stack(xs)                                           # (B, N, Dmax)
         b = x.shape[0]
-        mu_s, logv_s, mu_p, logv_p = torch.split(self.encoder(x), e, dim=-1)
+        mu_s, logv_s, mu_p, logv_p = torch.split(self.encoder(x, enc_masks, self.keep), e, dim=-1)
         eps_p, eps_u, eps_s = noise
         z_p = reparameterize(eps_p, mu_p, logv_p)                   # (B, N, E)
         z_s_uni = reparameterize(eps_u, mu_s, logv_s)               # (B, N, E)
@@ -155,15 +175,16 @@ class FusedDMVAE(nn.Module):
         zs_rows = torch.cat([z_s[None, None].expand(1, n, b, e), others])  # (N, N, B, E)
         zp_rows = z_p.movedim(1, 0)[None].expand(n, n, b, e)
         dec_in = torch.cat([zp_rows, zs_rows], dim=-1).movedim(2, 1)  # (rows, B, N, 2E)
-        recon = self.decoder(dec_in)                                # (rows, B, N, Dmax)
+        recon = self.decoder(dec_in, dec_masks, self.keep)         # (rows, B, N, Dmax)
 
         # masked MSE per (row, modality) over the modality's true width
         row_mask = torch.ones(b, device=x.device) if mask is None else mask.float()
         se = (recon - x[None]) ** 2 * self.dim_mask[None, None] * row_mask[None, :, None, None]
         denom = torch.clamp(torch.sum(row_mask), min=1.0)
         per_pair = torch.sum(se, dim=(1, 3)) / (denom * self.dims[None, :])  # (rows, N)
-        loss_recon_joint = torch.sum(per_pair[0])
-        loss_recon_cross = torch.sum(per_pair[1:]) / (n * (n - 1)) * self.cross_weight
+        loss_recon_joint = torch.sum(self.lam * per_pair[0])
+        loss_recon_cross = (torch.sum(self.lam * per_pair[1:]) / (n * (n - 1))
+                            * self.cross_weight)
 
         def kl_rows(mu, logv):
             return torch.sum(-0.5 * torch.sum(1 + logv - mu ** 2 - torch.exp(logv), dim=-1), dim=1)

@@ -1,12 +1,14 @@
-"""Building-block layers: MLP stacks and evidential heads (eval mode).
+"""Building-block layers: MLP stacks and evidential heads.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/models/layers.py:25-149``
 with its init laws as the configs use them: xavier-uniform kernels and the
 torch ``nn.Linear`` default bias ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
 Initialisation draws from an explicit ``torch.Generator`` on the CPU, so a
 seed gives the same weights on any device. Kernel tensors are drawn in the
-JAX layout ``(in, out)``. Dropout, the other kernel inits of the JAX package
-and the LUMA encoders come with later slices.
+JAX layout ``(in, out)``. Dropout follows each hidden ReLU; its keep-masks
+are inputs (one boolean mask per hidden layer), applied as flax's
+``Dropout`` does: ``where(mask, h / keep, 0)``. The other kernel inits of
+the JAX package and the LUMA encoders come with later slices.
 """
 
 from __future__ import annotations
@@ -57,29 +59,38 @@ class IdentityEncoder(nn.Module):
 
 
 class MLP(nn.Module):
-    """(Dense + ReLU)* + output Dense. ``layers`` lists the input and hidden
-    sizes, e.g. (in, h1, h2); the last Dense maps to ``output_dims``."""
+    """(Dense + ReLU + Dropout)* + output Dense. ``layers`` lists the input
+    and hidden sizes, e.g. (in, h1, h2); the last Dense maps to
+    ``output_dims``."""
 
-    def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator):
+    def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator,
+                 dropout: float = 0.0):
         super().__init__()
         widths = [*layers, output_dims]
+        self.keep = 1.0 - dropout
+        self.hidden = tuple(layers[1:])
         self.layers = nn.ModuleList(
             TorchLinear(a, b, generator) for a, b in zip(widths[:-1], widths[1:])
         )
 
-    def forward(self, x):
-        x = x.float()
-        for layer in self.layers[:-1]:
+    def forward(self, x, drop_masks=None):
+        """``drop_masks``: in training, one boolean keep-mask (rows, h) per
+        hidden layer; None in eval mode."""
+        x = x.to(self.layers[0].weight.dtype)  # float32 data, whatever it came as
+        for i, layer in enumerate(self.layers[:-1]):
             x = torch.relu(layer(x))
+            if drop_masks is not None:
+                x = torch.where(drop_masks[i], x / self.keep, torch.zeros_like(x))
         return self.layers[-1](x)
 
 
 class EvidentialNN(nn.Module):
     """MLP head with the saturated-exp evidence activation."""
 
-    def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator):
+    def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator,
+                 dropout: float = 0.0):
         super().__init__()
-        self.mlp = MLP(layers, output_dims, generator)
+        self.mlp = MLP(layers, output_dims, generator, dropout)
 
-    def forward(self, x):
-        return evidence_activation(self.mlp(x).float())
+    def forward(self, x, drop_masks=None):
+        return evidence_activation(self.mlp(x, drop_masks))

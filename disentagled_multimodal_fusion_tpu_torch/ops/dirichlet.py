@@ -3,7 +3,8 @@
 Counterpart of ``disentagled_multimodal_fusion_tpu/ops/dirichlet.py``: the
 EDL digamma loss with its annealed KL regulariser, the Dirichlet
 KL-to-uniform, the disagreement-consistency (DC) loss, the multi-view
-AvgTrusted criterion and the epistemic/aleatoric decomposition.
+AvgTrusted criterion, the one-head EDL loss of intermediate fusion and the
+epistemic/aleatoric decomposition.
 
 Every loss takes an optional {0, 1} row ``mask`` (B,), so that a padded
 batch gives the same means as a ragged one. The math runs in float32 with
@@ -108,6 +109,15 @@ def avg_trusted_loss(evidences, target, evidence_a, annealing_step, num_views: i
     t = min(1.0, float(annealing_step) / max(1.0, float(annealing_start)))
     gamma_t = 0.2 * (1.0 - t) + t
     return loss_acc + gamma_t * dc_loss(evidences, mask=mask) * fused
+
+
+def single_evidential_loss(evidence, target, annealing_step, annealing_start: float = 50.0,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-head EDL loss of (B, C) evidence (reference: losses.py:250-272)."""
+    c = evidence.shape[-1]
+    target_onehot = (target.long()[:, None] == torch.arange(c, device=target.device)).float()
+    return edl_digamma_loss(evidence.float() + 1.0, target_onehot, annealing_step, c,
+                            annealing_start, mask=mask)
 
 
 def dirichlet_uncertainties(evidence: torch.Tensor, num_classes: int):

@@ -167,3 +167,22 @@ def head_name(model: str, dataset: str, seed: int, cond: str) -> str:
     so artifact names match."""
     suffix = {"normal": "", "conflict": "_conflict", "noise": "_noise"}[cond]
     return f"{model}_fusion_ds{dataset}_seed{seed}{suffix}"
+
+
+# The sequential engine's stand-ins for the JAX package's folded keys of the
+# intermediate-fusion jobs (``runners/run.py`` docstring).
+INTERMEDIATE_BASE = 1 << 27
+
+
+def intermediate_seed(cell: int, m: int) -> int:
+    """The ``torch.Generator`` seed of intermediate-fusion key ``m`` (m < 8:
+    the weights of registry fusion m; m = 8 + i: the fit of job i >= 7) of
+    cell seed ``cell``: ``2**27 + cell * 32 + m``, in [2**27, 2**27 + 2**28)
+    for every cell seed below ``MAX_FOLD_CELL``, so it meets neither the
+    sequential slots ``cell * 16 + k`` (below 2**27) nor the fold seeds
+    ([2**31, 2**32))."""
+    if not 0 <= m < 32:
+        raise ValueError(f"intermediate key {m} is outside [0, 32)")
+    if not 0 <= cell < MAX_FOLD_CELL:
+        raise ValueError(f"cell seed {cell} is outside [0, {MAX_FOLD_CELL}); use a smaller seed")
+    return INTERMEDIATE_BASE + cell * 32 + m

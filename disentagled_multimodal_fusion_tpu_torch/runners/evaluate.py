@@ -121,7 +121,7 @@ def eval_synthetic(args, device):
     if label == "dmvae_cml":
         backbone = restore_checkpoint(
             args.dmvae_checkpoint or f"checkpoints/{checkpoint_name('backbone', seed, dep)}",
-            build_backbone(st, view_dims, 0, device))
+            build_backbone(st, view_dims, 0, device, fused=not args.no_fused_dmvae))
         zc, zp = embed_dataset(backbone, xs)
         data = {"zc": zc, "zp": zp, "y": y}
     else:

@@ -15,10 +15,25 @@ condition, dataset):
 4. six head fits with val = test: ``dmvae_dis`` (private-only probe),
    ``dmvae_cml`` and ``dmvae_joint`` (shared + private probes), and
    ``dbf``/``cml``/``avg`` ``_fusion`` (late fusion on the raw views);
-5. evaluation (``dmvae_dis`` in the per-view layout, every other model in
-   the with-shared layout, which labels late fusion's view 0 "shared", a
-   reference quirk kept for column parity), CSV logs, checkpoints, and the
-   three-sheet report at ``logs/dataset_analysis.xlsx`` with CSV mirrors.
+5. with ``--include-intermediate`` / ``--intermediate-fusion NAME...``,
+   one IntermediateFusion head fit per named library fusion
+   (``models/fusions.py``), on the raw views: ``intermediate_fusion`` for
+   ``concat``, ``intermediate_{name}`` for the others. A fusion that
+   ``build_fusion`` refuses for the dataset (a view count, a size cap) is
+   skipped with a ``{"skipped": reason}`` row;
+6. evaluation (``dmvae_dis`` and the intermediate fusions in the per-view
+   layout, every other model in the with-shared layout, which labels late
+   fusion's view 0 "shared", a reference quirk kept for column parity), CSV
+   logs, checkpoints, and the three-sheet report at
+   ``logs/dataset_analysis.xlsx`` with CSV mirrors and one UQ figure per
+   cell under ``logs/uq_plots/`` (where matplotlib is installed).
+
+``--no-fused-dmvae`` trains the per-modality DMVAE in every engine (same
+checkpoint names). ``--rows-file PATH`` writes the rows to PATH after every
+(condition, dataset) cell; a rerun resumes from it, skips each cell whose
+every seed has all its rows (skip rows count) and writes the report once.
+``--profile`` records the sweep with ``torch.profiler`` into
+``logs/traces/uq_sweep/trace.json``, written also when the sweep fails.
 
 Over the DisentangledSSL backbone the probes' shared input is the two
 shared codes side by side (2E wide) and their private inputs are E wide,
@@ -68,6 +83,19 @@ Randomness. Let c = ``cell_seed(seed, dataset, conflict)``.
   keeps) never meet a sequential slot; ``runners.common.fold_seed`` refuses
   cell seeds that could.
 
+* The intermediate-fusion jobs follow the JAX key layout. In the
+  sequential engine concat's weights come from slot 15 and job i's fit
+  from slot 8 + i for i < 7. The JAX package folds the other keys (the
+  weights of registry fusion m from ``fold_in(keys[15], m)``, the fit of job
+  i >= 7 from ``fold_in(keys[8], 1000 + i)``); their stand-ins are
+  ``runners.common.intermediate_seed(c, m)`` for the weights and
+  ``intermediate_seed(c, 8 + i)`` for the fit, = ``2**27 + c * 32 + m``,
+  which lie in [2**27, 2**27 + 2**28) for every cell seed below 2**23 and
+  so meet neither the slots (below 2**27) nor the fold seeds (at or above
+  2**31). In the seed-batched
+  engines the intermediate jobs follow the six heads in the roster, so they
+  take fold indices 10 + j and 100 + j like any head.
+
 Weights are drawn on the CPU; a fit's draws come from a generator on its
 device. So seed s of a seed-batched cell is a sequential fit of the same
 weights and generators, which ``tests/test_torch_run.py`` replays.
@@ -79,11 +107,15 @@ Examples:
       --vmap-seeds --seeds 0 1 2 3 4 --datasets HandWritten --conditions Normal
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
       --quick --seeds 0 --datasets CUB --conditions Normal --device cpu
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
+      --quick --seeds 0 --datasets CUB --conditions Normal --device cpu \
+      --include-intermediate --intermediate-fusion lrtf --rows-file rows.json
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import threading
 import time
 from pathlib import Path
@@ -92,6 +124,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.logging import trace
 from ..core.setup import resolve_device
 
 CONDITIONS = (("Normal", False, False), ("Conflict", True, False), ("Noise", False, True))
@@ -169,27 +202,46 @@ def split_cell(C, seed: int, dataset_name: str, conflict: bool, noise: bool):
     return views, labels, train_idx, test_idx, dims, dataset.num_classes
 
 
-def build_backbone(st: CellSettings, dims, seed: int, device):
+def build_backbone(st: CellSettings, dims, seed: int, device, fused: bool = True):
+    """The cell's DMVAE: FusedDMVAE, or the per-modality DMVAE when not
+    ``fused`` (``--no-fused-dmvae``)."""
     from ..core.tasks import build_dmvae_task
 
     return build_dmvae_task(seed=seed, output_dim=dims, hidden_dim=st.dmvae_hidden,
                             embed_dim=st.embed_dim, a=st.dmvae_a, dropout=st.dmvae_dropout,
-                            fused_modalities=True, device=device)
+                            fused_modalities=fused, device=device)
+
+
+def intermediate_job_name(fusion: str) -> str:
+    return "intermediate_fusion" if fusion == "concat" else f"intermediate_{fusion}"
+
+
+class HeadSpec(NamedTuple):
+    name: str
+    builder: object      # seed -> task
+    kind: str            # 'probe' (trains on embeddings) or 'raw' (on views)
+    shared_layout: bool  # evaluated with the shared-embedding layout
+    fusion: str | None = None  # the intermediate jobs' registry fusion
 
 
 def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
-                          input_dim=None, shared_input_dim=None):
-    """The cell's head roster, one for every engine: [(name, builder(seed) ->
-    task, kind, shared_layout)], kind 'probe' (trains on embeddings) or 'raw'
-    (trains on views), in the JAX package's order. The order fixes each
-    head's key slots and fold indices. ``input_dim`` and
-    ``shared_input_dim`` override the probes' input widths (the DSSL
+                          input_dim=None, shared_input_dim=None, intermediate_fusions=(),
+                          tag: str = ""):
+    """The cell's head roster, one for every engine: ([HeadSpec], {job name:
+    reason}), in the JAX package's order: the six heads, then one
+    IntermediateFusion per fusion of ``intermediate_fusions`` that
+    ``build_fusion`` accepts for ``dims``. The fusions it refuses are
+    announced as ``skipping`` (after ``tag``) and returned with the reason.
+    The order fixes each head's key slots and fold indices. ``input_dim``
+    and ``shared_input_dim`` override the probes' input widths (the DSSL
     backbone's)."""
     from ..core.tasks import (
         build_disentangled_probe_task,
+        build_intermediate_fusion_task,
         build_late_fusion_task,
         build_probe_task,
     )
+    from ..models.fusions import fusion_dim
 
     head = dict(num_classes=num_classes, hidden_dim=st.probe_hidden, lr=st.lr,
                 dropout=st.probe_dropout, annealing_start=st.annealing_start, device=device)
@@ -207,23 +259,39 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
         return lambda seed: build_late_fusion_task(seed=seed, output_dims=dims, aggregation=agg,
                                                    fused=1.0, **head)
 
-    return [
-        ("dmvae_dis", dis, "probe", False),
-        ("dmvae_cml", shared_private("cml"), "probe", True),
-        ("dmvae_joint", shared_private("joint"), "probe", True),
-        ("dbf_fusion", late("dbf"), "raw", True),
-        ("cml_fusion", late("cml"), "raw", True),
-        ("avg_fusion", late("avg"), "raw", True),
+    def intermediate(fusion):
+        return lambda seed: build_intermediate_fusion_task(
+            seed=seed, output_dims=dims, num_classes=num_classes, dropout=st.probe_dropout,
+            lr=st.lr, annealing_start=st.annealing_start, fusion=fusion, device=device)
+
+    specs = [
+        HeadSpec("dmvae_dis", dis, "probe", False),
+        HeadSpec("dmvae_cml", shared_private("cml"), "probe", True),
+        HeadSpec("dmvae_joint", shared_private("joint"), "probe", True),
+        HeadSpec("dbf_fusion", late("dbf"), "raw", True),
+        HeadSpec("cml_fusion", late("cml"), "raw", True),
+        HeadSpec("avg_fusion", late("avg"), "raw", True),
     ]
+    skipped = {}
+    for fusion in intermediate_fusions:
+        jname = intermediate_job_name(fusion)
+        try:
+            fusion_dim(fusion, dims)
+        except ValueError as e:
+            print(f"  {tag} skipping {jname}: {e}", flush=True)
+            skipped[jname] = str(e)
+            continue
+        specs.append(HeadSpec(jname, intermediate(fusion), "raw", False, fusion))
+    return specs, skipped
 
 
 def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: int,
-                 seeds: tuple, device, tag: str, drop_last: bool):
-    """Build and fit the cell's backbone, DMVAE or DisentangledSSL (weights
-    from generator seed ``seeds[0]``, fit draws from ``seeds[1]``), and print
-    its fit time (and the vMF sampler's host syncs per epoch); returns
-    (model, the probes' input widths over it, {backbone_fit_seconds,
-    vmf_syncs_per_epoch})."""
+                 seeds: tuple, device, tag: str, drop_last: bool, fused_dmvae: bool = True):
+    """Build and fit the cell's backbone, DMVAE (fused unless
+    ``fused_dmvae`` is off) or DisentangledSSL (weights from generator seed
+    ``seeds[0]``, fit draws from ``seeds[1]``), and print its fit time (and
+    the vMF sampler's host syncs per epoch); returns (model, the probes'
+    input widths over it, {backbone_fit_seconds, vmf_syncs_per_epoch})."""
     from ..core.tasks import build_disentangledssl_task, dmvae_objective
     from ..core.train import Randomness, train
 
@@ -240,8 +308,9 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
             device=device)
         widths = dict(input_dim=embed, shared_input_dim=2 * embed)
     else:
-        model = build_backbone(st, dims, seeds[0], device)
+        model = build_backbone(st, dims, seeds[0], device, fused=fused_dmvae)
         loss_fn, opt = dmvae_objective(model, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
+        backbone = "dmvae" if fused_dmvae else "dmvae (unfused)"
     randomness = Randomness(seeds[1], device)
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
@@ -256,15 +325,18 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
 
 
 def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
-                  noise=False, probe_engine="step", backbone="dmvae"):
-    """Train and evaluate the six models of one cell into ``rows_out``."""
+                  noise=False, probe_engine="step", backbone="dmvae", fused_dmvae=True,
+                  intermediate_fusions=()):
+    """Train and evaluate the six models of one cell, and the intermediate
+    fusions asked for, into ``rows_out``."""
     from ..core.checkpoint import save_checkpoint
     from ..core.logging import log_training_csv
     from ..core.sweep_cell import head_data
     from ..core.tasks import embed_dataset
     from ..core.train import Randomness, train
     from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
-    from .common import backbone_checkpoint, cell_seed, head_name
+    from ..models.fusions import INTERMEDIATE_FUSIONS
+    from .common import backbone_checkpoint, cell_seed, head_name, intermediate_seed
 
     t0 = time.time()
     views, labels, train_idx, test_idx, dims, num_classes = split_cell(
@@ -284,27 +356,35 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
         return base * 16 + k
 
     cond = condition_name(conflict, noise)
-    model, widths, _ = fit_backbone(C=C, st=st, backbone=backbone, dims=dims, xs_tr=xs_tr,
-                                    n_train=n_train, seeds=(slot(0), slot(1)), device=device,
-                                    tag=f"[{dataset_name}/{cond}/seed{seed}]",
-                                    drop_last=backbone == "dssl")
+    model, widths, _ = fit_backbone(
+        C=C, st=st, backbone=backbone, dims=dims, xs_tr=xs_tr, n_train=n_train,
+        seeds=(slot(0), slot(1)), device=device, tag=f"[{dataset_name}/{cond}/seed{seed}]",
+        drop_last=backbone == "dssl", fused_dmvae=fused_dmvae)
     save_checkpoint(backbone_checkpoint(dataset_name, seed, cond, backbone), model,
                     {"dataset": dataset_name, "seed": seed, "cond": cond})
     data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_te),
                      xs_tr, xs_te, y_tr, y_te)
 
-    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device,
-                                  **widths)
-    for j, (name, builder, kind, shared_layout) in enumerate(specs):
+    specs, skipped = build_cell_head_specs(
+        st=st, dims=dims, num_classes=num_classes, device=device,
+        intermediate_fusions=intermediate_fusions, tag=f"[{dataset_name}]", **widths)
+    rows_out.update({name: {"skipped": reason} for name, reason in skipped.items()})
+    for j, (name, builder, kind, shared_layout, fusion) in enumerate(specs):
         if backbone == "dssl":  # the probes over SSL report and checkpoint as dssl_*
             name = name.replace("dmvae_", "dssl_")
-        task = builder(slot(2 + j))
+        if fusion is None:
+            task = builder(slot(2 + j))
+        elif fusion == "concat":
+            task = builder(slot(15))
+        else:
+            task = builder(intermediate_seed(base, INTERMEDIATE_FUSIONS.index(fusion)))
+        fit_seed = slot(8 + j) if j < 7 else intermediate_seed(base, 8 + j)
         tr_data, te_data = data[kind]
         t_fit = time.perf_counter()
         res_m = train(
             model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
             optimizer=task.optimizer, epochs=st.probe_epochs, batch_size=st.batch_size,
-            randomness=Randomness(slot(8 + j), device), val_fn=task.val_fn, val_data=te_data,
+            randomness=Randomness(fit_seed, device), val_fn=task.val_fn, val_data=te_data,
             megakernel=task.megakernel if probe_engine == "megakernel" else None,
         )
         fit_s = time.perf_counter() - t_fit
@@ -359,7 +439,8 @@ class _SeedBatchedCell(NamedTuple):
     jobs: list         # core.sweep_cell.CellJob per head, in roster order
 
 
-def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, device):
+def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, device,
+                        rows_by_seed, fused_dmvae=True, intermediate_fusions=()):
     from ..core.sweep_cell import CellJob
     from ..core.tasks import dmvae_objective
     from ..core.train import Randomness
@@ -370,14 +451,20 @@ def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, devic
         device=device)
     st = cell_settings(C, dataset_name, quick)
     cells = [cell_seed(s, dataset_name, conflict) for s in seeds]
-    backbones = [build_backbone(st, dims, fold_seed(c, 0), device) for c in cells]
+    backbones = [build_backbone(st, dims, fold_seed(c, 0), device, fused=fused_dmvae)
+                 for c in cells]
     loss_fn, opt = dmvae_objective(backbones[0], lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
-    specs = build_cell_head_specs(st=st, dims=dims, num_classes=num_classes, device=device)
+    specs, skipped = build_cell_head_specs(
+        st=st, dims=dims, num_classes=num_classes, device=device,
+        intermediate_fusions=intermediate_fusions, tag=f"[{dataset_name}]")
+    for name, reason in skipped.items():
+        for s in seeds:
+            rows_by_seed[s][name] = {"skipped": reason}
     jobs = [
-        CellJob(name=name, tasks=[builder(fold_seed(c, 10 + j)) for c in cells],
+        CellJob(name=spec.name, tasks=[spec.builder(fold_seed(c, 10 + j)) for c in cells],
                 randomness=[Randomness(fold_seed(c, 100 + j), device) for c in cells],
-                kind=kind, epochs=st.probe_epochs, shared_layout=shared_layout)
-        for j, (name, builder, kind, shared_layout) in enumerate(specs)
+                kind=spec.kind, epochs=st.probe_epochs, shared_layout=spec.shared_layout)
+        for j, spec in enumerate(specs)
     ]
     return _SeedBatchedCell(
         cond=condition_name(conflict, noise), data=(xs_tr, xs_te, y_tr, y_te),
@@ -424,7 +511,7 @@ def _write_job(job, fetched, seeds, dataset_name, cond, rows_by_seed, **extra):
 
 
 def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
-                          noise=False):
+                          noise=False, fused_dmvae=True, intermediate_fusions=()):
     """All seeds of one cell at once, each fit a ``train_many`` over the
     stacked seeds, its results fetched and written when it ends. Every head
     row carries ``fit_seconds`` (its seed-batched fit, evaluation and fetch)
@@ -436,7 +523,8 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
 
     t0 = time.time()
     cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
-                               noise=noise, quick=quick, device=device)
+                               noise=noise, quick=quick, device=device, rows_by_seed=rows_by_seed,
+                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions)
     st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
     xs_tr, xs_te, y_tr, y_te = cell.data
     t_fit = time.perf_counter()
@@ -465,7 +553,8 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
 
 
 def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
-                         noise=False, defer_artifacts=False):
+                         noise=False, fused_dmvae=True, intermediate_fusions=(),
+                         defer_artifacts=False):
     """The whole cell, all seeds, in one ``core.sweep_cell.run_cell`` call
     with one fetch at its end; the same fits as :func:`run_condition_vmapped`.
 
@@ -480,7 +569,8 @@ def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, row
 
     t0 = time.time()
     cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
-                               noise=noise, quick=quick, device=device)
+                               noise=noise, quick=quick, device=device, rows_by_seed=rows_by_seed,
+                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions)
     st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
     xs_tr, xs_te, y_tr, y_te = cell.data
     result = run_cell(
@@ -521,10 +611,20 @@ def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, row
 
 def write_sweep_report(rows, excel_path):
     """Flatten nested rows[seed][condition][dataset][model] and write the
-    three-sheet report (main_grouped, all_results, grouped_results)."""
+    three-sheet report (main_grouped, all_results, grouped_results) and the
+    UQ figures (``eval/uq_plots.py``) beside it, under ``uq_plots/``. Skip
+    rows (``{"skipped": reason}``) carry no metrics and are left out."""
+    from ..core.artifacts import artifact_path
     from ..eval.analysis import build_metrics_rows_datasets
+    from ..eval.uq_plots import write_uq_plots
     from .common import Table, group_mean, main_columns, write_report
 
+    rows = {
+        seed: {cond: {ds: {m: v for m, v in models.items() if "skipped" not in v}
+                      for ds, models in conds.items()}
+               for cond, conds in by_cond.items()}
+        for seed, by_cond in rows.items()
+    }
     columns, dicts = build_metrics_rows_datasets(rows)
     for d in dicts:
         d["seed"] = int(d["seed"])
@@ -538,16 +638,21 @@ def write_sweep_report(rows, excel_path):
         },
         excel_path,
     )
+    plots = write_uq_plots(rows, artifact_path(Path(excel_path).parent / "uq_plots"))
+    if plots:
+        print(f"  wrote {len(plots)} UQ figures -> {Path(plots[0]).parent}", flush=True)
+    else:
+        print("  no UQ figures written (matplotlib is not installed, or no row has "
+              "reliability data)", flush=True)
     return table
 
 
-NOT_PORTED = {
-    "rows_file": "--rows-file", "profile": "--profile",
-    "intermediate_fusion": "--intermediate-fusion",
-}
+# options of the JAX runner that the port does not have yet (ROADMAP.md)
+NOT_PORTED = ("--dtype bfloat16", "--data-parallel/--model-parallel")
 
 
 def parse_args(argv=None):
+    from ..models.fusions import INTERMEDIATE_FUSIONS
     from .common import add_force_vmap_flag
 
     parser = argparse.ArgumentParser(
@@ -574,16 +679,27 @@ def parse_args(argv=None):
     parser.add_argument("--backbone", choices=["dmvae", "dssl"], default="dmvae",
                         help="disentangling backbone: DMVAE, or DisentangledSSL (two-view "
                              "datasets, sequential engine)")
-    # options of the JAX runner that the port does not have yet (ROADMAP.md)
+    parser.add_argument("--no-fused-dmvae", action="store_true",
+                        help="train the per-modality DMVAE instead of the fused one")
+    parser.add_argument("--include-intermediate", action="store_true",
+                        help="also sweep IntermediateFusion over concat (the reference's "
+                             "baseline, baselines.py:153-252): 'intermediate_fusion' rows")
+    parser.add_argument("--intermediate-fusion", type=str, nargs="*", default=None,
+                        metavar="NAME",
+                        help="sweep IntermediateFusion over these library fusions "
+                             f"({', '.join(INTERMEDIATE_FUSIONS)}); a fusion refused for a "
+                             "dataset's views is skipped with a skip row")
+    parser.add_argument("--rows-file", default=None, metavar="PATH",
+                        help="write the rows to PATH (JSON) after every (condition, dataset) "
+                             "cell; a rerun skips the cells PATH holds and writes the report "
+                             "once every requested cell exists")
+    parser.add_argument("--profile", action="store_true",
+                        help="record the sweep with torch.profiler (CPU and CUDA activity) "
+                             "into logs/traces/uq_sweep/trace.json, a Chrome trace")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
     add_force_vmap_flag(parser)
-    for dest, flag in NOT_PORTED.items():
-        if dest in ("rows_file", "intermediate_fusion"):
-            parser.add_argument(flag, nargs="*", default=None)
-        else:
-            parser.add_argument(flag, action="store_true")
     args = parser.parse_args(argv)
     if args.probe_engine == "megakernel" and (args.vmap_seeds or args.one_program_cells):
         parser.error("--probe-engine megakernel runs the sequential engine only "
@@ -591,11 +707,16 @@ def parse_args(argv=None):
     if args.backbone == "dssl" and (args.vmap_seeds or args.one_program_cells):
         parser.error("--backbone dssl runs the sequential engine only (the SSL backbone has "
                      "no seed-batched trainer, as in the JAX package)")
-    used = [flag for dest, flag in NOT_PORTED.items() if getattr(args, dest)]
-    if args.dtype != "float32":
-        used.append("--dtype bfloat16")
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        used.append("--data-parallel/--model-parallel")
+    fusions = list(args.intermediate_fusion or [])
+    unknown = [f for f in fusions if f not in INTERMEDIATE_FUSIONS]
+    if unknown:
+        parser.error(f"unknown --intermediate-fusion {unknown}; "
+                     f"supported: {INTERMEDIATE_FUSIONS}")
+    if args.include_intermediate and "concat" not in fusions:
+        fusions.insert(0, "concat")
+    args.intermediate_fusion = fusions
+    used = [flag for flag, on in zip(NOT_PORTED, (
+        args.dtype != "float32", args.data_parallel > 1 or args.model_parallel > 1)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     return args
@@ -613,20 +734,34 @@ def main(argv=None):
                                    ["CUB", "HandWritten", "PIE", "Scene"])
     conflict_ds = args.datasets or C("experiment.conflict_datasets",
                                      ["CUB", "HandWritten", "PIE", "Scene"])
-    cells = [(cond_name, ds_name, is_conflict, is_noise)
-             for cond_name, is_conflict, is_noise in CONDITIONS if cond_name in args.conditions
-             for ds_name in (normal_ds if cond_name == "Normal" else conflict_ds)]
+    all_cells = [(cond_name, ds_name, is_conflict, is_noise)
+                 for cond_name, is_conflict, is_noise in CONDITIONS
+                 for ds_name in (normal_ds if cond_name == "Normal" else conflict_ds)]
+    cells = [c for c in all_cells if c[0] in args.conditions]
+    rows_file = RowsFile(args.rows_file, seeds, 6 + len(args.intermediate_fusion))
+    rows = rows_file.load(all_cells)
+    for seed in seeds:
+        rows.setdefault(seed, {})
     t_start = time.time()
-    rows = {seed: {} for seed in seeds}
-    if args.vmap_seeds or args.one_program_cells:
-        _run_seed_batched(args, C, seeds, cells, device, rows)
-    else:
-        for seed in seeds:
-            for cond_name, ds_name, is_conflict, is_noise in cells:
-                out = rows[seed].setdefault(cond_name, {}).setdefault(ds_name, {})
-                run_condition(C=C, seed=seed, dataset_name=ds_name, conflict=is_conflict,
-                              noise=is_noise, quick=args.quick, device=device, rows_out=out,
-                              probe_engine=args.probe_engine, backbone=args.backbone)
+    # a sweep that raises still writes its trace
+    with trace("uq_sweep", enabled=args.profile):
+        if args.vmap_seeds or args.one_program_cells:
+            _run_seed_batched(args, C, seeds, cells, device, rows, rows_file)
+        else:
+            for seed in seeds:
+                for cond_name, ds_name, is_conflict, is_noise in cells:
+                    by_ds = rows[seed].setdefault(cond_name, {})
+                    if rows_file.complete(rows, cond_name, ds_name, [seed]):
+                        print(f"  [{ds_name}/{cond_name}/seed{seed}] already complete "
+                              f"(--rows-file), skipping", flush=True)
+                        continue
+                    by_ds[ds_name] = {}
+                    run_condition(C=C, seed=seed, dataset_name=ds_name, conflict=is_conflict,
+                                  noise=is_noise, quick=args.quick, device=device,
+                                  rows_out=by_ds[ds_name], probe_engine=args.probe_engine,
+                                  backbone=args.backbone, fused_dmvae=not args.no_fused_dmvae,
+                                  intermediate_fusions=args.intermediate_fusion)
+                    rows_file.save(rows)
     if not args.skip_report:
         report = Path(C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
         if args.backbone == "dssl":
@@ -636,12 +771,46 @@ def main(argv=None):
     return rows
 
 
-def _run_seed_batched(args, C, seeds, cells, device, rows):
+class RowsFile:
+    """``--rows-file``: the sweep's rows as JSON at ``path`` (None: off),
+    replaced whole through a ``.tmp`` file after every cell. A cell is
+    complete when each of its seeds has ``n_models`` rows (skip rows
+    count)."""
+
+    def __init__(self, path, seeds, n_models: int):
+        self.path = Path(path) if path else None
+        self.seeds, self.n_models = list(seeds), n_models
+
+    def complete(self, rows, cond_name, ds_name, seeds=None) -> bool:
+        return self.path is not None and all(
+            len(rows.get(s, {}).get(cond_name, {}).get(ds_name, {})) >= self.n_models
+            for s in (self.seeds if seeds is None else seeds))
+
+    def load(self, all_cells) -> dict:
+        """The rows the file holds ({} without one), announcing how many
+        cells of the configured datasets are complete."""
+        if self.path is None or not self.path.exists():
+            return {}
+        rows = {int(s): conds for s, conds in json.loads(self.path.read_text()).items()}
+        done = sum(self.complete(rows, cond, ds) for cond, ds, _, _ in all_cells)
+        print(f"--rows-file: resuming; {done} completed cell(s) found", flush=True)
+        return rows
+
+    def save(self, rows) -> None:
+        if self.path is None:
+            return
+        tmp = self.path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(rows))
+        tmp.replace(self.path)
+
+
+def _run_seed_batched(args, C, seeds, cells, device, rows, rows_file):
     """The cells through ``--vmap-seeds`` or ``--one-program-cells``. A
     one-program cell's artifacts are written on a thread while the next
     cell runs; at most one such thread is outstanding, and it is joined
     before this returns or raises, so a finished cell's files are always
-    complete."""
+    complete. A cell's rows join ``rows``, and the rows file is written,
+    only once its artifacts are."""
     pending = []
 
     def flush():
@@ -651,23 +820,34 @@ def _run_seed_batched(args, C, seeds, cells, device, rows):
             if err:
                 raise err[0]
 
+    def record(cond_name, ds_name, rows_by_seed):
+        for s in seeds:
+            rows[s].setdefault(cond_name, {})[ds_name] = rows_by_seed[s]
+        rows_file.save(rows)
+
     try:
         for cond_name, ds_name, is_conflict, is_noise in cells:
+            if rows_file.complete(rows, cond_name, ds_name):
+                print(f"  [{ds_name}/{cond_name}] already complete (--rows-file), skipping",
+                      flush=True)
+                continue
             rows_by_seed = {s: {} for s in seeds}
-            for s in seeds:
-                rows[s].setdefault(cond_name, {})[ds_name] = rows_by_seed[s]
             kw = dict(C=C, seeds=seeds, dataset_name=ds_name, conflict=is_conflict,
-                      noise=is_noise, quick=args.quick, device=device, rows_by_seed=rows_by_seed)
+                      noise=is_noise, quick=args.quick, device=device, rows_by_seed=rows_by_seed,
+                      fused_dmvae=not args.no_fused_dmvae,
+                      intermediate_fusions=args.intermediate_fusion)
             if not args.one_program_cells:
                 run_condition_vmapped(**kw)
+                record(cond_name, ds_name, rows_by_seed)
                 continue
             finish = run_condition_onejit(**kw, defer_artifacts=True)
             flush()  # the previous cell's artifacts
             err = []
 
-            def work(finish=finish, err=err):
+            def work(finish=finish, err=err, cell=(cond_name, ds_name, rows_by_seed)):
                 try:
                     finish()
+                    record(*cell)
                 except Exception as e:  # re-raised by flush
                     err.append(e)
 

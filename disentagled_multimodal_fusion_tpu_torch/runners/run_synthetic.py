@@ -48,8 +48,9 @@ weights, 1 its fit, 10 + j head j's weights and 100 + j head j's fit, with
 j = 0, 1, 2 for dmvae_cml, cml, avg. Fold seeds lie in [2**31, 2**32), so
 their low 32 bits never meet a sequential slot.
 
-Refused as not ported yet: ``--dtype bfloat16``, ``--no-fused-dmvae`` and
-the mesh flags. ``--force-vmap-seeds`` is accepted and changes nothing.
+``--no-fused-dmvae`` trains the per-modality DMVAE in both engines (same
+checkpoint names). Refused as not ported yet: ``--dtype bfloat16`` and the
+mesh flags. ``--force-vmap-seeds`` is accepted and changes nothing.
 
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_synthetic \
@@ -166,7 +167,7 @@ def _upload(arrays, device):
 
 
 def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_engine: str,
-             quick: bool, device, rows_out: dict):
+             quick: bool, device, rows_out: dict, fused_dmvae: bool = True):
     """Train and evaluate the three models of one (seed, dep) cell into
     ``rows_out``; each row also carries its fit's wall time and the
     backbone's (and, over DSSL, the vMF sampler's host syncs per epoch)."""
@@ -191,7 +192,8 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
     tag = f"[seed {seed} dep {dep}]"
     model, widths, bb_info = fit_backbone(C=C, st=st, backbone=backbone, dims=view_dims,
                                           xs_tr=xs_tr, n_train=n_train, seeds=(slot(0), slot(4)),
-                                          device=device, tag=tag, drop_last=True)
+                                          device=device, tag=tag, drop_last=True,
+                                          fused_dmvae=fused_dmvae)
     save_checkpoint(f"checkpoints/{checkpoint_name('backbone', seed, dep, backbone)}", model,
                     {"seed": seed, "dep": dep, "model": backbone})
     data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_va), xs_tr, xs_va,
@@ -225,7 +227,8 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
           flush=True)
 
 
-def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, device, rows: dict):
+def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, device, rows: dict,
+                    fused_dmvae: bool = True):
     """All seeds of one dep at once (DMVAE backbone): each fit one
     ``train_many`` over the stacked seeds, its results fetched and written
     per seed under the sequential engine's names. Rows carry ``fit_seconds``
@@ -252,7 +255,8 @@ def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, devic
     n_train = xs_tr[0].shape[1]
     view_dims = [int(x.shape[2]) for x in xs_tr]
 
-    backbones = [build_backbone(st, view_dims, fold_seed(s, 0), device) for s in seeds]
+    backbones = [build_backbone(st, view_dims, fold_seed(s, 0), device, fused=fused_dmvae)
+                 for s in seeds]
     loss_fn, opt = dmvae_objective(backbones[0], lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
     t_fit = time.perf_counter()
     res = train_many(model=backbones[0], params=stack_params(backbones), loss_fn=loss_fn,
@@ -347,9 +351,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "PyTorch path)")
+    parser.add_argument("--no-fused-dmvae", action="store_true",
+                        help="train the per-modality DMVAE instead of the fused one")
     # options of the JAX runner that the port does not have yet (ROADMAP.md)
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
-    parser.add_argument("--no-fused-dmvae", action="store_true")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
     add_force_vmap_flag(parser)
@@ -363,8 +368,6 @@ def parse_args(argv=None):
     used = []
     if args.dtype != "float32":
         used.append("--dtype bfloat16")
-    if args.no_fused_dmvae:
-        used.append("--no-fused-dmvae")
     if args.data_parallel > 1 or args.model_parallel > 1:
         used.append("--data-parallel/--model-parallel")
     if used:
@@ -388,13 +391,15 @@ def main(argv=None):
     if args.vmap_seeds:
         for dep in deps:
             run_dep_vmapped(C=C, st=st, seeds=seeds, dep=dep, data_kw=data_kw,
-                            quick=args.quick, device=device, rows=rows)
+                            quick=args.quick, device=device, rows=rows,
+                            fused_dmvae=not args.no_fused_dmvae)
     else:
         for seed in seeds:
             for dep in deps:
                 run_cell(C=C, st=st, seed=seed, dep=dep, data_kw=data_kw,
                          backbone=args.backbone, probe_engine=args.probe_engine,
-                         quick=args.quick, device=device, rows_out=rows[seed].setdefault(dep, {}))
+                         quick=args.quick, device=device, rows_out=rows[seed].setdefault(dep, {}),
+                         fused_dmvae=not args.no_fused_dmvae)
     write_synthetic_report(rows, C("logging.excel_path", "logs/synthetic_dataset.xlsx"))
     print(f"sweep done in {time.time() - t_start:.1f}s")
     return rows

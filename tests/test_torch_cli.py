@@ -10,7 +10,14 @@
 * ``runners/run_synthetic.py`` trains a quick (seed 0, dep 50) cell, prints
   its ``sweep done`` line and leaves its JAX-named checkpoints, and
   ``runners/evaluate.py --dataset synthetic`` reports the fused accuracy it
-  printed for each of its three models.
+  printed for each of its three models;
+* ``runners/run.py --no-fused-dmvae --include-intermediate
+  --intermediate-fusion lrtf mi3`` on CUB writes the six heads' rows,
+  ``intermediate_fusion`` and ``intermediate_lrtf`` with their
+  checkpoints, and mi3's skip row, to its ``--rows-file``; it trains the
+  per-modality DMVAE, and ``runners/evaluate.py --no-fused-dmvae`` restores
+  it and reports the fused accuracy the sweep printed
+  (``run_synthetic.py --no-fused-dmvae``: tests/test_torch_synthetic.py).
 """
 
 import json
@@ -31,11 +38,11 @@ MODELS = ("dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion", "
 ENGINES = {"sequential": ([], (0,)), "one_program": (["--one-program-cells"], (0, 1))}
 
 
-def _run(module, args, root):
+def _run(module, args, root, **env):
     proc = subprocess.run(
         [sys.executable, "-m", f"{PACKAGE}.{module}", *args], cwd=REPO_ROOT,
-        env=dict(os.environ, DMF_ARTIFACT_ROOT=str(root)), capture_output=True, text=True,
-        timeout=300)
+        env=dict(os.environ, DMF_ARTIFACT_ROOT=str(root), **env), capture_output=True,
+        text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout
 
@@ -95,4 +102,47 @@ def test_evaluate_synthetic_reports_the_sweeps_fused_accuracy_when_run_as_a_modu
     info = json.loads(_run("evaluate", ["--model", model, "--dataset", "synthetic", "--seed", "0",
                                         "--dep", "50", "--quick", "--device", "cpu"], root))
     printed = float(re.search(rf"\[seed 0 dep 50\] {label}: fused_acc=([0-9.]+)", out).group(1))
+    assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
+
+
+# one torch thread: the suite runs these beside other test processes
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module")
+def intermediate_sweep(tmp_path_factory):
+    """A quick CUB cell over the per-modality DMVAE with two intermediate
+    fusions and a rows file."""
+    root = tmp_path_factory.mktemp("intermediate")
+    out = _run("run", ["--quick", "--seeds", "0", "--datasets", "CUB", "--conditions", "Normal",
+                       "--device", "cpu", "--skip-report", "--no-fused-dmvae",
+                       "--include-intermediate", "--intermediate-fusion", "lrtf", "mi3",
+                       "--rows-file", str(root / "rows.json")], root, **ONE_THREAD)
+    return root, out
+
+
+def test_intermediate_fusions_leave_rows_skip_rows_and_checkpoints(intermediate_sweep):
+    root, out = intermediate_sweep
+    assert "[CUB] skipping intermediate_mi3: mi3 fuses exactly 3 views, got 2" in out
+    rows = json.loads((root / "rows.json").read_text())["0"]["Normal"]["CUB"]
+    assert sorted(rows) == sorted([*MODELS, "intermediate_fusion", "intermediate_lrtf",
+                                   "intermediate_mi3"])
+    assert rows["intermediate_mi3"] == {"skipped": "mi3 fuses exactly 3 views, got 2"}
+    for model in ("intermediate_fusion", "intermediate_lrtf"):
+        printed = float(re.search(rf"\] {model}: fused_acc=([0-9.]+)", out).group(1))
+        assert abs(rows[model]["fused"]["accuracy"] - printed) <= 5e-5, model
+        assert len(rows[model]["per_view"]) == 1
+        assert (root / "checkpoints" / f"{head_name(model, 'CUB', 0, 'normal')}.pt").is_file()
+    assert not (root / "checkpoints" / f"{head_name('intermediate_mi3', 'CUB', 0, 'normal')}.pt"
+                ).exists()
+
+
+def test_unfused_dmvae_sweep_and_evaluate_when_run_as_modules(intermediate_sweep):
+    root, out = intermediate_sweep
+    assert "dmvae (unfused) fit" in out
+    info = json.loads(_run("evaluate", ["--model", "dmvae_cml", "--dataset", "CUB", "--seed", "0",
+                                        "--device", "cpu", "--no-fused-dmvae"], root,
+                           **ONE_THREAD))
+    printed = float(re.search(r"\[CUB/normal/seed0\] dmvae_cml: fused_acc=([0-9.]+)",
+                              out).group(1))
     assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)

@@ -10,10 +10,11 @@
 * the epoch-kernel program with ``drop_last`` (no tail step, Adam counting
   full steps only) against JAX's kernel program in interpret mode with the
   JAX draws replayed, and against the port's step loop from one generator;
-* ``runners/run_synthetic.py --quick`` over both backbones and with
-  ``--vmap-seeds``: the JAX package's models, report columns (its
-  flattener on the same rows) and artifact names; its refusals; and
-  ``runners/evaluate.py --dataset synthetic`` reproducing the sweep's row.
+* ``runners/run_synthetic.py --quick`` over both backbones, over the
+  unfused DMVAE (``--no-fused-dmvae``) and with ``--vmap-seeds``: the JAX
+  package's models, report columns (its flattener on the same rows) and
+  artifact names; its refusals; and ``runners/evaluate.py --dataset
+  synthetic`` reproducing the sweep's row.
 """
 
 from pathlib import Path
@@ -282,6 +283,7 @@ def test_the_step_loop_takes_full_steps_only_with_drop_last(monkeypatch):
 ENGINES = {
     "dmvae": ["--seeds", "0"],
     "dssl": ["--seeds", "0", "--backbone", "dssl"],
+    "unfused": ["--seeds", "0", "--no-fused-dmvae"],
     "vmap": ["--seeds", "0", "1", "--vmap-seeds"],
 }
 
@@ -327,6 +329,9 @@ def test_the_sweep_has_the_jax_models_columns_and_artifact_names(sweep):
                  f"late_fusion_seed{s}_dep50_aggcml", f"late_fusion_seed{s}_dep50_aggavg"]
         for name in names:
             assert (root / "checkpoints" / f"{name}.pt").is_file(), name
+        state = torch.load(root / "checkpoints" / f"{names[0]}.pt", weights_only=True)
+        if engine in ("dmvae", "unfused", "vmap"):  # the per-modality DMVAE's MLPs, or stacked
+            assert ("encoders.0.layers.0.weight" in state) == (engine == "unfused"), engine
         for name in names[1:]:
             assert (root / "logs" / name / "metrics.csv").is_file(), name
     columns, _ = tanalysis.build_metrics_rows(rows)
@@ -352,7 +357,8 @@ def test_evaluate_reproduces_the_sweeps_row(sweep, model, monkeypatch):
         return
     for s in rows:
         info = tevaluate.main(["--model", model, "--dataset", "synthetic", "--seed", str(s),
-                               "--dep", "50", "--quick", "--device", "cpu"])
+                               "--dep", "50", "--quick", "--device", "cpu",
+                               *(["--no-fused-dmvae"] if engine == "unfused" else [])])
         want = rows[s][50][label]
         for block in ("fused", "shared"):
             if block in want:
@@ -365,7 +371,6 @@ def test_evaluate_reproduces_the_sweeps_row(sweep, model, monkeypatch):
     (["--vmap-seeds", "--probe-engine", "megakernel"], "sequential path only"),
     (["--vmap-seeds", "--backbone", "dssl"], "DMVAE backbone only"),
     (["--dtype", "bfloat16"], "not ported yet"),
-    (["--no-fused-dmvae"], "not ported yet"),
     (["--data-parallel", "2"], "not ported yet"),
 ])
 def test_run_synthetic_refuses(flags, message, capsys):
