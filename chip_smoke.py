@@ -22,15 +22,18 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    and at 5 seeds x V; the epoch at V = 3, B = 128, 62 steps with no tail,
    D = 16 and 32, fused = 0); the epoch also at the CUB cells' shapes
    (S = 5 with a tail of 80, V = 3 and 2, C = 10) and the head at phase
-   21's two Scene seeds in one launch (S x V = 6 and 8, B = 897, C = 15);
+   21's two Scene seeds in one launch (S x V = 6 and 8, B = 897, C = 15)
+   and at LUMA's C = 42 (V = 3 and 4 at B = 840 and 160, phase 22's cut
+   corpus, and at B = 4200 and 800, the full corpus's test and OOD rows);
 4. kernel, plain and library times (CUDA events, profiler device time)
    beside the least time the card could take for the same work, the head
    kernel's device time at every main-path shape (serving buckets,
-   validation, the synthetic sweep, the Scene seeds; plain and library
-   times too at the synthetic, CUB and Scene shapes); the profiler window of the probe epoch
-   must hold exactly its four kernels, S launches each per epoch (S = 16 on
-   HandWritten, 62 on the synthetic sweep), and nothing else but the
-   wrapper's PyTorch operations;
+   validation, the synthetic sweep, the Scene seeds, LUMA; plain and
+   library times too at the synthetic, CUB and Scene shapes and at LUMA's
+   (4, 4200) and (3, 840)); the profiler window of the probe epoch must
+   hold exactly its four kernels, S launches each per epoch (S = 16 on
+   HandWritten, 62 on the synthetic sweep, 5 on CUB with its tail of 80),
+   and nothing else but the wrapper's PyTorch operations;
 5. the serving path, ``runners/serve.py`` main with ``--random-init`` on
    HandWritten at full width for dmvae_cml, dmvae_dis and cml_fusion at
    buckets 1, 8, 64, 256, with the kernels' launch counts read around it;
@@ -123,7 +126,24 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     Normal --quick --intermediate-fusion mi3 tensor lrtf --profile``: both
     seeds' nine rows with finite metrics, the head kernel once per
     validation epoch and evaluation of the six stacked-head fits, and a
-    trace file that names the head kernel.
+    trace file that names the head kernel;
+22. LUMA: ``make_fake_luma`` writes a corpus of 42 + 8 OOD classes with
+    100 train and 20 test rows each (seed 0; the real corpus's classes and
+    widths, cut in rows), and ``runners/run_luma.py --seeds 0 --ood-eval
+    --include-intermediate --rows-file ...`` runs on it at the config's
+    full width and depth (3 DMVAE and 2 head epochs, batch 64): seven
+    fitted rows with finite metrics, dbf, cml and avg late fusion at fused
+    accuracy >= 0.07 (three times chance), an OOD AUROC row per model in
+    [0, 1], the head kernel launched exactly 30 times (per stacked-head fit
+    once per validation epoch, once for its evaluation, once for the ID
+    and once for the OOD evidences: 16 at (3, 840), 8 at (4, 840), 4 at
+    (3, 160), 2 at (4, 160), D = 200, H = 128, C = 42) and the epoch kernel
+    never; each fit's wall and ms/epoch and the featurization time; the
+    same command again resumes, trains nothing and launches nothing;
+    ``runners/evaluate.py --dataset LUMA`` gives the run's fused accuracy
+    for dmvae_cml and cml_fusion from the checkpoints (the BatchNorm
+    statistics restored); and one cml_fusion epoch on 640 rows on the card
+    against the CPU from the same weights and draws (``phase_luma_card_vs_cpu``).
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -143,6 +163,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import re
 import subprocess
@@ -267,14 +288,26 @@ SYNTHETIC_QUICK_SHAPES = [(len(SEEDS) * v, 200, d, 128, 3) for v, d in ((3, 16),
 # launch (S x V = 6 and 8 heads, late fusion at Scene's widest view, 59)
 CUB_SHAPES = [(2, 120, 200, 128, 10), (3, 120, 200, 128, 10), (2, 120, 1024, 128, 10)]
 SCENE_STACKED_SHAPES = [(2 * v, 897, d, 128, 15) for v, d in ((3, 200), (4, 200), (3, 59))]
+# LUMA at C = 42 (phase 22): the stacked-head fits' validation, evaluation and
+# OOD evidences, V = 3 (dmvae_dis, the late fusions on the encoders' 200-wide
+# outputs) and V = 4 (the shared + private probes), on phase 22's cut corpus
+# (840 test and 160 OOD rows) and on the full corpus (4200 and 800)
+LUMA_SHAPES = [(v, b, 200, 128, 42) for b in (840, 160) for v in (3, 4)]
+LUMA_FULL_SHAPES = [(v, b, 200, 128, 42) for b in (4200, 800) for v in (3, 4)]
 MAIN_PATH_SHAPES = (SERVING_SHAPES + VALIDATION_SHAPES + STACKED_SHAPES + SYNTHETIC_SHAPES
-                    + SYNTHETIC_STACKED_SHAPES + SCENE_STACKED_SHAPES)
+                    + SYNTHETIC_STACKED_SHAPES + SCENE_STACKED_SHAPES + LUMA_SHAPES
+                    + LUMA_FULL_SHAPES)
 # times at these besides the device time: plain and library
-TIMED_SHAPES = SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + CUB_SHAPES + SCENE_STACKED_SHAPES
+TIMED_SHAPES = (SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + CUB_SHAPES + SCENE_STACKED_SHAPES
+                + [(4, 4200, 200, 128, 42), (3, 840, 200, 128, 42)])
 # (S, V, B, D, H, C) of the probe epoch: dmvae_cml on HandWritten (16 steps
 # of 100 rows), then on the synthetic sweep (62 steps of 128 rows, the tail
 # dropped; D=16 over DMVAE, 32 over DSSL)
 EPOCH_SHAPES = [(16, 7, 100, 200, 128, 10), (62, 3, 128, 16, 128, 3), (62, 3, 128, 32, 128, 3)]
+# (S, V, B, D, H, C, tail) of the CUB cells' probe epochs (phases 19-20):
+# 480 rows in four steps of 100 and a tail of 80, V = 3 (dmvae_cml,
+# dmvae_joint) and 2 (dmvae_dis), C = 10
+CUB_EPOCH_SHAPES = [(5, 3, 100, 200, 128, 10, 80), (5, 2, 100, 200, 128, 10, 80)]
 
 
 def shape_key(v, b, d, h, c):
@@ -290,7 +323,7 @@ def phase_kernel_checks(ck):
     # the validation shapes, a wider head (two H tiles per block of a cluster)
     shapes += VALIDATION_SHAPES + STACKED_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
     shapes += SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + SYNTHETIC_QUICK_SHAPES
-    shapes += SCENE_STACKED_SHAPES
+    shapes += SCENE_STACKED_SHAPES + LUMA_SHAPES + LUMA_FULL_SHAPES
     worst = 0.0
     for i, (v, b, d, h, c) in enumerate(shapes):
         args = head_inputs(v, b, d, h, c, seed=i)
@@ -560,15 +593,17 @@ def phase_probe_epoch_checks(pm):
     return worst
 
 
-def probe_epoch_bound(s, v, b, d, h, c, keep):
+def probe_epoch_bound(s, v, b, d, h, c, keep, tail=None):
     """(ms, 'operations' | 'bytes') of one epoch: the f32 products of each
     step (forward, dh, dW1, dW2) and ~12 operations per state element of
     AdamW, against the bytes of the inputs read once and the state (p, m, v)
-    read once and written once."""
+    read once and written once. With a ragged ``tail`` the last step's
+    products count only its rows."""
+    rows = s * b if tail is None else (s - 1) * b + tail
     state = v * (d * h + h + h * c + c)
-    flops = s * (2.0 * v * b * (2 * d * h + 3 * h * c) + 12.0 * state)
-    per_step = v * b * d + (v * b * h if keep < 1.0 else 0) + b * c + b
-    nbytes = 4.0 * (s * per_step + 2 * 3 * state + s * 2 + 3 + s)
+    flops = 2.0 * v * rows * (2 * d * h + 3 * h * c) + s * 12.0 * state
+    per_row = v * d + (v * h if keep < 1.0 else 0) + c + 1
+    nbytes = 4.0 * (rows * per_row + 2 * 3 * state + s * 2 + 3 + s)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -583,18 +618,21 @@ def phase_probe_epoch_times(pm, card):
         fused = 1.0 if i == 0 else 0.0
         row = probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused)
         rows[f"S={s},V={v},B={b},D={d},H={h},C={c}"] = row
+    for s, v, b, d, h, c, tail in CUB_EPOCH_SHAPES:
+        row = probe_epoch_times_at(pm, card, s, v, b, d, h, c, 1.0, tail)
+        rows[f"S={s},V={v},B={b},tail={tail},D={d},H={h},C={c}"] = row
     return rows[next(iter(rows))], rows
 
 
-def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused):
+def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused, tail=None):
     from torch.profiler import ProfilerActivity, profile
 
-    inp = epoch_inputs(s, v, b, d, h, c, seed=3, fused=fused)
+    inp = epoch_inputs(s, v, b, d, h, c, seed=3, fused=fused, tail=tail)
     state = [tuple(t.clone() for t in g) for g in inp["state"]]
     args = (*inp["tensors"], *inp["scalars"], *state)
     ms = event_ms(lambda *a: pm.run_epoch_kernel(*a, **inp["kw"]), args, iters=50, warmup=5)
     plain_ms = event_ms(lambda *a: pm.run_epoch_plain(*a, **inp["kw"]), args, iters=5, warmup=1)
-    bound_ms, bound_by = probe_epoch_bound(s, v, b, d, h, c, 0.9)
+    bound_ms, bound_by = probe_epoch_bound(s, v, b, d, h, c, 0.9, tail)
     n, steps = 20, s
     names = ("forward_kernel", "loss_kernel", "dh_kernel", "grad_adam_kernel")
     # The profiler has been seen to drop the first epochs' records of a
@@ -619,7 +657,8 @@ def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused):
         raise AssertionError(f"probe_epoch launched {launches} per epoch, expected each of "
                              f"{names} {steps} times ({4 * steps} in all)")
     device_ms = sum(t * k for t, k in kernels.values())
-    label = f"V={v} B={b} D={d} H={h} C={c} S={s} fused={fused:g}"
+    label = (f"V={v} B={b}{'' if tail is None else f' (tail {tail})'} D={d} H={h} C={c} S={s} "
+             f"fused={fused:g}")
     log(f"time probe_epoch {label}: kernel {ms:.5f} ms/epoch, "
         f"plain {plain_ms:.5f} ms/epoch, bound {bound_ms:.6f} ms ({bound_by}); no single "
         f"PyTorch call computes an epoch, so there is no library time [{card}]")
@@ -1632,6 +1671,238 @@ def phase_seed_batched_profile(ck, card):
     return heads, dict(shapes)
 
 
+# phase 22: the LUMA corpus, cut in rows (not width, not classes) to fit the
+# script's time: 42 + 8 OOD classes of 100 train and 20 test rows
+LUMA_CORPUS = dict(n_classes=42, train_per_class=100, test_per_class=20, ood_classes=8, seed=0)
+LUMA_LATE_FLOOR = 0.07  # three times chance (1/42)
+# the JAX package's fused accuracies on this corpus on the CPU, hash seed 0
+# (PERF.md section 6, PR 10); the card's text features hash with another seed
+JAX_LUMA_ACCURACY = {"dmvae_dis": 0.0238, "dmvae_cml": 0.0238, "dmvae_joint": 0.0238,
+                     "dbf_fusion": 0.2190, "cml_fusion": 0.1893, "avg_fusion": 0.2143,
+                     "intermediate_fusion": 0.0476}
+
+
+class _Tee:
+    """Writes to the real standard output and keeps a copy."""
+
+    def __init__(self):
+        self.out, self.parts = sys.stdout, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _luma_head_shapes(epochs, test_rows, ood_rows):
+    """The head kernel's launches of the LUMA protocol with --ood-eval: per
+    stacked-head fit one per validation epoch, one for its evaluation and
+    one for the ID evidences on the test rows, and one for the OOD rows."""
+    per_fit = epochs + 2
+    return {shape_key(3, test_rows, 200, 128, 42): 4 * per_fit,  # dmvae_dis, the late fusions
+            shape_key(4, test_rows, 200, 128, 42): 2 * per_fit,  # dmvae_cml, dmvae_joint
+            shape_key(3, ood_rows, 200, 128, 42): 4,
+            shape_key(4, ood_rows, 200, 128, 42): 2}
+
+
+class _Recorder:
+    """A fit's randomness on the CPU whose draws are kept for a replay."""
+
+    def __init__(self, randomness):
+        self.randomness, self.draws = randomness, []
+
+    def __getattr__(self, name):
+        def draw(*args):
+            out = getattr(self.randomness, name)(*args)
+            self.draws.append(out)
+            return out
+        return draw
+
+
+class _Replay:
+    """The recorded draws, in order, on ``device``."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = list(draws), device
+
+    def __getattr__(self, name):
+        return lambda *args: self.draws.pop(0).to(self.device)
+
+
+def phase_luma_card_vs_cpu(card, corpus, device="cuda"):
+    """One cml_fusion fit of one epoch over the LUMA encoders on the card
+    and on the CPU, on the cut corpus's first 640 train rows, from the same
+    weights and draws: losses at rtol 1e-4 / atol 1e-5; parameters and
+    running statistics at rtol 5e-3 / atol 5e-5, except the convolutions'
+    biases, whose true gradient is 0 under the BatchNorm after them (Adam
+    turns their rounding-noise gradients into steps of up to lr of either
+    sign: held within 2 lr per step), and the running means, which carry
+    (1 - momentum) of those biases' drift each step (held within that much
+    more). An entry whose gradient is at rounding level gets Adam steps of
+    up to lr of either sign on either side too: at most one entry in 1000
+    of a tensor may lie beyond rtol 5e-3 / atol 5e-5, and none beyond one
+    lr (PERF.md has the measured gap)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+    from disentagled_multimodal_fusion_tpu_torch.data.luma import get_luma_arrays
+    from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config("luma_config.yaml"))
+    audio, text, image = run_luma.feature_configs(C)
+    specs = run_luma.encoder_specs(audio, text)
+    xs_tr, y_tr, xs_te, y_te, classes, _, _ = get_luma_arrays(corpus, audio, text, image)
+    n, n_val, batch = min(640, len(y_tr)), min(200, len(y_te)), C("dataloader.batch_size")
+    results, recorder = {}, _Recorder(Randomness(8, "cpu"))
+    for device in ("cpu", device):
+        task = run_luma.head_builders(C, classes, 1, specs, device)["cml_fusion"](6)
+        data = {"xs": run_luma.to_device([x[:n] for x in xs_tr], device),
+                "y": torch.from_numpy(y_tr[:n]).to(device)}
+        val = {"xs": run_luma.to_device([x[:n_val] for x in xs_te], device),
+               "y": torch.from_numpy(y_te[:n_val]).to(device)}
+        t0 = time.perf_counter()
+        res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=n,
+                    optimizer=task.optimizer, epochs=1, batch_size=batch,
+                    randomness=recorder if device == "cpu" else _Replay(recorder.draws, device),
+                    val_fn=task.val_fn, val_data=val)
+        results[device] = (res, {k: v.detach().cpu() for k, v in task.model.state_dict().items()},
+                           time.perf_counter() - t0)
+    (ref, ref_state, cpu_s), (got, got_state, card_s) = results["cpu"], results[device]
+    for key in ("train_loss", "val_loss"):
+        assert_close(torch.as_tensor(getattr(got, key)), torch.as_tensor(getattr(ref, key)),
+                     f"luma card vs CPU {key}")
+    steps, lr = -(-n // batch), C("optim.luma_lr")
+    gaps, beyond = {}, {}
+    for key, want in ref_state.items():
+        have = got_state[key]
+        if ".conv." in key and key.endswith(".bias"):
+            gaps[key] = assert_close(have, want, f"luma card vs CPU {key}", rtol=0.0,
+                                     atol=2 * lr * steps)[0]
+            continue
+        atol = 5e-5 + (0.01 * lr * steps * (steps + 1) if key.endswith(".mean") else 0.0)
+        err = (have - want).abs()
+        bad = int((err > atol + 5e-3 * want.abs()).sum())
+        if bad:
+            beyond[key] = bad
+        if bad > want.numel() // 1000:
+            raise AssertionError(f"luma card vs CPU {key}: {bad} of {want.numel()} entries beyond "
+                                 f"rtol 5e-3 / atol {atol:.2e}, max abs err {float(err.max()):.3e}")
+        gaps[key] = assert_close(have, want, f"luma card vs CPU {key}", rtol=5e-3,
+                                 atol=max(atol, lr))[0]
+    worst = sorted(gaps.items(), key=lambda kv: kv[1])[-3:]
+    log(f"luma card vs CPU: cml_fusion 1 epoch on {n} rows: train loss {float(got.train_loss[0]):.6f}"
+        f" (CPU {float(ref.train_loss[0]):.6f}), val loss {float(got.val_loss[0]):.6f} (CPU "
+        f"{float(ref.val_loss[0]):.6f}), val acc {float(got.val_acc[0]):.4f} (CPU "
+        f"{float(ref.val_acc[0]):.4f}); largest state gaps {worst}; entries beyond rtol 5e-3 / "
+        f"atol 5e-5 {beyond}; fit {card_s:.2f} s on the "
+        f"card, {cpu_s:.2f} s on the CPU [{card}]")
+
+
+def phase_luma(ck, pm, card):
+    """The LUMA protocol, runners/run_luma.py main, seed 0, --ood-eval
+    --include-intermediate --rows-file, at the config's full width and depth
+    on a corpus cut in rows; its resume; runners/evaluate.py on its
+    checkpoints; and the card against the CPU. Returns the head kernel's
+    launches and launches by shape."""
+    from disentagled_multimodal_fusion_tpu_torch.data.luma import make_fake_luma
+    from disentagled_multimodal_fusion_tpu_torch.runners import evaluate, run_luma
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config("luma_config.yaml"))
+    probe_epochs, dmvae_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
+    test_rows = LUMA_CORPUS["n_classes"] * LUMA_CORPUS["test_per_class"]
+    ood_rows = LUMA_CORPUS["ood_classes"] * LUMA_CORPUS["test_per_class"]
+    t_phase = time.perf_counter()
+    with artifact_root("luma_") as root:
+        t0 = time.perf_counter()
+        corpus = make_fake_luma(str(Path(root) / "corpus"), **LUMA_CORPUS)
+        log(f"luma: corpus of {LUMA_CORPUS} written in {time.perf_counter() - t0:.1f} s")
+        argv = ["--data-path", corpus, "--seeds", "0", "--ood-eval", "--include-intermediate",
+                "--rows-file", str(Path(root) / "rows.json")]
+        tee = _Tee()
+        with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
+            pm.run_epoch_kernel.launches = 0
+            ck.evidential_heads_stacked.launches = 0
+            t0 = time.perf_counter()
+            rows = run_luma.main(argv)
+            wall = time.perf_counter() - t0
+            epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+        text = tee.text()
+        feat_s = float(re.search(r"featurized in ([0-9.]+) s", text).group(1))
+        dmvae_s = float(re.search(r"DMVAE trained: ([0-9.]+) s", text).group(1))
+        models = rows[0]["Normal"]["LUMA"]
+        want = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion",
+                "avg_fusion", "intermediate_fusion"]
+        if sorted(models) != sorted(want):
+            raise AssertionError(f"luma: rows {sorted(models)}")
+        log(f"luma: featurization {feat_s:.2f} s, DMVAE fit {dmvae_s:.2f} s "
+            f"({1e3 * dmvae_s / dmvae_epochs:.3f} ms/epoch) [{card}]")
+        for name in want:
+            info = models[name]
+            _finite_row(name, info)
+            ood = info["ood"]
+            if sorted(ood) != ["auroc_aleatoric", "auroc_epistemic", "auroc_neg_evidence"] or \
+                    not all(0.0 <= v <= 1.0 for v in ood.values()):
+                raise AssertionError(f"luma {name}: OOD AUROCs {ood}")
+            acc = info["fused"]["accuracy"]
+            jax_acc = (f" (the JAX package on the CPU: {JAX_LUMA_ACCURACY[name]:.4f})"
+                       if name in JAX_LUMA_ACCURACY else "")
+            log(f"luma {name}: fused accuracy {acc:.4f}{jax_acc}, fit {info['fit_seconds']:.2f} s,"
+                f" {1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch, OOD AUROC "
+                + ", ".join(f"{k[6:]} {v:.4f}" for k, v in ood.items()) + f" [{card}]")
+            if name.endswith("_fusion") and name != "intermediate_fusion" \
+                    and not acc >= LUMA_LATE_FLOOR:
+                raise AssertionError(f"luma {name} fused accuracy {acc:.4f} < {LUMA_LATE_FLOOR}")
+        if epochs:
+            raise AssertionError(f"luma: probe_epoch launched {epochs} times, expected 0")
+        expected = _luma_head_shapes(probe_epochs, test_rows, ood_rows)
+        if dict(shapes) != expected or heads != sum(expected.values()):
+            raise AssertionError(f"luma: evidential_head launched {heads} times, by shape "
+                                 f"{dict(shapes)}, expected {expected}")
+        log(f"luma: protocol in {wall:.1f} s; probe_epoch launched 0 times, evidential_head "
+            f"{heads} times (by shape {dict(shapes)}) [{card}]")
+
+        # the same command again: every seed is in the rows file
+        calls, real = [], run_luma.run_seed
+        run_luma.run_seed = lambda **kw: calls.append(kw) or real(**kw)
+        tee = _Tee()
+        try:
+            with contextlib.redirect_stdout(tee):
+                pm.run_epoch_kernel.launches = 0
+                ck.evidential_heads_stacked.launches = 0
+                t0 = time.perf_counter()
+                again = run_luma.main(argv)
+                resume_s = time.perf_counter() - t0
+                launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
+        finally:
+            run_luma.run_seed = real
+        if "--rows-file: resuming; 1 completed seed(s) found [0]" not in tee.text():
+            raise AssertionError("luma resume: no resume line")
+        if calls or launched:
+            raise AssertionError(f"luma resume trained: {len(calls)} seeds, {launched} launches")
+        if json.dumps(again[0], sort_keys=True) != json.dumps(rows[0], sort_keys=True):
+            raise AssertionError("luma resume: the rows differ")
+        log(f"luma: resumed in {resume_s:.1f} s with nothing trained")
+
+        for name in ("dmvae_cml", "cml_fusion"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                info = evaluate.main(["--model", name, "--dataset", "LUMA", "--seed", "0",
+                                      "--data-path", corpus])
+            got, want_acc = info["fused"]["accuracy"], models[name]["fused"]["accuracy"]
+            if got != want_acc:
+                raise AssertionError(f"luma evaluate.py {name}: fused accuracy {got}, the run "
+                                     f"{want_acc}")
+            log(f"luma: evaluate.py {name} from its checkpoints: fused accuracy {got:.4f}, as "
+                f"the run reported [{card}]")
+        phase_luma_card_vs_cpu(card, corpus)
+    log(f"luma: phase 22 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return heads, dict(shapes)
+
+
 def head_times_only(card):
     """``--head-times``: build the head kernel of whichever package is first
     on the path and print its device and event times at every main-path
@@ -1798,6 +2069,7 @@ def main() -> int:
     uf_epochs, uf_heads, uf_shapes, _ = phase_unfused_dmvae(ck, pm, card, fused_bb_ms)
     prof_heads, prof_shapes = phase_seed_batched_profile(ck, card)
     cub_shapes = dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))
+    luma_heads, luma_shapes = phase_luma(ck, pm, card)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -1806,18 +2078,19 @@ def main() -> int:
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
-                     + im_heads + uf_heads + prof_heads),
+                     + im_heads + uf_heads + prof_heads + luma_heads),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
-                             "scene_profile": prof_heads},
+                             "scene_profile": prof_heads, "luma": luma_heads},
         "max_abs_err": max_abs_err,
         **timing,
         "device_ms_by_shape": device_by_shape,
         "times_by_shape": head_times_by_shape,
         "launches_by_shape": {"serving": serve_shapes, "training": train_shapes,
                               "seed_batched": sb_shapes, "synthetic": syn_shapes,
-                              "cub": cub_shapes, "scene_profile": prof_shapes},
+                              "cub": cub_shapes, "scene_profile": prof_shapes,
+                              "luma": luma_shapes},
     }, {
         "name": "probe_epoch",
         "route": "cuda",
@@ -1825,7 +2098,8 @@ def main() -> int:
         "replaces": "disentagled_multimodal_fusion_tpu/ops/probe_megakernel.py:246",
         "launches": epoch_launches + syn_epoch_launches + im_epochs + uf_epochs,
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
-                             "cub_intermediate": im_epochs, "cub_unfused": uf_epochs},
+                             "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
+                             "luma": 0},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

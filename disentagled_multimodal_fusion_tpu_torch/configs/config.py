@@ -3,7 +3,9 @@
 ``CONFIG`` is the sections of ``disentagled_multimodal_fusion_tpu/configs/config.yaml``
 that the port reads (``tests/test_torch_serve.py`` holds it equal to the
 YAML). ``SYNTHETIC_CONFIG`` is the whole of ``configs/synthetic_config.yaml``,
-the synthetic dependence sweep's (``tests/test_torch_synthetic.py``). The
+the synthetic dependence sweep's (``tests/test_torch_synthetic.py``), and
+``LUMA_CONFIG`` the whole of ``configs/luma_config.yaml``, the LUMA
+protocol's (``tests/test_torch_luma.py``). The
 DisentangledSSL backbone's ``dssl.*`` keys have no section in either YAML,
 so the code defaults apply (hidden 512, a 1.0, vmf, kappa 1.0, lr 1e-3).
 """
@@ -114,5 +116,33 @@ SYNTHETIC_CONFIG = {
     },
     "logging": {
         "excel_path": "logs/synthetic_dataset.xlsx",
+    },
+}
+
+
+LUMA_CONFIG = {
+    "experiment": {"seeds": [0, 1, 2, 3, 4]},
+    "data": {
+        "luma_path": "data/luma_compiled",
+        "audio": {"sample_rate": 16000, "max_length": 3.0, "n_mfcc": 40, "use_mfcc": True},
+        "text": {"max_length": 128, "model_name": "bert-base-uncased", "use_pretrained": True},
+        "image": {"size": [32, 32], "normalize": True},
+    },
+    "dataloader": {"batch_size": 64, "num_workers": 4},
+    "optim": {"luma_lr": 0.0003},
+    "dmvae": {
+        "dropout": 0,
+        "a": 1.0e-5,
+        "hidden_dim": 512,
+        "embed_dim": 200,
+        "lr": 0.0001,
+        "num_epochs": 3,  # the reference's debug override (run_luma.py:175)
+    },
+    "probes": {
+        "dropout_p": 0.1,
+        "annealing_start": 50,
+        "model_epochs": 2,  # the reference's debug override (run_luma.py:162)
+        "model_hidden_dim": [128],
+        "input_dim": 200,
     },
 }

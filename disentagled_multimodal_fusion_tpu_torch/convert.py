@@ -31,6 +31,23 @@ flax path                                                           port state-d
 ``head/MLP_0/TorchLinear_0/Dense_0/kernel``                         ``head.mlp.layers.0.weight``
 ==================================================================  =========================================
 
+The LUMA feature encoders (a model's ``feature_encoders_i``) and their
+BatchNorm statistics, the ``batch_stats`` collection (the JAX package's
+``..._state`` checkpoint beside the parameters):
+
+==============================================================  ==================================
+flax path                                                       port state-dict key
+==============================================================  ==================================
+``feature_encoders_2/Conv_1/kernel`` (kh, kw, in, out)          ``feat_encs.2.blocks.conv.1.weight``
+``feature_encoders_2/BatchNorm_0/scale``                        ``feat_encs.2.blocks.bn.0.weight``
+``feature_encoders_2/BatchNorm_0/mean`` (``batch_stats``)       ``feat_encs.2.blocks.bn.0.mean``
+``feature_encoders_0/TorchLinear_1/Dense_0/kernel``             ``feat_encs.0.layers.1.weight``
+==============================================================  ==================================
+
+A convolution kernel (kh, kw, in, out) becomes ``weight`` (out, in, kh,
+kw). ``ImageEncoder`` flattens its last map in flax's NHWC order itself,
+so its 2048 -> 512 kernel carries over as any Dense kernel does.
+
 A Dense ``kernel`` (in, out) becomes ``weight`` (out, in). An attention
 kernel is flattened first: query/key/value (d, heads, head_dim) to
 (d, heads * head_dim), out (heads, head_dim, d) to (heads * head_dim, d);
@@ -41,7 +58,7 @@ their biases (heads, head_dim) to one axis. A LayerNorm ``scale`` becomes
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -57,6 +74,9 @@ _SEGMENTS = (
      lambda m: ({"Dense": "dense", "LayerNorm": "norm", "MultiplicativeInteractions2Modal": "mi",
                  "_TransformerEncoderLayer": "layers"}[m.group(1)], m.group(2))),
     (re.compile(r"^MultiHeadDotProductAttention_0$"), lambda m: ("attn",)),
+    (re.compile(r"^feature_encoders_(\d+)$"), lambda m: ("feat_encs", m.group(1))),
+    (re.compile(r"^(Conv|BatchNorm)_(\d+)$"),
+     lambda m: ("blocks", {"Conv": "conv", "BatchNorm": "bn"}[m.group(1)], m.group(2))),
     (re.compile(r"^LateFusionTransformer_0$"), lambda m: ("transformer",)),
     (re.compile(r"^(kernel|scale)$"), lambda m: ("weight",)),
 )
@@ -86,9 +106,13 @@ def _port_key(path) -> str:
     return ".".join(parts)
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state dict for a flax ``params`` tree."""
+def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The port's state dict for a flax ``params`` tree and, for a model
+    with BatchNorm, its ``batch_stats`` tree."""
     state = {}
+    for path, value in _flatten(batch_stats or {}):
+        state[_port_key(path)] = torch.from_numpy(np.array(value, dtype=np.float32))
     for path, value in _flatten(params):
         t = torch.from_numpy(np.array(value, dtype=np.float32))
         if len(path) > 1 and path[-2] in _ATTENTION and t.dim() > 1:
@@ -98,14 +122,18 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 t = t.reshape(-1, t.shape[-1])
             else:                       # (d, heads, head_dim)
                 t = t.reshape(t.shape[0], -1)
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and t.dim() == 4:  # (kh, kw, in, out) convolution
+            t = t.permute(3, 2, 0, 1).contiguous()
+        elif path[-1] == "kernel":
             t = t.t().contiguous()
         state[_port_key(path)] = t
     return state
 
 
-def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load a flax ``params`` tree into ``module`` in place; every parameter
-    must be matched (``strict``). Returns ``module``."""
-    module.load_state_dict(flax_to_state_dict(params), strict=True)
+def load_flax_params(module: nn.Module, params: Mapping,
+                     batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Load a flax ``params`` tree (and its ``batch_stats``) into ``module``
+    in place; every parameter and buffer must be matched (``strict``).
+    Returns ``module``."""
+    module.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return module

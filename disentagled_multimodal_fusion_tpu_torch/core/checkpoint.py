@@ -5,8 +5,12 @@ Counterpart of ``disentagled_multimodal_fusion_tpu/core/checkpoint.py``
 to ``<path>.pt``, with ``<path>.hparams.json`` beside it, and
 :func:`restore_checkpoint`, which loads it back strictly. Saves are
 synchronous, so the JAX package's ``wait_for_checkpoints`` has no
-counterpart. The JAX package's Orbax checkpoints are not read here: carry
-their parameter trees over with ``convert.py``.
+counterpart. The state dict holds the module's persistent buffers too: a
+LUMA model's checkpoint carries its encoders' BatchNorm running
+statistics (the JAX package's ``..._state`` checkpoint beside the
+parameters), so a restore reproduces its evaluation. The JAX package's
+Orbax checkpoints are not read here: carry their parameter trees (and
+``batch_stats``) over with ``convert.py``.
 """
 
 from __future__ import annotations

@@ -26,6 +26,18 @@ JAX package). :func:`embed_many` and :func:`evidences_many` are the
 frozen-backbone and eval forwards over stacked seeds. The DisentangledSSL objective draws a whole epoch at once
 (its vMF rejection sampler syncs with the host once per block, not per
 step) and takes the global step for its lambda schedule.
+
+``feature_encoders`` (the DMVAE, late-fusion and intermediate-fusion
+builders; JAX lines 127-177, 411-566) are specs for
+``models.layers.build_encoders``, LUMA's Audio, Text and Image encoders:
+their widths come from the specs, so no sample of the views is needed to
+build them. Their keep-masks are drawn before the model's own, in the
+order the forward calls the encoders (audio, text, image; each layer in
+turn), as flax draws them. Their BatchNorm statistics are the model's
+state, kept in its buffers: each training step's forward uses the batch's
+statistics and moves the running ones, and validation, evaluation and
+:func:`embed_dataset_chunked` run in eval mode on the running ones. A
+checkpoint of the module carries them.
 """
 
 from __future__ import annotations
@@ -82,10 +94,51 @@ def _drop_masks(randomness, keep: float, rows: int, views: int, hidden: Sequence
     return [randomness.bernoulli(keep, (rows, views, h)) for h in hidden]
 
 
+def _encoder_masks(randomness, model, rows: int) -> list:
+    """The model's feature encoders' keep-masks, flat, in the order its
+    forward calls them ([] without encoders)."""
+    encoders = getattr(model, "feat_encs", None)
+    if encoders is None:
+        return []
+    return [randomness.bernoulli(enc.keep, shape)
+            for enc, shapes in zip(encoders, model.enc_drop_shapes(rows)) for shape in shapes]
+
+
+def _split_encoder_masks(model, flat):
+    """(one list per encoder, the rest) of a flat draw that starts with
+    :func:`_encoder_masks`."""
+    out, i = [], 0
+    for shapes in model.enc_drop_shapes(1):
+        out.append(list(flat[i:i + len(shapes)]))
+        i += len(shapes)
+    return out, list(flat[i:])
+
+
+def _with_encoders(model, draw, loss_from_draws):
+    """An :class:`Objective` whose draws start with the model's encoder
+    masks when it has encoders. ``draw(randomness, rows)`` makes the
+    model's own masks (a list or None); ``loss_from_draws(batch, mask,
+    epoch, masks, enc_masks)`` gets them back, with the encoders' masks
+    (None without encoders). Without encoders the draws are ``draw``'s
+    alone, as before."""
+    if getattr(model, "feat_encs", None) is None:
+        return Objective(draw, lambda b, m, e, masks: loss_from_draws(b, m, e, masks, None))
+
+    def draw_all(randomness, rows):
+        enc = _encoder_masks(randomness, model, rows)
+        return enc + (draw(randomness, rows) or [])
+
+    def loss_all(batch, mask, epoch, flat):
+        enc, own = _split_encoder_masks(model, flat)
+        return loss_from_draws(batch, mask, epoch, own or None, enc)
+
+    return Objective(draw_all, loss_all)
+
+
 def _evidential_closures(model, forward, views: int, hidden, aggregation: str,
                          annealing_start: float, fused: float):
     """(loss_fn, val_fn) of a stacked evidential model; ``forward(data,
-    drop_masks)`` returns (B, V, C) evidence."""
+    drop_masks[, enc_masks])`` returns (B, V, C) evidence."""
     agg = AGGREGATIONS[aggregation]
 
     def loss(ev, y, epoch, mask):
@@ -95,14 +148,15 @@ def _evidential_closures(model, forward, views: int, hidden, aggregation: str,
     def draw(randomness, rows):
         return _drop_masks(randomness, model.keep, rows, views, hidden)
 
-    def loss_from_draws(batch, mask, epoch, masks):
-        return loss(forward(batch, masks), batch["y"], epoch, mask), {}
+    def loss_from_draws(batch, mask, epoch, masks, enc_masks):
+        ev = forward(batch, masks) if enc_masks is None else forward(batch, masks, enc_masks)
+        return loss(ev, batch["y"], epoch, mask), {}
 
     def val_fn(data, epoch):
         ev = forward(data, None)
         return loss(ev, data["y"], epoch, None), _acc(agg(ev), data["y"])
 
-    return Objective(draw, loss_from_draws), val_fn
+    return _with_encoders(model, draw, loss_from_draws), val_fn
 
 
 # ------------------------------------------------------------------ DMVAE
@@ -117,30 +171,36 @@ def build_dmvae_task(
     dropout: float = 0.0,
     lambda_per_modality: Optional[Sequence[float]] = None,
     fused_modalities: bool = False,
+    feature_encoders=None,
     device=None,
 ) -> nn.Module:
     """The DMVAE backbone, FusedDMVAE when ``fused_modalities`` and the
-    per-modality DMVAE otherwise. Train it with :func:`dmvae_objective`."""
+    per-modality DMVAE otherwise, over ``feature_encoders`` when given
+    (``output_dim`` are then their output widths). Train it with
+    :func:`dmvae_objective`."""
     cls = FusedDMVAE if fused_modalities else DMVAE
     return _build(cls, seed, device, x_dims=tuple(output_dim), hidden_dim=hidden_dim,
                   embed_dim=embed_dim, poe_temperature=poe_temperature, a=a, dropout=dropout,
-                  lambda_per_modality=lambda_per_modality)
+                  lambda_per_modality=lambda_per_modality, feature_encoders=feature_encoders)
 
 
 def dmvae_objective(model, *, lr: float = 1e-4, num_epochs: int = 50):
     """(loss_fn, optimizer) of a DMVAE or FusedDMVAE fit: the ELBO with its
-    three standard-normal draws and, with dropout, its keep-masks from the
-    fit's randomness; Adam + cosine."""
+    three standard-normal draws, then its feature encoders' keep-masks and,
+    with dropout, its own, from the fit's randomness (one flat tuple);
+    Adam + cosine."""
     if not isinstance(model, (DMVAE, FusedDMVAE)):
         raise TypeError(f"not a DMVAE: {type(model).__name__}")
 
     def draw(randomness, rows):
         noise = tuple(randomness.normal(s) for s in model.noise_shapes(rows))
+        enc = tuple(_encoder_masks(randomness, model, rows))
         masks = tuple(randomness.bernoulli(model.keep, s) for s in model.drop_shapes(rows))
-        return noise + masks
+        return noise + enc + masks
 
     def loss_from_draws(batch, mask, epoch, draws):
-        return model(batch["xs"], draws[:3], mask, draws[3:] or None)
+        enc, own = _split_encoder_masks(model, draws[3:])
+        return model(batch["xs"], draws[:3], mask, own or None, enc or None)
 
     opt = OptimizerConfig(name="adam", lr=lr, schedule="cosine", cosine_t_max=num_epochs,
                           eta_min=0.0)
@@ -319,19 +379,23 @@ def build_late_fusion_task(
     aggregation: str = "cml",
     fused: float = 1.0,
     fused_heads: bool = True,
+    feature_encoders=None,
     device=None,
 ) -> EvidentialTask:
-    """Per-view evidential heads on raw views. Data: {'xs': N views (B, S_i), 'y'}."""
+    """Per-view evidential heads on raw views, through ``feature_encoders``
+    when given (``output_dims`` are then their output widths). Data: {'xs':
+    N views (B, S_i), 'y'}."""
     hidden = tuple(hidden_dim)
-    kw = dict(output_dims=tuple(output_dims), num_classes=num_classes, hidden_dim=hidden)
+    kw = dict(output_dims=tuple(output_dims), num_classes=num_classes, hidden_dim=hidden,
+              feature_encoders=feature_encoders)
     if not fused_heads:
         model = _build(LateFusion, seed, device, **kw)
         return EvidentialTask(model, lambda d: model(d["xs"]), AGGREGATIONS[aggregation],
                               num_classes)
     model = _build(FusedLateFusion, seed, device, dropout=dropout, **kw)
 
-    def forward(data, masks=None):
-        return model(data["xs"], masks)
+    def forward(data, masks=None, enc_masks=None):
+        return model(data["xs"], masks, enc_masks)
 
     loss_fn, val_fn = _evidential_closures(model, forward, len(output_dims), hidden,
                                            aggregation, annealing_start, fused)
@@ -353,6 +417,7 @@ def build_intermediate_fusion_task(
     fusion: str = "concat",
     fusion_output_dim: int = 64,
     fusion_rank: int = 8,
+    feature_encoders=None,
     device=None,
 ) -> EvidentialTask:
     """Fusion -> one evidential head (baselines.py:153-252; JAX
@@ -360,11 +425,13 @@ def build_intermediate_fusion_task(
     (``models.fusions.INTERMEDIATE_FUSIONS``). The loss is the one-head EDL
     loss; the head's dropout masks are drawn from the fit's randomness
     before the step. Evidence is (B, 1, C) to the evaluator, which reads it
-    in the per-view layout. Data: {'xs': N views (B, S_i), 'y'}."""
+    in the per-view layout. With ``feature_encoders`` the views go through
+    them first (``output_dims`` are then their output widths) and their
+    masks are drawn before the head's. Data: {'xs': N views (B, S_i), 'y'}."""
     model = _build(IntermediateFusion, seed, device, output_dims=tuple(output_dims),
                    num_classes=num_classes, hidden_dim=hidden_dim, dropout=dropout,
                    fusion=fusion, fusion_output_dim=fusion_output_dim,
-                   fusion_rank=fusion_rank)
+                   fusion_rank=fusion_rank, feature_encoders=feature_encoders)
 
     def loss(ev, y, epoch, mask):
         return single_evidential_loss(ev, y, annealing_step=epoch,
@@ -377,8 +444,8 @@ def build_intermediate_fusion_task(
             return None
         return [randomness.bernoulli(head.keep, (rows, h)) for h in head.hidden]
 
-    def loss_from_draws(batch, mask, epoch, masks):
-        return loss(model(batch["xs"], masks), batch["y"], epoch, mask), {}
+    def loss_from_draws(batch, mask, epoch, masks, enc_masks):
+        return loss(model(batch["xs"], masks, enc_masks), batch["y"], epoch, mask), {}
 
     def val_fn(data, epoch):
         ev = model(data["xs"])
@@ -387,4 +454,4 @@ def build_intermediate_fusion_task(
     opt = OptimizerConfig(name="adam", lr=lr, schedule="plateau", plateau_factor=0.1,
                           plateau_patience=5)
     return EvidentialTask(model, lambda d: model(d["xs"])[:, None, :], lambda ev: ev[:, 0, :],
-                          num_classes, Objective(draw, loss_from_draws), val_fn, opt)
+                          num_classes, _with_encoders(model, draw, loss_from_draws), val_fn, opt)

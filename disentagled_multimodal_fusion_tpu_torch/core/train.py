@@ -27,8 +27,16 @@ on the device.
   step in the order its own :func:`train` would draw (an
   :class:`Objective` splits a loss's draws from its arithmetic).
 
-Left out (``ROADMAP.md``): the mesh, model state (BatchNorm) and the step
-loop's mid-training resume.
+* Model state (the LUMA encoders' BatchNorm statistics; JAX lines 190,
+  215-219 and 554) lives in the model's buffers and is carried step by step:
+  each training forward normalises by its batch's statistics and writes the
+  new running ones (``models.layers.batch_norm`` computes them as a
+  function of (input, statistics)); validation, after the epoch's steps,
+  normalises by the running ones. The epoch-kernel predicate declines such
+  fits (no probe has state). :func:`train_many` takes no model state yet.
+
+Left out (``ROADMAP.md``): the mesh, :func:`train_many` over model state
+and the step loop's mid-training resume.
 """
 
 from __future__ import annotations
@@ -273,7 +281,8 @@ def train(
     is ``data`` at the step's rows, ``mask`` (rows,) is all ones (the tail
     is exact-size, or dropped with ``drop_last``). ``val_fn(val_data,
     epoch) -> (val_loss, val_acc)`` runs under ``no_grad`` after each
-    epoch's train pass.
+    epoch's train pass. A model with BatchNorm carries its running
+    statistics in its buffers from step to step, and validation uses them.
 
     ``megakernel``: a :class:`~.megakernel.ProbeMegakernelDesc` (probe tasks
     carry one). When the fit qualifies (``supports_probe_megakernel``), the

@@ -20,7 +20,8 @@
 // (else 1). Rank q of a cluster owns the 64-unit H tiles q, q + n, ...: it
 // holds only those columns of W1, so each W1 byte it fetches feeds BM rows
 // (32, or 64 where 32 would need more blocks than the card has SMs, as at
-// B = 400), and small batches spread W1 over 2V SMs. Rank 1 sends its share
+// B = 400, and 64 rows fit the shared memory: not at C = 42, LUMA's), and
+// small batches spread W1 over 2V SMs. Rank 1 sends its share
 // of z to rank 0 by distributed shared memory.
 //
 // Copies. Each H tile's W1 [kc x 64] and x [BM x kc] come in K-chunks of at
@@ -562,6 +563,31 @@ const Variant& variant() {
   return var;
 }
 
+// A launch's K-chunk width, stages and dynamic shared memory (bytes) for
+// variant RG at (D, C): K-chunks of at most MAX_KC columns, evened out to a
+// multiple of 4; as many stages as there are chunks, up to MAX_STAGES and
+// what fits. The bytes exceed the variant's room where even one stage does
+// not fit.
+struct Plan {
+  int kc = 0;
+  int stages = 0;
+  size_t smem = 0;
+};
+
+template <int RG>
+Plan plan(int D, int C) {
+  constexpr int BM = 32 * RG;
+  const size_t room = variant<RG>().max_dynamic;
+  Plan p;
+  const int nk0 = (D + MAX_KC - 1) / MAX_KC;
+  p.kc = ((D + nk0 - 1) / nk0 + 3) / 4 * 4;
+  const int nk = (D + p.kc - 1) / p.kc;
+  p.stages = nk < MAX_STAGES ? nk : MAX_STAGES;
+  while (p.stages > 1 && sizeof(float) * smem_floats(BM, p.kc, p.stages, C) > room) --p.stages;
+  p.smem = sizeof(float) * smem_floats(BM, p.kc, p.stages, C);
+  return p;
+}
+
 template <int RG>
 cudaError_t launch(const float* x, long long sxv, long long sxb, const float* w1, const float* b1,
                    const float* w2, const float* b2, float* out, int V, int B, int D, int H,
@@ -569,14 +595,9 @@ cudaError_t launch(const float* x, long long sxv, long long sxb, const float* w1
   constexpr int BM = 32 * RG;
   const Variant& var = variant<RG>();
   if (var.err != cudaSuccess) return var.err;
-  // K-chunks of at most MAX_KC columns, evened out to a multiple of 4; as
-  // many stages as there are chunks, up to MAX_STAGES and what fits
-  const int nk0 = (D + MAX_KC - 1) / MAX_KC;
-  const int kc = ((D + nk0 - 1) / nk0 + 3) / 4 * 4;
-  const int nk = (D + kc - 1) / kc;
-  int stages = nk < MAX_STAGES ? nk : MAX_STAGES;
-  while (stages > 1 && sizeof(float) * smem_floats(BM, kc, stages, C) > var.max_dynamic) --stages;
-  const size_t smem = sizeof(float) * smem_floats(BM, kc, stages, C);
+  const Plan pl = plan<RG>(D, C);
+  const int kc = pl.kc, stages = pl.stages;
+  const size_t smem = pl.smem;
   const int tiles = (B + BM - 1) / BM;
   if (smem > var.max_dynamic || tiles > 65535 || V > 65535) return cudaErrorInvalidValue;
 
@@ -645,9 +666,13 @@ int dmf_evidential_heads(const void* x, long long sxv, long long sxb, const void
   const auto* w2f = static_cast<const float*>(w2);
   const auto* b2f = static_cast<const float*>(b2);
   auto* of = static_cast<float*>(out);
-  cudaError_t e = blocks32 <= dev.sms
-                      ? launch<1>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n)
-                      : launch<2>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n);
+  // row tiles of 64 need twice the room for z's shares (8 x C x 64 floats):
+  // where they do not fit (C = 42 at D = 200), the tiles stay at 32 rows
+  const bool rows64 = blocks32 > dev.sms && variant<2>().err == cudaSuccess &&
+                      plan<2>(D, C).smem <= variant<2>().max_dynamic;
+  cudaError_t e = rows64
+                      ? launch<2>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n)
+                      : launch<1>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -240,17 +240,24 @@ def evaluate_evidences(evidences, fused, target, num_classes: int,
 
 
 @torch.no_grad()
+def task_evidences(task, data) -> torch.Tensor:
+    """The task's eval-mode evidence (B, V, C) on ``data``. A model with
+    BatchNorm (the LUMA encoders) normalises by its running statistics,
+    the ones its training carried in its buffers (or a checkpoint
+    restored)."""
+    return task.evidences_fn(data)
+
+
 def evaluate_subjective_model(task, data) -> Dict[str, Any]:
     """Per-view layout evaluator."""
-    evidences = task.evidences_fn(data)
+    evidences = task_evidences(task, data)
     return evaluate_evidences(evidences, task.aggregation(evidences), data["y"],
                               task.num_classes, False)
 
 
-@torch.no_grad()
 def evaluate_subjective_model_with_shared(task, data) -> Dict[str, Any]:
     """[shared, views...] layout evaluator."""
-    evidences = task.evidences_fn(data)
+    evidences = task_evidences(task, data)
     if evidences.shape[1] < 2:
         raise ValueError("Expected at least one shared and one specific view (V >= 2).")
     return evaluate_evidences(evidences, task.aggregation(evidences), data["y"],

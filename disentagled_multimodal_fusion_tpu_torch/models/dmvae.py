@@ -14,7 +14,9 @@ reference, the training forward's PoE temperature is 1.5 whatever
 ``poe_temperature`` is (JAX docstring, lines 11-14). Its draws are inputs,
 so a test can feed the JAX ones: the reparameterisation noise
 (``noise_shapes``) and, with ``dropout``, one boolean keep-mask per hidden
-layer of every encoder and decoder (``drop_shapes``).
+layer of every encoder and decoder (``drop_shapes``). ``feature_encoders``
+encode the views first, as in ``dmvae_fused.FusedDMVAE``, whose
+reconstruction target they are too.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.gaussian import gaussian_kl_standard, product_of_experts, reparameterize
-from .layers import MLP
+from .layers import MLP, Encoded, build_encoders, encode_views
 
 
 def _masked_mean_rows(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -48,16 +50,18 @@ def _masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return torch.sum(se * m) / denom
 
 
-class DMVAE(nn.Module):
+class DMVAE(Encoded):
     """N-modal DMVAE (N >= 2)."""
 
     def __init__(self, x_dims: Sequence[int], generator: torch.Generator,
                  hidden_dim: int = 512, embed_dim: int = 100,
                  poe_temperature: float = 1.5, a: float = 1.0,
-                 dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None):
+                 dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None,
+                 feature_encoders=None):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
+        self.feat_encs = build_encoders(feature_encoders, generator)
         self.x_dims = tuple(x_dims)
         self.embed_dim = embed_dim
         self.hidden_dim = hidden_dim
@@ -91,8 +95,9 @@ class DMVAE(nn.Module):
         return [(rows, h)] * (2 * n) + [(n * rows, h)] * (2 * n)
 
     def get_embedding(self, xs, return_poe: bool = True):
-        """(shared embedding, [private embedding per modality])."""
-        stats = [torch.split(enc(x), self.embed_dim, dim=1) for enc, x in zip(self.encoders, xs)]
+        """(shared embedding, [private embedding per modality]), in eval mode."""
+        stats = [torch.split(enc(x), self.embed_dim, dim=1)
+                 for enc, x in zip(self.encoders, encode_views(self.feat_encs, xs))]
         mu_p_all = [s[2] for s in stats]
         if return_poe:
             mu_poe, _ = product_of_experts(
@@ -102,16 +107,20 @@ class DMVAE(nn.Module):
             return mu_poe, mu_p_all
         return torch.cat([s[0] for s in stats], dim=1), mu_p_all
 
-    def forward(self, xs, noise, mask=None, drop_masks=None):
+    def forward(self, xs, noise, mask=None, drop_masks=None, enc_masks=None):
         """Training ELBO of N views (B, S_i) -> (loss, logs).
 
         ``noise`` is (eps_p (B, N, E), eps_u (B, N, E), eps_s (B, E));
         ``drop_masks`` the masks of :meth:`drop_shapes` (None without
-        dropout); ``mask`` (B,) {0, 1} restricts every mean to its rows."""
+        dropout); ``enc_masks`` the feature encoders' (one list per encoder,
+        required with encoders); ``mask`` (B,) {0, 1} restricts every mean
+        to its rows."""
         n = len(self.x_dims)
+        if self.feat_encs is not None and enc_masks is None:
+            raise ValueError("the training forward needs the feature encoders' keep-masks")
         masks = list(drop_masks) if drop_masks else [None] * (4 * n)
         pairs_of = lambda k: None if masks[k] is None else masks[k:k + 2]  # noqa: E731
-        feats = [x.float() for x in xs]
+        feats = [x.float() for x in encode_views(self.feat_encs, xs, enc_masks)]
         stats = [torch.split(enc(x, pairs_of(2 * i)), self.embed_dim, dim=1)
                  for i, (enc, x) in enumerate(zip(self.encoders, feats))]
         mu_s, logv_s, mu_p, logv_p = ([s[k] for s in stats] for k in range(4))

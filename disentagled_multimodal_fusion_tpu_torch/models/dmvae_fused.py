@@ -13,6 +13,15 @@ reparameterisation draws, and with ``dropout`` its keep-masks
 (``drop_shapes``), are inputs, so a test can feed the JAX draws. The
 training forward keeps the reference's PoE temperature 1.5 whatever
 ``poe_temperature`` is (that one is ``get_embedding``'s).
+
+``feature_encoders`` (specs for ``layers.build_encoders``, e.g. LUMA's Audio,
+Text and Image encoders) encode the views before they are zero-padded and
+stacked (JAX lines 166-177); ``x_dims`` are then the encoders' output
+widths. The reconstruction target is the encoder features themselves, with
+gradients through both sides (JAX line 251): the decoder chases a target
+its own encoders move. The encoders train with their keep-masks
+(``enc_drop_shapes``) and evaluate, with BatchNorm's running statistics,
+in ``get_embedding``.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from torch import nn
 
 from ..ops.gaussian import gaussian_kl_standard, product_of_experts, reparameterize
 from .dmvae import _masked_mean_rows
-from .layers import torch_bias_init, xavier_uniform
+from .layers import Encoded, build_encoders, encode_views, torch_bias_init, xavier_uniform
 
 
 class StackedMLP(nn.Module):
@@ -80,18 +89,20 @@ def pad_stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([F.pad(x.float(), (0, width - x.shape[-1])) for x in xs], dim=1)
 
 
-class FusedDMVAE(nn.Module):
+class FusedDMVAE(Encoded):
     """Modality-stacked DMVAE; same ``get_embedding`` contract as
     :class:`~.dmvae.DMVAE`."""
 
     def __init__(self, x_dims: Sequence[int], generator: torch.Generator,
                  hidden_dim: int = 512, embed_dim: int = 100,
                  poe_temperature: float = 1.5, a: float = 1.0, cross_weight: float = 1.0,
-                 dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None):
+                 dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None,
+                 feature_encoders=None):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
         n = len(x_dims)
+        self.feat_encs = build_encoders(feature_encoders, generator)
         self.x_dims = tuple(x_dims)
         self.embed_dim = embed_dim
         self.hidden_dim = hidden_dim
@@ -114,8 +125,8 @@ class FusedDMVAE(nn.Module):
                              persistent=False)
 
     def encode_stats(self, xs):
-        """(mu_s, logv_s, mu_p, logv_p), each (B, N, E)."""
-        four = self.encoder(pad_stack(xs))
+        """(mu_s, logv_s, mu_p, logv_p), each (B, N, E), in eval mode."""
+        four = self.encoder(pad_stack(encode_views(self.feat_encs, xs)))
         return torch.split(four, self.embed_dim, dim=-1)
 
     def get_embedding(self, xs, return_poe: bool = True):
@@ -144,21 +155,24 @@ class FusedDMVAE(nn.Module):
         n, h = len(self.x_dims), self.hidden_dim
         return [(rows, n, h)] * 2 + [(n, rows, n, h)] * 2
 
-    def forward(self, xs, noise, mask=None, drop_masks=None):
+    def forward(self, xs, noise, mask=None, drop_masks=None, enc_masks=None):
         """Training ELBO of N views (B, S_i) -> (loss, logs).
 
         ``noise`` is (eps_p (B, N, E), eps_u (B, N, E), eps_s (B, E)), the
         draws of the private, unimodal-shared and PoE-shared latents;
         ``drop_masks`` the masks of :meth:`drop_shapes` (None without
-        dropout); ``mask`` (B,) {0, 1} restricts every mean to the rows it
-        keeps.
+        dropout); ``enc_masks`` the feature encoders' (one list per encoder,
+        required with encoders); ``mask`` (B,) {0, 1} restricts every mean to
+        the rows it keeps.
         """
         n, e = len(self.x_dims), self.embed_dim
-        enc_masks, dec_masks = (None, None) if not drop_masks else (drop_masks[:2],
+        if self.feat_encs is not None and enc_masks is None:
+            raise ValueError("the training forward needs the feature encoders' keep-masks")
+        mlp_masks, dec_masks = (None, None) if not drop_masks else (drop_masks[:2],
                                                                     drop_masks[2:])
-        x = pad_stack(xs)                                           # (B, N, Dmax)
+        x = pad_stack(encode_views(self.feat_encs, xs, enc_masks))  # (B, N, Dmax)
         b = x.shape[0]
-        mu_s, logv_s, mu_p, logv_p = torch.split(self.encoder(x, enc_masks, self.keep), e, dim=-1)
+        mu_s, logv_s, mu_p, logv_p = torch.split(self.encoder(x, mlp_masks, self.keep), e, dim=-1)
         eps_p, eps_u, eps_s = noise
         z_p = reparameterize(eps_p, mu_p, logv_p)                   # (B, N, E)
         z_s_uni = reparameterize(eps_u, mu_s, logv_s)               # (B, N, E)

@@ -1,20 +1,38 @@
-"""Building-block layers: MLP stacks and evidential heads.
+"""Building-block layers: MLP stacks, evidential heads, the LUMA feature
+encoders and flax's BatchNorm.
 
-Counterpart of ``disentagled_multimodal_fusion_tpu/models/layers.py:25-149``
-with its init laws as the configs use them: xavier-uniform kernels and the
-torch ``nn.Linear`` default bias ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
-Initialisation draws from an explicit ``torch.Generator`` on the CPU, so a
-seed gives the same weights on any device. Kernel tensors are drawn in the
-JAX layout ``(in, out)``. Dropout follows each hidden ReLU; its keep-masks
-are inputs (one boolean mask per hidden layer), applied as flax's
-``Dropout`` does: ``where(mask, h / keep, 0)``. The other kernel inits of
-the JAX package and the LUMA encoders come with later slices.
+Counterpart of ``disentagled_multimodal_fusion_tpu/models/layers.py`` with
+its init laws as the configs use them: xavier-uniform kernels and the torch
+``nn.Linear`` default bias ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``; the LUMA
+encoders keep torch's default kernels too (``U(+-1/sqrt(fan_in))``, fan_in =
+kh * kw * in for a convolution). Initialisation draws from an explicit
+``torch.Generator`` on the CPU, so a seed gives the same weights on any
+device. Kernel tensors are drawn in the JAX layout (``(in, out)``, a
+convolution's ``(kh, kw, in, out)``). Dropout follows each hidden ReLU; its
+keep-masks are inputs (one boolean mask per hidden layer), applied as flax's
+``Dropout`` does: ``where(mask, h / keep, 0)``.
+
+The encoders (``ImageEncoder``, ``AudioEncoder``, ``TextEncoder``; JAX lines
+152-264) run in NCHW; ``ImageEncoder`` permutes its (B, 128, 4, 4) map to
+NHWC before flattening, so its 2048 -> 512 kernel has the JAX row order. An
+encoder trains when it is given its keep-masks (``drop_shapes``; an empty
+list without dropout) and evaluates without them. Channel dropout draws one
+mask per (row, channel), (B, C, 1, 1), broadcast over H and W.
+
+``batch_norm`` is flax's ``BatchNorm`` (flax 0.12.3 defaults) as a function
+of (input, statistics) -> (output, new statistics): in training it
+normalises by the batch's mean and fast variance E[x^2] - E[x]^2 (clipped
+at 0) and returns running statistics 0.99 * old + 0.01 * batch, the
+variance biased; in evaluation it normalises by the running ones. The
+``BatchNorm`` module keeps them as buffers (``mean``, ``var``), so a state
+dict, and a checkpoint, carries them; its training forward writes the new
+ones in place.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,13 +55,23 @@ def xavier_uniform(shape: Tuple[int, int], generator: torch.Generator) -> torch.
     return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
 
 
+def torch_default_kernel(shape, generator: torch.Generator) -> torch.Tensor:
+    """torch's default Linear/Conv kernel, U(+-1/sqrt(fan_in)), drawn in the
+    JAX layout: fan_in is the product of every axis but the last."""
+    return _uniform(shape, 1.0 / math.sqrt(math.prod(shape[:-1])), generator)
+
+
+KERNEL_INITS = {"xavier": xavier_uniform, "torch_default": torch_default_kernel}
+
+
 class TorchLinear(nn.Module):
     """Dense layer, ``weight`` (out, in) as in ``nn.Linear``, with a
-    xavier-uniform kernel and the torch-default bias."""
+    xavier-uniform (or ``torch_default``) kernel and the torch-default bias."""
 
-    def __init__(self, in_features: int, out_features: int, generator: torch.Generator):
+    def __init__(self, in_features: int, out_features: int, generator: torch.Generator,
+                 init: str = "xavier"):
         super().__init__()
-        kernel = xavier_uniform((in_features, out_features), generator)
+        kernel = KERNEL_INITS[init]((in_features, out_features), generator)
         self.weight = nn.Parameter(kernel.t().contiguous())
         self.bias = nn.Parameter(torch_bias_init((out_features,), in_features, generator))
 
@@ -94,3 +122,219 @@ class EvidentialNN(nn.Module):
 
     def forward(self, x, drop_masks=None):
         return evidence_activation(self.mlp(x, drop_masks))
+
+
+# ------------------------------------------------------------ LUMA encoders
+def _dropout(x, mask, keep: float):
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def batch_norm(x, weight, bias, mean, var, train: bool, momentum: float = 0.99,
+               eps: float = 1e-5):
+    """flax ``BatchNorm`` over every axis of x but axis 1 (NCHW channels):
+    (y, (new_mean, new_var)). In training the batch statistics normalise and
+    the running ones move to ``momentum * old + (1 - momentum) * batch``
+    (biased variance); in evaluation the running ones normalise and are
+    returned unchanged."""
+    axes = [a for a in range(x.dim()) if a != 1]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    if train:
+        mu = torch.mean(x, dim=axes)
+        var_b = torch.clamp(torch.mean(x * x, dim=axes) - mu * mu, min=0.0)
+        new = (momentum * mean + (1.0 - momentum) * mu.detach(),
+               momentum * var + (1.0 - momentum) * var_b.detach())
+    else:
+        mu, var_b, new = mean, var, (mean, var)
+    mul = torch.rsqrt(var_b + eps) * weight
+    y = (x - mu.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
+    return y, new
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` (momentum 0.99, epsilon 1e-5, fast variance) over
+    NCHW channels: scale 1 and bias 0 (``weight``, ``bias``), running
+    ``mean`` 0 and ``var`` 1 as buffers, updated in place by a training
+    forward."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x, train: bool = False):
+        y, (mean, var) = batch_norm(x, self.weight, self.bias, self.mean, self.var, train)
+        if train:
+            with torch.no_grad():
+                self.mean.copy_(mean)
+                self.var.copy_(var)
+        return y
+
+
+class Conv(nn.Module):
+    """3 x 3 'SAME' convolution with torch Conv2d's default init; ``weight``
+    (out, in, 3, 3), drawn as flax's (3, 3, in, out) kernel."""
+
+    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator):
+        super().__init__()
+        kernel = torch_default_kernel((3, 3, in_ch, out_ch), generator)
+        self.weight = nn.Parameter(kernel.permute(3, 2, 0, 1).contiguous())
+        self.bias = nn.Parameter(torch_bias_init((out_ch,), 9 * in_ch, generator))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, padding=1)
+
+
+class _ConvBlocks(nn.Module):
+    """conv -> BatchNorm -> ReLU [-> 2 x 2 max-pool -> channel dropout] per
+    block; ``pooled`` blocks pool and drop."""
+
+    def __init__(self, widths: Sequence[int], pooled: int, generator: torch.Generator):
+        super().__init__()
+        self.conv = nn.ModuleList(Conv(a, b, generator) for a, b in zip(widths[:-1], widths[1:]))
+        self.bn = nn.ModuleList(BatchNorm(b) for b in widths[1:])
+        self.channels = tuple(widths[1:])
+        self.pooled = pooled
+
+    def drop_shapes(self, rows: int):
+        return [(rows, c, 1, 1) for c in self.channels[:self.pooled]]
+
+    def forward(self, x, masks, keep: float):
+        train = masks is not None
+        for i, (conv, bn) in enumerate(zip(self.conv, self.bn)):
+            x = torch.relu(bn(conv(x), train))
+            if i < self.pooled:
+                x = F.max_pool2d(x, 2, 2)
+                if masks:
+                    x = _dropout(x, masks[i], keep)
+        return x
+
+
+class _Encoder(nn.Module):
+    """A feature encoder: ``forward(x, drop_masks=None)`` trains when given
+    the keep-masks of ``drop_shapes(rows)`` (an empty list without dropout)."""
+
+    keep: float
+
+    def drop_shapes(self, rows: int):
+        return [] if self.keep >= 1.0 else self._drop_shapes(rows)
+
+    def _dense(self, x, layers, masks, start: int):
+        """ReLU + dropout after every layer but the last; masks[start:] are
+        the hidden layers'."""
+        for i, layer in enumerate(layers[:-1]):
+            x = torch.relu(layer(x))
+            if masks:
+                x = _dropout(x, masks[start + i], self.keep)
+        return layers[-1](x)
+
+
+class ImageEncoder(_Encoder):
+    """(B, 3072) CHW-flattened 32 x 32 images -> (B, output_dim): three conv
+    blocks (32/64/128 channels) with BatchNorm, ReLU, max-pool and channel
+    dropout, then 2048 -> 512 -> output_dim (JAX lines 152-187)."""
+
+    def __init__(self, generator: torch.Generator, output_dim: int = 200, dropout: float = 0.1):
+        super().__init__()
+        self.keep = 1.0 - dropout
+        self.blocks = _ConvBlocks((3, 32, 64, 128), 3, generator)
+        self.layers = nn.ModuleList([TorchLinear(2048, 512, generator, "torch_default"),
+                                     TorchLinear(512, output_dim, generator, "torch_default")])
+
+    def _drop_shapes(self, rows: int):
+        return self.blocks.drop_shapes(rows) + [(rows, 512)]
+
+    def forward(self, x, drop_masks=None):
+        b = x.shape[0]
+        x = x.reshape(b, 3, 32, 32).to(self.layers[0].weight.dtype)
+        x = self.blocks(x, drop_masks, self.keep)
+        x = x.permute(0, 2, 3, 1).reshape(b, -1)  # flax's NHWC flatten
+        return self._dense(x, self.layers, drop_masks, 3)
+
+
+class AudioEncoder(_Encoder):
+    """MFCC features -> (B, output_dim) (JAX lines 190-250): the MLP
+    input_dim -> 128 -> 256 -> output_dim, or with ``use_2d`` three conv
+    blocks (1 -> 32 -> 64 -> 128 channels, the first two pooled with channel
+    dropout), a global average pool and 128 -> output_dim over an (n_mfcc,
+    frames) map, (B, H, W), (B, 1, H, W) or (B, H, W, 1)."""
+
+    def __init__(self, generator: torch.Generator, input_dim: int = 40, output_dim: int = 200,
+                 dropout: float = 0.1, use_2d: bool = False):
+        super().__init__()
+        self.keep = 1.0 - dropout
+        self.use_2d = use_2d
+        if use_2d:
+            self.blocks = _ConvBlocks((1, 32, 64, 128), 2, generator)
+            widths = (128, output_dim)
+        else:
+            widths = (input_dim, 128, 256, output_dim)
+        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default")
+                                    for a, b in zip(widths[:-1], widths[1:]))
+
+    def _drop_shapes(self, rows: int):
+        if self.use_2d:
+            return self.blocks.drop_shapes(rows)
+        return [(rows, 128), (rows, 256)]
+
+    def forward(self, x, drop_masks=None):
+        x = x.to(self.layers[0].weight.dtype)
+        if not self.use_2d:
+            return self._dense(x, self.layers, drop_masks, 0)
+        if x.dim() == 3:
+            x = x[:, None]
+        elif x.shape[1] != 1:  # NHWC (B, H, W, 1)
+            x = x.permute(0, 3, 1, 2)
+        x = self.blocks(x, drop_masks, self.keep)
+        return self.layers[0](torch.mean(x, dim=(2, 3)))
+
+
+class TextEncoder(_Encoder):
+    """Token-id features input_dim -> 256 -> 256 -> output_dim (JAX lines
+    253-270)."""
+
+    def __init__(self, generator: torch.Generator, input_dim: int = 128, output_dim: int = 200,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.keep = 1.0 - dropout
+        widths = (input_dim, 256, 256, output_dim)
+        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default")
+                                    for a, b in zip(widths[:-1], widths[1:]))
+
+    def _drop_shapes(self, rows: int):
+        return [(rows, 256), (rows, 256)]
+
+    def forward(self, x, drop_masks=None):
+        return self._dense(x.to(self.layers[0].weight.dtype), self.layers, drop_masks, 0)
+
+
+ENCODER_REGISTRY = {"ImageEncoder": ImageEncoder, "AudioEncoder": AudioEncoder,
+                    "TextEncoder": TextEncoder}
+
+
+def build_encoders(specs, generator: torch.Generator) -> Optional[nn.ModuleList]:
+    """Feature encoders from ``specs``, a sequence of (registry name, keyword
+    arguments), drawn in order from ``generator``; None without specs."""
+    if not specs:
+        return None
+    return nn.ModuleList(ENCODER_REGISTRY[name](generator, **dict(kw)) for name, kw in specs)
+
+
+class Encoded(nn.Module):
+    """A model whose views may pass through feature encoders first: its
+    ``feat_encs`` (``build_encoders``; None without them)."""
+
+    def enc_drop_shapes(self, rows: int):
+        """Each feature encoder's keep-mask shapes (a list per encoder; []
+        without encoders)."""
+        return [] if self.feat_encs is None else [enc.drop_shapes(rows) for enc in self.feat_encs]
+
+
+def encode_views(encoders: Optional[nn.ModuleList], xs, drop_masks=None):
+    """The views through their encoders, as given without them: training
+    with ``drop_masks`` (one list per encoder), evaluation without."""
+    if encoders is None:
+        return list(xs)
+    masks = drop_masks if drop_masks is not None else [None] * len(encoders)
+    return [enc(x, m) for enc, x, m in zip(encoders, xs, masks)]

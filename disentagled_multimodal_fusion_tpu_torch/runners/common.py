@@ -16,10 +16,11 @@ import math
 import zlib
 from typing import Dict, List, Sequence
 
-from ..configs.config import CONFIG, SYNTHETIC_CONFIG
+from ..configs.config import CONFIG, LUMA_CONFIG, SYNTHETIC_CONFIG
 from ..core.artifacts import artifact_path
 
-CONFIGS = {"config.yaml": CONFIG, "synthetic_config.yaml": SYNTHETIC_CONFIG}
+CONFIGS = {"config.yaml": CONFIG, "synthetic_config.yaml": SYNTHETIC_CONFIG,
+           "luma_config.yaml": LUMA_CONFIG}
 
 
 def load_config(name: str = "config.yaml") -> dict:

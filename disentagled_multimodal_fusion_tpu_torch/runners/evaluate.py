@@ -1,16 +1,17 @@
 """Evaluate a saved sweep checkpoint without retraining.
 
-Counterpart of ``disentagled_multimodal_fusion_tpu/runners/evaluate.py``,
-its ``.mat`` and synthetic branches (``_eval_mat``, ``_eval_synthetic`` and
-``main``). It replays the seeded split (``runners/run.py``'s legacy
-``np.random`` stream with the condition's perturbation of the test rows,
-or ``runners/run_synthetic.py``'s generator at ``--dep``, ``--preset`` and
-``--quick``), rebuilds the model, restores the checkpoints the sweep wrote
-(``core/checkpoint.py``), and prints the subjective-model evaluation of the
+Counterpart of ``disentagled_multimodal_fusion_tpu/runners/evaluate.py``:
+its ``.mat``, LUMA and synthetic branches (``_eval_mat``, ``_eval_luma``,
+``_eval_synthetic`` and ``main``). It replays the seeded split
+(``runners/run.py``'s legacy ``np.random`` stream with the condition's
+perturbation of the test rows, the featurized LUMA test split of
+``--data-path``, or ``runners/run_synthetic.py``'s generator at ``--dep``,
+``--preset`` and ``--quick``), rebuilds the model, restores the checkpoints
+the sweep wrote (``core/checkpoint.py``; a LUMA model's holds its encoders'
+BatchNorm statistics), and prints the subjective-model evaluation of the
 test (validation) rows as JSON. It runs on the CUDA card unless ``--device
 cpu``. The synthetic branch reads the DMVAE-backbone checkpoints, as the
-JAX package's does; the LUMA branch waits for its backbone
-(``ROADMAP.md``).
+JAX package's does.
 
 Checkpoint names carry the reference's own ``{name}_fusion_ds...`` pattern,
 which doubles the suffix for late fusion (``cml_fusion_fusion_ds...``).
@@ -22,6 +23,8 @@ Examples:
       --model cml_fusion --dataset CUB --seed 1 --condition conflict --device cpu
   python -m disentagled_multimodal_fusion_tpu_torch.runners.evaluate \
       --model dmvae_cml --dataset synthetic --seed 0 --dep 50
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.evaluate \
+      --model cml_fusion --dataset LUMA --seed 0 --data-path data/luma_compiled
 """
 
 from __future__ import annotations
@@ -88,6 +91,48 @@ def eval_mat(args, C, device):
     return evaluate_subjective_model_with_shared(task, data)
 
 
+def eval_luma(args, device):
+    """The evaluation dict of a LUMA checkpoint (``runners/run_luma.py``) on
+    the featurized test split of ``--data-path``, with the DMVAE backbone
+    and the heads restored with their encoders' BatchNorm statistics."""
+    from ..core.checkpoint import restore_checkpoint
+    from ..core.tasks import embed_dataset_chunked
+    from ..data.luma import get_luma_arrays
+    from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
+    from .common import load_config, make_getter
+    from .run_luma import (
+        backbone_checkpoint,
+        build_backbone,
+        encoder_specs,
+        feature_configs,
+        head_builders,
+        head_checkpoint,
+        to_device,
+    )
+
+    C = make_getter(load_config("luma_config.yaml"))
+    seed, name = args.seed, args.model
+    audio_cfg, text_cfg, image_cfg = feature_configs(C, args.use_2d)
+    specs = encoder_specs(audio_cfg, text_cfg)
+    _, _, xs_te, y_te, num_classes, _, _ = get_luma_arrays(
+        args.data_path or C("data.luma_path", "data/luma_compiled"), audio_cfg, text_cfg,
+        image_cfg, replicate_image_bug=args.replicate_image_bug)
+    xs_te, y_te = to_device(xs_te, device), torch.from_numpy(y_te).to(device)
+    if name.startswith("dmvae_"):
+        backbone = restore_checkpoint(args.dmvae_checkpoint or backbone_checkpoint(seed),
+                                      build_backbone(C, 0, specs, device,
+                                                     fused=not args.no_fused_dmvae))
+        zc, zp = embed_dataset_chunked(backbone, xs_te)
+        data = {"zc": zc, "zp": zp, "y": y_te}
+    else:
+        data = {"xs": xs_te, "y": y_te}
+    task = head_builders(C, num_classes, C("probes.model_epochs", 2), specs, device)[name](0)
+    restore_checkpoint(args.checkpoint or head_checkpoint(name, seed), task.model)
+    if name == "dmvae_dis":
+        return evaluate_subjective_model(task, data)
+    return evaluate_subjective_model_with_shared(task, data)
+
+
 def eval_synthetic(args, device):
     """The evaluation dict of a synthetic sweep checkpoint on the validation
     rows of its (seed, dep) cell."""
@@ -139,7 +184,7 @@ def parse_args(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
     parser.add_argument("--model", choices=MODELS, required=True)
-    parser.add_argument("--dataset", required=True, help=".mat registry name | synthetic")
+    parser.add_argument("--dataset", required=True, help=".mat registry name | LUMA | synthetic")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--condition", choices=["normal", "conflict", "noise"],
                         default="normal")
@@ -159,12 +204,17 @@ def parse_args(argv=None):
                         help="override the sweep's backbone checkpoint path")
     parser.add_argument("--no-fused-dmvae", action="store_true",
                         help="the checkpoint is of the unfused per-modality DMVAE")
+    parser.add_argument("--data-path", default=None,
+                        help="compiled LUMA corpus (LUMA only; default: the config's)")
+    parser.add_argument("--use-2d", action="store_true",
+                        help="the checkpoint came from run_luma.py --use-2d (LUMA only)")
+    parser.add_argument("--replicate-image-bug", action="store_true",
+                        help="the checkpoint came from run_luma.py --replicate-image-bug "
+                             "(LUMA only)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "PyTorch path)")
     args = parser.parse_args(argv)
-    if args.dataset == "LUMA":
-        parser.error("--dataset LUMA: its backbone is not ported yet (see ROADMAP.md)")
     if args.conflict:
         args.condition = "conflict"
     return args
@@ -177,6 +227,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.dataset == "synthetic":
         info = eval_synthetic(args, device)
+    elif args.dataset == "LUMA":
+        info = eval_luma(args, device)
     else:
         info = eval_mat(args, make_getter(load_config()), device)
     print(json.dumps(info, indent=1, default=float))

@@ -17,7 +17,13 @@
   checkpoints, and mi3's skip row, to its ``--rows-file``; it trains the
   per-modality DMVAE, and ``runners/evaluate.py --no-fused-dmvae`` restores
   it and reports the fused accuracy the sweep printed
-  (``run_synthetic.py --no-fused-dmvae``: tests/test_torch_synthetic.py).
+  (``run_synthetic.py --no-fused-dmvae``: tests/test_torch_synthetic.py);
+* ``runners/run_luma.py`` trains one epoch of each fit on a fixture corpus
+  with ``--ood-eval``, prints its ``LUMA protocol done`` line and writes its
+  reports and checkpoints, and ``runners/evaluate.py --dataset LUMA``
+  reports the fused accuracy it printed; ``run_luma.py`` refuses the flags
+  it does not have yet (``--vmap-seeds``, ``--segment-epochs``, ``--dtype
+  bfloat16``, the mesh) with a parser error that points at ROADMAP.md.
 """
 
 import json
@@ -146,3 +152,58 @@ def test_unfused_dmvae_sweep_and_evaluate_when_run_as_modules(intermediate_sweep
     printed = float(re.search(r"\[CUB/normal/seed0\] dmvae_cml: fused_acc=([0-9.]+)",
                               out).group(1))
     assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
+
+
+# the LUMA runs read one fixture corpus; its hash text features are salted per
+# process, so both processes get one salt (evaluate also reads the run's
+# feature cache), and the tokenizer looks for local files only
+LUMA_ENV = {**ONE_THREAD, "PYTHONHASHSEED": "0", "HF_HUB_OFFLINE": "1",
+            "TRANSFORMERS_OFFLINE": "1"}
+
+
+@pytest.fixture(scope="module")
+def luma_sweep(tmp_path_factory):
+    from disentagled_multimodal_fusion_tpu_torch.data.luma import make_fake_luma
+
+    root = tmp_path_factory.mktemp("luma")
+    corpus = make_fake_luma(str(root / "corpus"), n_classes=3, train_per_class=4,
+                            test_per_class=2, ood_classes=1)
+    out = _run("run_luma", ["--data-path", corpus, "--seeds", "0", "--ood-eval",
+                            "--dmvae-epochs", "1", "--probe-epochs", "1", "--device", "cpu"],
+               root, **LUMA_ENV)
+    return root, corpus, out
+
+
+def test_the_luma_protocol_trains_when_run_as_a_module(luma_sweep):
+    root, _, out = luma_sweep
+    assert re.search(r"^LUMA protocol done in [0-9.]+s$", out, re.M), out
+    assert (root / "checkpoints" / "dmvae_datasetLUMA_seed0_a1e-05_normal.pt").is_file()
+    for model in MODELS:
+        assert (root / "checkpoints" / f"{model}_fusion_dsLUMA_seed0.pt").is_file(), model
+    for name in ("luma_analysis.xlsx", "luma_ood.json"):
+        assert (root / "logs" / name).is_file(), name
+
+
+@pytest.mark.parametrize("model", ["dmvae_joint", "avg_fusion"])
+def test_evaluate_luma_reports_the_runs_fused_accuracy_when_run_as_a_module(luma_sweep, model):
+    root, corpus, out = luma_sweep
+    info = json.loads(_run("evaluate", ["--model", model, "--dataset", "LUMA", "--seed", "0",
+                                        "--data-path", corpus, "--device", "cpu"], root,
+                           **LUMA_ENV))
+    printed = float(re.search(rf"\[seed 0\] {model}: fused_acc=([0-9.]+)", out).group(1))
+    assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
+
+
+@pytest.mark.parametrize("flags", [["--vmap-seeds"], ["--segment-epochs", "2"],
+                                   ["--dtype", "bfloat16"], ["--data-parallel", "2"],
+                                   ["--model-parallel", "2"]],
+                         ids=["vmap_seeds", "segment_epochs", "bfloat16", "data_parallel",
+                              "model_parallel"])
+def test_run_luma_refuses_what_is_not_ported(flags, capsys):
+    from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
+
+    with pytest.raises(SystemExit) as exit_info:
+        run_luma.parse_args(["--seeds", "0", *flags])
+    assert exit_info.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported yet (see ROADMAP.md)" in err and flags[0] in err

@@ -151,6 +151,9 @@ def test_cuda_kernel_matches_plain():
     shapes += [(7, 400, 200, 128, 10), (6, 400, 240, 128, 10), (2, 120, 1024, 128, 10),
                (3, 136, 484, 128, 68), (3, 97, 59, 128, 15), (4, 897, 200, 128, 15),
                (7, 256, 200, 256, 10)]
+    # LUMA at C = 42: the cut corpus's test and OOD rows, and the full corpus's
+    shapes += [(3, 840, 200, 128, 42), (4, 160, 200, 128, 42), (4, 4200, 200, 128, 42),
+               (3, 800, 200, 128, 42)]
     for v, b, d, h, c in shapes:
         xs = torch.from_numpy(rng.standard_normal((v, b, d)).astype(np.float32)).cuda()
         ws = [

@@ -143,10 +143,16 @@ def test_evaluate_restores_a_jax_checkpoint_as_the_jax_package(carried_over, mod
 
 
 def test_evaluate_refuses_the_datasets_whose_backbone_is_not_ported():
-    # the synthetic branch is ported (tests/test_torch_synthetic.py)
-    with pytest.raises(SystemExit):
-        tevaluate.parse_args(["--model", "dmvae_cml", "--dataset", "LUMA"])
+    # every dataset's backbone is ported now: the synthetic branch
+    # (tests/test_torch_synthetic.py) and LUMA's (tests/test_torch_luma.py)
+    # parse, and only an unknown model is refused
     assert tevaluate.parse_args(["--model", "dmvae_cml", "--dataset", "synthetic"]).dep == 50
+    args = tevaluate.parse_args(["--model", "cml_fusion", "--dataset", "LUMA", "--data-path",
+                                 "corpus", "--use-2d", "--replicate-image-bug"])
+    assert (args.dataset, args.data_path, args.use_2d, args.replicate_image_bug) == (
+        "LUMA", "corpus", True, True)
+    with pytest.raises(SystemExit):
+        tevaluate.parse_args(["--model", "intermediate_fusion", "--dataset", "LUMA"])
 
 
 def _tiny_config():
