@@ -24,13 +24,16 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    (S = 5 with a tail of 80, V = 3 and 2, C = 10) and the head at phase
    21's two Scene seeds in one launch (S x V = 6 and 8, B = 897, C = 15)
    and at LUMA's C = 42 (V = 3 and 4 at B = 840 and 160, phase 22's cut
-   corpus, and at B = 4200 and 800, the full corpus's test and OOD rows);
+   corpus, and at B = 4200 and 800, the full corpus's test and OOD rows),
+   also at five seeds' heads in one launch (S x V = 15 and 20 at the same
+   four B, phase 23's vmap rule);
 4. kernel, plain and library times (CUDA events, profiler device time)
    beside the least time the card could take for the same work, the head
    kernel's device time at every main-path shape (serving buckets,
-   validation, the synthetic sweep, the Scene seeds, LUMA; plain and
-   library times too at the synthetic, CUB and Scene shapes and at LUMA's
-   (4, 4200) and (3, 840)); the profiler window of the probe epoch must
+   validation, the synthetic sweep, the Scene seeds, LUMA and its five
+   stacked seeds; plain and library times too at the synthetic, CUB and
+   Scene shapes, at LUMA's (4, 4200) and (3, 840) and at every stacked LUMA
+   shape); the profiler window of the probe epoch must
    hold exactly its four kernels, S launches each per epoch (S = 16 on
    HandWritten, 62 on the synthetic sweep, 5 on CUB with its tail of 80),
    and nothing else but the wrapper's PyTorch operations;
@@ -142,8 +145,26 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     same command again resumes, trains nothing and launches nothing;
     ``runners/evaluate.py --dataset LUMA`` gives the run's fused accuracy
     for dmvae_cml and cml_fusion from the checkpoints (the BatchNorm
-    statistics restored); and one cml_fusion epoch on 640 rows on the card
-    against the CPU from the same weights and draws (``phase_luma_card_vs_cpu``).
+    statistics restored); and one cml_fusion epoch on 640 rows held step
+    by step on the card against the CPU, each step from the CPU's state
+    with its draws: loss, validation, gradients and running statistics
+    (``phase_luma_card_vs_cpu``, ``check_luma_step``);
+23. seed-batched LUMA on phase 22's corpus and feature cache:
+    ``runners/run_luma.py --vmap-seeds --seeds 0 1 2 3 4 --ood-eval
+    --include-intermediate --segment-epochs 2 --rows-file ...`` at the
+    config's full width and depth: seven finite rows per seed, dbf, cml and
+    avg late fusion at fused accuracy >= 0.07 for every seed, the head
+    kernel launched exactly 102 times (per stacked-head fit once per
+    validation epoch at 5 x V heads: 8 at (15, 840), 4 at (20, 840); then
+    per seed once for its evaluation, once for the ID and once for the OOD
+    evidences: 40 at (3, 840), 20 at (4, 840), 20 at (3, 160), 10 at (4,
+    160)) and the epoch kernel never; each fit's wall and ms/epoch beside
+    phase 22's one-seed fits; the same command again skips the block,
+    trains nothing and launches nothing; ``runners/evaluate.py`` gives seeds
+    0 and 4 their rows' fused accuracy for dmvae_cml and cml_fusion; and one
+    seed-batched cml_fusion epoch on 640 rows (five seeds) held step by
+    step against each seed's ``train`` on the card, at phase 22's step
+    tolerances (``phase_luma_many_vs_train``).
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -152,7 +173,10 @@ shapes as one JSON line: copied into an unpacked checkout of another
 commit, it times that commit's kernel in the same call. ``python3
 chip_smoke.py --engine-times`` only times ``--vmap-seeds`` against
 ``--one-program-cells`` on two full-depth HandWritten cells (about 35
-minutes) and checks that their reports agree.
+minutes) and checks that their reports agree. ``python3 chip_smoke.py
+--luma-state-trials N`` only repeats phase 22's and phase 23's state
+comparisons N times from other weights and draws and prints their
+readings (``luma_state_trials``).
 
 It prints a JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -165,6 +189,7 @@ import collections
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -294,12 +319,17 @@ SCENE_STACKED_SHAPES = [(2 * v, 897, d, 128, 15) for v, d in ((3, 200), (4, 200)
 # (840 test and 160 OOD rows) and on the full corpus (4200 and 800)
 LUMA_SHAPES = [(v, b, 200, 128, 42) for b in (840, 160) for v in (3, 4)]
 LUMA_FULL_SHAPES = [(v, b, 200, 128, 42) for b in (4200, 800) for v in (3, 4)]
+# seed-batched LUMA (phase 23): the validation of five seeds' stacked heads in
+# one launch, S x V = 15 and 20 heads, on the cut and the full corpus's test
+# rows (and the OOD rows' sizes, which a seed-batched evaluation would take)
+LUMA_STACKED_SHAPES = [(len(SEEDS) * v, b, 200, 128, 42) for b in (840, 160, 4200, 800)
+                       for v in (3, 4)]
 MAIN_PATH_SHAPES = (SERVING_SHAPES + VALIDATION_SHAPES + STACKED_SHAPES + SYNTHETIC_SHAPES
                     + SYNTHETIC_STACKED_SHAPES + SCENE_STACKED_SHAPES + LUMA_SHAPES
-                    + LUMA_FULL_SHAPES)
+                    + LUMA_FULL_SHAPES + LUMA_STACKED_SHAPES)
 # times at these besides the device time: plain and library
 TIMED_SHAPES = (SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + CUB_SHAPES + SCENE_STACKED_SHAPES
-                + [(4, 4200, 200, 128, 42), (3, 840, 200, 128, 42)])
+                + [(4, 4200, 200, 128, 42), (3, 840, 200, 128, 42)] + LUMA_STACKED_SHAPES)
 # (S, V, B, D, H, C) of the probe epoch: dmvae_cml on HandWritten (16 steps
 # of 100 rows), then on the synthetic sweep (62 steps of 128 rows, the tail
 # dropped; D=16 over DMVAE, 32 over DSSL)
@@ -323,7 +353,7 @@ def phase_kernel_checks(ck):
     # the validation shapes, a wider head (two H tiles per block of a cluster)
     shapes += VALIDATION_SHAPES + STACKED_SHAPES + [(7, 256, 200, 256, 10), (3, 97, 59, 256, 15)]
     shapes += SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + SYNTHETIC_QUICK_SHAPES
-    shapes += SCENE_STACKED_SHAPES + LUMA_SHAPES + LUMA_FULL_SHAPES
+    shapes += SCENE_STACKED_SHAPES + LUMA_SHAPES + LUMA_FULL_SHAPES + LUMA_STACKED_SHAPES
     worst = 0.0
     for i, (v, b, d, h, c) in enumerate(shapes):
         args = head_inputs(v, b, d, h, c, seed=i)
@@ -1734,20 +1764,72 @@ class _Replay:
         return lambda *args: self.draws.pop(0).to(self.device)
 
 
-def phase_luma_card_vs_cpu(card, corpus, device="cuda"):
-    """One cml_fusion fit of one epoch over the LUMA encoders on the card
-    and on the CPU, on the cut corpus's first 640 train rows, from the same
-    weights and draws: losses at rtol 1e-4 / atol 1e-5; parameters and
-    running statistics at rtol 5e-3 / atol 5e-5, except the convolutions'
-    biases, whose true gradient is 0 under the BatchNorm after them (Adam
-    turns their rounding-noise gradients into steps of up to lr of either
-    sign: held within 2 lr per step), and the running means, which carry
-    (1 - momentum) of those biases' drift each step (held within that much
-    more). An entry whose gradient is at rounding level gets Adam steps of
-    up to lr of either sign on either side too: at most one entry in 1000
-    of a tensor may lie beyond rtol 5e-3 / atol 5e-5, and none beyond one
-    lr (PERF.md has the measured gap)."""
-    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+# each gradient's gap in Frobenius norm over its norm: three times the largest
+# of 2400 readings on the card (1.55e-2, PERF.md section 2); a sample within
+# rounding of a kink (a ReLU, the evidence's clip at 10) moves its whole
+# contribution to the step's gradient
+LUMA_GRAD_TOL = 5e-2
+
+
+def luma_step_gaps(got, ref):
+    """Two readings of one LUMA step from the same state (``_step_reading``):
+    the step's loss and the validation loss after it, and each running
+    statistic's largest entry, as gaps over rtol 1e-4 / atol 1e-5; each
+    gradient's gap in Frobenius norm over its norm ("grad") and its largest
+    entry's gap over its largest abs value ("grad_max", not held: a sample
+    on the other side of a ReLU after a BatchNorm moves single entries).
+    The convolutions' biases are left out: their true gradient is 0 under
+    the BatchNorm after them, and what is left is rounding."""
+    out = {key: abs(got[key] - ref[key]) / (ATOL + RTOL * abs(ref[key]))
+           for key in ("loss", "val_loss")}
+    for key, g in ref["grads"].items():
+        if not (".conv." in key and key.endswith(".bias")):
+            diff = got["grads"][key] - g
+            out[f"grad {key}"] = float(diff.norm() / g.norm().clamp_min(1e-30))
+            out[f"grad_max {key}"] = float(diff.abs().max() / g.abs().max().clamp_min(1e-30))
+    for key, st in ref["stats"].items():
+        out[f"stat {key}"] = float(((got["stats"][key] - st).abs()
+                                    / (ATOL + RTOL * st.abs())).max())
+    return out
+
+
+LUMA_STEP_LIMITS = {"loss": 1.0, "val_loss": 1.0, "stat": 1.0, "grad": LUMA_GRAD_TOL}
+
+
+def luma_step_faults(gaps):
+    """The gaps of ``luma_step_gaps`` beyond ``LUMA_STEP_LIMITS``."""
+    return {key: round(v, 6) for key, v in gaps.items()
+            if key.split()[0] in LUMA_STEP_LIMITS
+            and not v <= LUMA_STEP_LIMITS[key.split()[0]]}
+
+
+def check_luma_step(got, ref, label):
+    """``luma_step_gaps`` held to ``LUMA_STEP_LIMITS``; returns the largest
+    gap of each kind."""
+    gaps = luma_step_gaps(got, ref)
+    bad = luma_step_faults(gaps)
+    if bad:
+        raise AssertionError(f"{label}: beyond the limits {bad}")
+    worst = {}
+    for key, v in gaps.items():
+        kind = key.split()[0]
+        worst[kind] = max(worst.get(kind, 0.0), v)
+    return worst
+
+
+def _step_reading(loss, val_loss, names, moments, stats):
+    """One step's loss, validation loss, gradients (a fresh Adam's first
+    moment after one step is (1 - beta1) g) and running statistics."""
+    from disentagled_multimodal_fusion_tpu_torch.ops.adam import B1
+
+    return {"loss": float(loss), "val_loss": float(val_loss),
+            "grads": {n: m.detach().cpu() / (1.0 - B1) for n, (m, _) in zip(names, moments)},
+            "stats": {k: v.detach().cpu().clone() for k, v in stats.items()}}
+
+
+def _luma_step_setup(corpus):
+    """The config, encoder specs, classes, first 640 train rows, first 200
+    test rows and batch size of the LUMA step checks."""
     from disentagled_multimodal_fusion_tpu_torch.data.luma import get_luma_arrays
     from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
     from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
@@ -1756,59 +1838,114 @@ def phase_luma_card_vs_cpu(card, corpus, device="cuda"):
     audio, text, image = run_luma.feature_configs(C)
     specs = run_luma.encoder_specs(audio, text)
     xs_tr, y_tr, xs_te, y_te, classes, _, _ = get_luma_arrays(corpus, audio, text, image)
-    n, n_val, batch = min(640, len(y_tr)), min(200, len(y_te)), C("dataloader.batch_size")
-    results, recorder = {}, _Recorder(Randomness(8, "cpu"))
-    for device in ("cpu", device):
-        task = run_luma.head_builders(C, classes, 1, specs, device)["cml_fusion"](6)
-        data = {"xs": run_luma.to_device([x[:n] for x in xs_tr], device),
-                "y": torch.from_numpy(y_tr[:n]).to(device)}
-        val = {"xs": run_luma.to_device([x[:n_val] for x in xs_te], device),
-               "y": torch.from_numpy(y_te[:n_val]).to(device)}
-        t0 = time.perf_counter()
-        res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=n,
-                    optimizer=task.optimizer, epochs=1, batch_size=batch,
-                    randomness=recorder if device == "cpu" else _Replay(recorder.draws, device),
-                    val_fn=task.val_fn, val_data=val)
-        results[device] = (res, {k: v.detach().cpu() for k, v in task.model.state_dict().items()},
-                           time.perf_counter() - t0)
-    (ref, ref_state, cpu_s), (got, got_state, card_s) = results["cpu"], results[device]
-    for key in ("train_loss", "val_loss"):
-        assert_close(torch.as_tensor(getattr(got, key)), torch.as_tensor(getattr(ref, key)),
-                     f"luma card vs CPU {key}")
-    steps, lr = -(-n // batch), C("optim.luma_lr")
-    gaps, beyond = {}, {}
-    for key, want in ref_state.items():
-        have = got_state[key]
-        if ".conv." in key and key.endswith(".bias"):
-            gaps[key] = assert_close(have, want, f"luma card vs CPU {key}", rtol=0.0,
-                                     atol=2 * lr * steps)[0]
-            continue
-        atol = 5e-5 + (0.01 * lr * steps * (steps + 1) if key.endswith(".mean") else 0.0)
-        err = (have - want).abs()
-        bad = int((err > atol + 5e-3 * want.abs()).sum())
-        if bad:
-            beyond[key] = bad
-        if bad > want.numel() // 1000:
-            raise AssertionError(f"luma card vs CPU {key}: {bad} of {want.numel()} entries beyond "
-                                 f"rtol 5e-3 / atol {atol:.2e}, max abs err {float(err.max()):.3e}")
-        gaps[key] = assert_close(have, want, f"luma card vs CPU {key}", rtol=5e-3,
-                                 atol=max(atol, lr))[0]
-    worst = sorted(gaps.items(), key=lambda kv: kv[1])[-3:]
-    log(f"luma card vs CPU: cml_fusion 1 epoch on {n} rows: train loss {float(got.train_loss[0]):.6f}"
-        f" (CPU {float(ref.train_loss[0]):.6f}), val loss {float(got.val_loss[0]):.6f} (CPU "
-        f"{float(ref.val_loss[0]):.6f}), val acc {float(got.val_acc[0]):.4f} (CPU "
-        f"{float(ref.val_acc[0]):.4f}); largest state gaps {worst}; entries beyond rtol 5e-3 / "
-        f"atol 5e-5 {beyond}; fit {card_s:.2f} s on the "
-        f"card, {cpu_s:.2f} s on the CPU [{card}]")
+    n, n_val = min(640, len(y_tr)), min(200, len(y_te))
+    return (C, specs, classes, ([x[:n] for x in xs_tr], y_tr[:n]),
+            ([x[:n_val] for x in xs_te], y_te[:n_val]), C("dataloader.batch_size"))
 
 
-def phase_luma(ck, pm, card):
+def _luma_rows(split, device, rows=slice(None)):
+    from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
+
+    xs, y = split
+    return {"xs": run_luma.to_device([x[rows] for x in xs], device),
+            "y": torch.from_numpy(y[rows]).to(device)}
+
+
+def _luma_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _trainable(model):
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _stats(model):
+    from disentagled_multimodal_fusion_tpu_torch.core.train import model_state_names
+
+    state = model.state_dict()
+    return {k: state[k] for k in model_state_names(model)}
+
+
+def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
+    """One cml_fusion epoch over the LUMA encoders on the cut corpus's first
+    640 train rows, held step by step on the card against the CPU. At each
+    step of 64 rows both sides take a one-step fit at lr 0 from the CPU's
+    state with the CPU's draws (``check_luma_step``: the loss, the
+    validation on 200 rows, the gradients and the running statistics);
+    then the CPU takes the step at the config's lr. The parameters after a
+    step are not compared: Adam turns gradients at rounding level into
+    steps of lr of either sign, and over an epoch the two trajectories part
+    by up to 8 lr (PERF.md section 2). ``trial`` k draws the weights and
+    draws from other generators; without ``check`` nothing is held, and it
+    returns each step's ``luma_step_gaps``."""
+    import dataclasses
+
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+    from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
+
+    C, specs, classes, tr, te, batch = _luma_step_setup(corpus)
+    steps = len(tr[1]) // batch
+    recorder = _Recorder(Randomness(16 * trial + 8, "cpu"))
+    sides = {"cpu": "cpu", "card": device}
+    tasks = {side: run_luma.head_builders(C, classes, 1, specs, dev)["cml_fusion"](16 * trial + 6)
+             for side, dev in sides.items()}
+    val = {side: _luma_rows(te, dev) for side, dev in sides.items()}
+    frozen = dataclasses.replace(tasks["cpu"].optimizer, lr=0.0)
+    readings, worst, secs = [], {}, {"cpu": 0.0, "card": 0.0}
+    for k in range(steps):
+        before, first, got = _luma_state(tasks["cpu"].model), len(recorder.draws), {}
+        for side, dev in sides.items():
+            task = tasks[side]
+            if side == "card":
+                task.model.load_state_dict(before)
+            t0 = time.perf_counter()
+            res = train(model=task.model, loss_fn=task.loss_fn, n_train=batch,
+                        data=_luma_rows(tr, dev, slice(k * batch, (k + 1) * batch)),
+                        optimizer=frozen, epochs=1, batch_size=batch,
+                        randomness=(recorder if side == "cpu"
+                                    else _Replay(recorder.draws[first:], dev)),
+                        val_fn=task.val_fn, val_data=val[side])
+            secs[side] += time.perf_counter() - t0
+            got[side] = _step_reading(res.train_loss[0], res.val_loss[0],
+                                      _trainable(task.model), res.state.moments,
+                                      _stats(task.model))
+        if not check:
+            readings.append(luma_step_gaps(got["card"], got["cpu"]))
+        else:
+            for kind, gap in check_luma_step(got["card"], got["cpu"],
+                                             f"luma card vs CPU step {k}").items():
+                worst[kind] = max(worst.get(kind, 0.0), gap)
+        task = tasks["cpu"]
+        train(model=task.model, loss_fn=task.loss_fn, n_train=batch,
+              data=_luma_rows(tr, "cpu", slice(k * batch, (k + 1) * batch)),
+              optimizer=task.optimizer, epochs=1, batch_size=batch, randomness=recorder)
+    if not check:
+        return readings
+    log(f"luma card vs CPU: cml_fusion, {steps} steps of {batch} rows, each from the CPU's "
+        f"state: last step's loss {got['card']['loss']:.6f} (CPU {got['cpu']['loss']:.6f}), "
+        f"val loss {got['card']['val_loss']:.6f} (CPU {got['cpu']['val_loss']:.6f}); largest "
+        f"gaps {worst}; steps {secs['card']:.2f} s on the card, "
+        f"{secs['cpu']:.2f} s on the CPU [{card}]")
+
+
+def luma_corpus(root):
+    """Phase 22's corpus (``LUMA_CORPUS``) under ``root``; phase 23 reads it
+    and its feature cache too."""
+    from disentagled_multimodal_fusion_tpu_torch.data.luma import make_fake_luma
+
+    t0 = time.perf_counter()
+    corpus = make_fake_luma(str(Path(root) / "corpus"), **LUMA_CORPUS)
+    log(f"luma: corpus of {LUMA_CORPUS} written in {time.perf_counter() - t0:.1f} s")
+    return corpus
+
+
+def phase_luma(ck, pm, card, root, corpus):
     """The LUMA protocol, runners/run_luma.py main, seed 0, --ood-eval
     --include-intermediate --rows-file, at the config's full width and depth
     on a corpus cut in rows; its resume; runners/evaluate.py on its
     checkpoints; and the card against the CPU. Returns the head kernel's
-    launches and launches by shape."""
-    from disentagled_multimodal_fusion_tpu_torch.data.luma import make_fake_luma
+    launches, its launches by shape, and the DMVAE's and each model's fit
+    seconds."""
     from disentagled_multimodal_fusion_tpu_torch.runners import evaluate, run_luma
     from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
 
@@ -1817,89 +1954,287 @@ def phase_luma(ck, pm, card):
     test_rows = LUMA_CORPUS["n_classes"] * LUMA_CORPUS["test_per_class"]
     ood_rows = LUMA_CORPUS["ood_classes"] * LUMA_CORPUS["test_per_class"]
     t_phase = time.perf_counter()
-    with artifact_root("luma_") as root:
+    argv = ["--data-path", corpus, "--seeds", "0", "--ood-eval", "--include-intermediate",
+            "--rows-file", str(Path(root) / "rows.json")]
+    tee = _Tee()
+    with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
+        pm.run_epoch_kernel.launches = 0
+        ck.evidential_heads_stacked.launches = 0
         t0 = time.perf_counter()
-        corpus = make_fake_luma(str(Path(root) / "corpus"), **LUMA_CORPUS)
-        log(f"luma: corpus of {LUMA_CORPUS} written in {time.perf_counter() - t0:.1f} s")
-        argv = ["--data-path", corpus, "--seeds", "0", "--ood-eval", "--include-intermediate",
-                "--rows-file", str(Path(root) / "rows.json")]
-        tee = _Tee()
-        with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
+        rows = run_luma.main(argv)
+        wall = time.perf_counter() - t0
+        epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+    text = tee.text()
+    feat_s = float(re.search(r"featurized in ([0-9.]+) s", text).group(1))
+    dmvae_s = float(re.search(r"DMVAE trained: ([0-9.]+) s", text).group(1))
+    models = rows[0]["Normal"]["LUMA"]
+    want = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion",
+            "avg_fusion", "intermediate_fusion"]
+    if sorted(models) != sorted(want):
+        raise AssertionError(f"luma: rows {sorted(models)}")
+    log(f"luma: featurization {feat_s:.2f} s, DMVAE fit {dmvae_s:.2f} s "
+        f"({1e3 * dmvae_s / dmvae_epochs:.3f} ms/epoch) [{card}]")
+    for name in want:
+        info = models[name]
+        _finite_row(name, info)
+        ood = info["ood"]
+        if sorted(ood) != ["auroc_aleatoric", "auroc_epistemic", "auroc_neg_evidence"] or \
+                not all(0.0 <= v <= 1.0 for v in ood.values()):
+            raise AssertionError(f"luma {name}: OOD AUROCs {ood}")
+        acc = info["fused"]["accuracy"]
+        jax_acc = (f" (the JAX package on the CPU: {JAX_LUMA_ACCURACY[name]:.4f})"
+                   if name in JAX_LUMA_ACCURACY else "")
+        log(f"luma {name}: fused accuracy {acc:.4f}{jax_acc}, fit {info['fit_seconds']:.2f} s,"
+            f" {1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch, OOD AUROC "
+            + ", ".join(f"{k[6:]} {v:.4f}" for k, v in ood.items()) + f" [{card}]")
+        if name.endswith("_fusion") and name != "intermediate_fusion" \
+                and not acc >= LUMA_LATE_FLOOR:
+            raise AssertionError(f"luma {name} fused accuracy {acc:.4f} < {LUMA_LATE_FLOOR}")
+    if epochs:
+        raise AssertionError(f"luma: probe_epoch launched {epochs} times, expected 0")
+    expected = _luma_head_shapes(probe_epochs, test_rows, ood_rows)
+    if dict(shapes) != expected or heads != sum(expected.values()):
+        raise AssertionError(f"luma: evidential_head launched {heads} times, by shape "
+                             f"{dict(shapes)}, expected {expected}")
+    log(f"luma: protocol in {wall:.1f} s; probe_epoch launched 0 times, evidential_head "
+        f"{heads} times (by shape {dict(shapes)}) [{card}]")
+
+    # the same command again: every seed is in the rows file
+    calls, real = [], run_luma.run_seed
+    run_luma.run_seed = lambda **kw: calls.append(kw) or real(**kw)
+    tee = _Tee()
+    try:
+        with contextlib.redirect_stdout(tee):
             pm.run_epoch_kernel.launches = 0
             ck.evidential_heads_stacked.launches = 0
             t0 = time.perf_counter()
-            rows = run_luma.main(argv)
-            wall = time.perf_counter() - t0
-            epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
-        text = tee.text()
-        feat_s = float(re.search(r"featurized in ([0-9.]+) s", text).group(1))
-        dmvae_s = float(re.search(r"DMVAE trained: ([0-9.]+) s", text).group(1))
-        models = rows[0]["Normal"]["LUMA"]
-        want = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion",
-                "avg_fusion", "intermediate_fusion"]
+            again = run_luma.main(argv)
+            resume_s = time.perf_counter() - t0
+            launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
+    finally:
+        run_luma.run_seed = real
+    if "--rows-file: resuming; 1 completed seed(s) found [0]" not in tee.text():
+        raise AssertionError("luma resume: no resume line")
+    if calls or launched:
+        raise AssertionError(f"luma resume trained: {len(calls)} seeds, {launched} launches")
+    if json.dumps(again[0], sort_keys=True) != json.dumps(rows[0], sort_keys=True):
+        raise AssertionError("luma resume: the rows differ")
+    log(f"luma: resumed in {resume_s:.1f} s with nothing trained")
+
+    for name in ("dmvae_cml", "cml_fusion"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            info = evaluate.main(["--model", name, "--dataset", "LUMA", "--seed", "0",
+                                  "--data-path", corpus])
+        got, want_acc = info["fused"]["accuracy"], models[name]["fused"]["accuracy"]
+        if got != want_acc:
+            raise AssertionError(f"luma evaluate.py {name}: fused accuracy {got}, the run "
+                                 f"{want_acc}")
+        log(f"luma: evaluate.py {name} from its checkpoints: fused accuracy {got:.4f}, as "
+            f"the run reported [{card}]")
+    phase_luma_card_vs_cpu(card, corpus)
+    log(f"luma: phase 22 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    fits = {"dmvae": dmvae_s, **{name: models[name]["fit_seconds"] for name in want}}
+    return heads, dict(shapes), fits
+
+
+def _luma_stacked_head_shapes(epochs, seeds, test_rows, ood_rows):
+    """The head kernel's launches of ``run_luma.py --vmap-seeds --ood-eval``:
+    per stacked-head fit one launch at S x V heads per validation epoch,
+    then per seed one for its evaluation, one for the ID and one for the OOD
+    evidences at V heads; intermediate concat's one head is plain."""
+    s = len(seeds)
+    return {shape_key(3 * s, test_rows, 200, 128, 42): 4 * epochs,  # dmvae_dis, late fusions
+            shape_key(4 * s, test_rows, 200, 128, 42): 2 * epochs,  # dmvae_cml, dmvae_joint
+            shape_key(3, test_rows, 200, 128, 42): 4 * s * 2,
+            shape_key(4, test_rows, 200, 128, 42): 2 * s * 2,
+            shape_key(3, ood_rows, 200, 128, 42): 4 * s,
+            shape_key(4, ood_rows, 200, 128, 42): 2 * s}
+
+
+def phase_luma_many_vs_train(card, corpus, n_seeds=len(SEEDS), trial=0, check=True,
+                             device="cuda"):
+    """One cml_fusion epoch on the cut corpus's first 640 train rows, held
+    step by step seed-batched against per seed on the card. At each step of
+    64 rows one ``train_many`` with each seed's BatchNorm statistics and
+    each seed's ``train`` take a one-step fit at lr 0 from the seeds' states
+    and generators (``check_luma_step``, phase 22's: batched and single
+    cuDNN convolutions sum in another order); then each seed takes the step
+    at the config's lr. ``trial`` k takes the seeds k n_seeds onwards;
+    without ``check`` nothing is held, and it returns each step and seed's
+    ``luma_step_gaps``."""
+    import dataclasses
+
+    from disentagled_multimodal_fusion_tpu_torch.core.train import (
+        Randomness,
+        stack_model_state,
+        stack_params,
+        train,
+        train_many,
+    )
+    from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
+
+    C, specs, classes, tr, te, batch = _luma_step_setup(corpus)
+    steps = len(tr[1]) // batch
+    seeds = [n_seeds * trial + s for s in range(n_seeds)]
+    build = run_luma.head_builders(C, classes, 1, specs, device)["cml_fusion"]
+    tasks = [build(16 * u + 6) for u in seeds]
+    rands = [Randomness(16 * u + 10, device) for u in seeds]
+    models = [t.model for t in tasks]
+    frozen = dataclasses.replace(tasks[0].optimizer, lr=0.0)
+    fit = dict(n_train=batch, epochs=1, batch_size=batch, val_data=_luma_rows(te, device))
+    readings, worst, many_s, seq_s = [], {}, 0.0, 0.0
+    for k in range(steps):
+        part = _luma_rows(tr, device, slice(k * batch, (k + 1) * batch))
+        starts = []
+        for r in rands:
+            starts.append(Randomness(0, device))
+            starts[-1].restore(r.state())
+        sync(device)
+        t0 = time.perf_counter()
+        many = train_many(model=models[0], params=stack_params(models), loss_fn=tasks[0].loss_fn,
+                          model_state=stack_model_state(models), data=part, randomness=starts,
+                          optimizer=frozen, val_fn=tasks[0].val_fn, data_broadcast=True, **fit)
+        sync(device)
+        many_s += time.perf_counter() - t0
+        for s, task in enumerate(tasks):
+            t0 = time.perf_counter()
+            one = train(model=task.model, loss_fn=task.loss_fn, randomness=rands[s], data=part,
+                        optimizer=frozen, val_fn=task.val_fn, **fit)
+            seq_s += time.perf_counter() - t0
+            want = _step_reading(one.train_loss[0], one.val_loss[0], _trainable(task.model),
+                                 one.state.moments, _stats(task.model))
+            got = _step_reading(many.train_loss[s, 0], many.val_loss[s, 0], list(many.params),
+                                [(m[s], v[s]) for m, v in many.state.moments],
+                                {key: v[s] for key, v in many.state.model_state.items()})
+            if not check:
+                readings.append(luma_step_gaps(got, want))
+                continue
+            for kind, gap in check_luma_step(
+                    got, want, f"luma train_many vs train step {k} seed {s}").items():
+                worst[kind] = max(worst.get(kind, 0.0), gap)
+        for task, r in zip(tasks, rands):
+            train(model=task.model, loss_fn=task.loss_fn, randomness=r, data=part,
+                  optimizer=task.optimizer, **{**fit, "val_data": None})
+    if not check:
+        return readings
+    log(f"luma train_many vs train: {n_seeds} seeds of cml_fusion, {steps} steps of {batch} "
+        f"rows, each from the seeds' states: largest gaps {worst}; train_many "
+        f"{many_s:.2f} s, the train steps {seq_s:.2f} s [{card}]")
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_luma_seed_batched(ck, pm, card, corpus, seq_fits):
+    """The seed-batched LUMA protocol, runners/run_luma.py --vmap-seeds
+    --seeds 0-4 --ood-eval --include-intermediate --segment-epochs 2
+    --rows-file, at the config's full width and depth on phase 22's corpus
+    (its feature cache read back); its resume; runners/evaluate.py for seeds
+    0 and 4; and train_many against train on the card. Returns the head
+    kernel's launches and launches by shape."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import evaluate, run_luma
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config("luma_config.yaml"))
+    probe_epochs, dmvae_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
+    test_rows = LUMA_CORPUS["n_classes"] * LUMA_CORPUS["test_per_class"]
+    ood_rows = LUMA_CORPUS["ood_classes"] * LUMA_CORPUS["test_per_class"]
+    t_phase = time.perf_counter()
+    root = os.environ["DMF_ARTIFACT_ROOT"]
+    argv = ["--data-path", corpus, "--vmap-seeds", "--seeds", *map(str, SEEDS), "--ood-eval",
+            "--include-intermediate", "--segment-epochs", "2", "--rows-file",
+            str(Path(root) / "rows.json")]
+    tee = _Tee()
+    with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
+        pm.run_epoch_kernel.launches = 0
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        rows = run_luma.main(argv)
+        wall = time.perf_counter() - t0
+        epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+    text = tee.text()
+    if re.search(r"featurized in ([0-9.]+) s", text) is None:
+        raise AssertionError("luma seed-batched: no featurization line")
+    feat_s = float(re.search(r"featurized in ([0-9.]+) s", text).group(1))
+    dmvae_s = float(re.search(rf"DMVAE x{len(SEEDS)} seeds trained: ([0-9.]+) s", text).group(1))
+    want = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion", "avg_fusion",
+            "intermediate_fusion"]
+    log(f"luma seed-batched: featurization {feat_s:.2f} s (the cache of phase 22); DMVAE x"
+        f"{len(SEEDS)} fit {dmvae_s:.2f} s ({1e3 * dmvae_s / dmvae_epochs:.3f} ms/epoch; phase "
+        f"22's one seed {seq_fits['dmvae']:.2f} s, {1e3 * seq_fits['dmvae'] / dmvae_epochs:.3f} "
+        f"ms/epoch) [{card}]")
+    for s in SEEDS:
+        models = rows[s]["Normal"]["LUMA"]
         if sorted(models) != sorted(want):
-            raise AssertionError(f"luma: rows {sorted(models)}")
-        log(f"luma: featurization {feat_s:.2f} s, DMVAE fit {dmvae_s:.2f} s "
-            f"({1e3 * dmvae_s / dmvae_epochs:.3f} ms/epoch) [{card}]")
+            raise AssertionError(f"luma seed-batched seed {s}: rows {sorted(models)}")
         for name in want:
             info = models[name]
-            _finite_row(name, info)
-            ood = info["ood"]
-            if sorted(ood) != ["auroc_aleatoric", "auroc_epistemic", "auroc_neg_evidence"] or \
-                    not all(0.0 <= v <= 1.0 for v in ood.values()):
-                raise AssertionError(f"luma {name}: OOD AUROCs {ood}")
+            _finite_row(f"seed {s} {name}", info)
+            if not all(0.0 <= v <= 1.0 for v in info["ood"].values()):
+                raise AssertionError(f"luma seed-batched seed {s} {name}: OOD {info['ood']}")
             acc = info["fused"]["accuracy"]
-            jax_acc = (f" (the JAX package on the CPU: {JAX_LUMA_ACCURACY[name]:.4f})"
-                       if name in JAX_LUMA_ACCURACY else "")
-            log(f"luma {name}: fused accuracy {acc:.4f}{jax_acc}, fit {info['fit_seconds']:.2f} s,"
-                f" {1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch, OOD AUROC "
-                + ", ".join(f"{k[6:]} {v:.4f}" for k, v in ood.items()) + f" [{card}]")
-            if name.endswith("_fusion") and name != "intermediate_fusion" \
-                    and not acc >= LUMA_LATE_FLOOR:
-                raise AssertionError(f"luma {name} fused accuracy {acc:.4f} < {LUMA_LATE_FLOOR}")
-        if epochs:
-            raise AssertionError(f"luma: probe_epoch launched {epochs} times, expected 0")
-        expected = _luma_head_shapes(probe_epochs, test_rows, ood_rows)
-        if dict(shapes) != expected or heads != sum(expected.values()):
-            raise AssertionError(f"luma: evidential_head launched {heads} times, by shape "
-                                 f"{dict(shapes)}, expected {expected}")
-        log(f"luma: protocol in {wall:.1f} s; probe_epoch launched 0 times, evidential_head "
-            f"{heads} times (by shape {dict(shapes)}) [{card}]")
+            if name in ("dbf_fusion", "cml_fusion", "avg_fusion") and not acc >= LUMA_LATE_FLOOR:
+                raise AssertionError(f"luma seed-batched seed {s} {name} fused accuracy "
+                                     f"{acc:.4f} < {LUMA_LATE_FLOOR}")
+        log(f"luma seed-batched seed {s}: fused accuracies "
+            + str({n: round(models[n]["fused"]["accuracy"], 4) for n in want})
+            + ", epistemic AUROCs "
+            + str({n: round(models[n]["ood"]["auroc_epistemic"], 4) for n in want}))
+    for name in want:
+        fit_s = rows[SEEDS[0]]["Normal"]["LUMA"][name]["fit_seconds"]
+        log(f"luma seed-batched {name} fit x{len(SEEDS)}: {fit_s:.2f} s, "
+            f"{1e3 * fit_s / probe_epochs:.3f} ms/epoch (phase 22's one seed: "
+            f"{seq_fits[name]:.2f} s, {1e3 * seq_fits[name] / probe_epochs:.3f} ms/epoch) "
+            f"[{card}]")
+    if epochs:
+        raise AssertionError(f"luma seed-batched: probe_epoch launched {epochs} times, expected 0")
+    expected = _luma_stacked_head_shapes(probe_epochs, SEEDS, test_rows, ood_rows)
+    if dict(shapes) != expected or heads != sum(expected.values()):
+        raise AssertionError(f"luma seed-batched: evidential_head launched {heads} times, by "
+                             f"shape {dict(shapes)}, expected {expected}")
+    log(f"luma seed-batched: seeds {list(SEEDS)} in {wall:.1f} s ({wall / len(SEEDS):.1f} s per "
+        f"seed); probe_epoch launched 0 times, evidential_head {heads} times (by shape "
+        f"{dict(shapes)}) [{card}]")
 
-        # the same command again: every seed is in the rows file
-        calls, real = [], run_luma.run_seed
-        run_luma.run_seed = lambda **kw: calls.append(kw) or real(**kw)
-        tee = _Tee()
-        try:
-            with contextlib.redirect_stdout(tee):
-                pm.run_epoch_kernel.launches = 0
-                ck.evidential_heads_stacked.launches = 0
-                t0 = time.perf_counter()
-                again = run_luma.main(argv)
-                resume_s = time.perf_counter() - t0
-                launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
-        finally:
-            run_luma.run_seed = real
-        if "--rows-file: resuming; 1 completed seed(s) found [0]" not in tee.text():
-            raise AssertionError("luma resume: no resume line")
-        if calls or launched:
-            raise AssertionError(f"luma resume trained: {len(calls)} seeds, {launched} launches")
-        if json.dumps(again[0], sort_keys=True) != json.dumps(rows[0], sort_keys=True):
-            raise AssertionError("luma resume: the rows differ")
-        log(f"luma: resumed in {resume_s:.1f} s with nothing trained")
+    # the same command again: every seed is in the rows file
+    calls, real = [], run_luma.run_seeds_batched
+    run_luma.run_seeds_batched = lambda **kw: calls.append(kw) or real(**kw)
+    tee = _Tee()
+    try:
+        with contextlib.redirect_stdout(tee):
+            pm.run_epoch_kernel.launches = 0
+            ck.evidential_heads_stacked.launches = 0
+            t0 = time.perf_counter()
+            again = run_luma.main(argv)
+            resume_s = time.perf_counter() - t0
+            launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
+    finally:
+        run_luma.run_seeds_batched = real
+    if "--rows-file: every seed complete, skipping training" not in tee.text():
+        raise AssertionError("luma seed-batched resume: no resume line")
+    if calls or launched:
+        raise AssertionError(f"luma seed-batched resume trained: {len(calls)} calls, "
+                             f"{launched} launches")
+    if json.dumps(again, sort_keys=True) != json.dumps(rows, sort_keys=True):
+        raise AssertionError("luma seed-batched resume: the rows differ")
+    log(f"luma seed-batched: resumed in {resume_s:.1f} s with nothing trained")
 
+    for s in (SEEDS[0], SEEDS[-1]):
         for name in ("dmvae_cml", "cml_fusion"):
             with contextlib.redirect_stdout(io.StringIO()):
-                info = evaluate.main(["--model", name, "--dataset", "LUMA", "--seed", "0",
+                info = evaluate.main(["--model", name, "--dataset", "LUMA", "--seed", str(s),
                                       "--data-path", corpus])
-            got, want_acc = info["fused"]["accuracy"], models[name]["fused"]["accuracy"]
-            if got != want_acc:
-                raise AssertionError(f"luma evaluate.py {name}: fused accuracy {got}, the run "
-                                     f"{want_acc}")
-            log(f"luma: evaluate.py {name} from its checkpoints: fused accuracy {got:.4f}, as "
-                f"the run reported [{card}]")
-        phase_luma_card_vs_cpu(card, corpus)
-    log(f"luma: phase 22 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+            got, ref = info["fused"]["accuracy"], rows[s]["Normal"]["LUMA"][name]["fused"][
+                "accuracy"]
+            if got != ref:
+                raise AssertionError(f"luma seed-batched evaluate.py seed {s} {name}: fused "
+                                     f"accuracy {got}, the run {ref}")
+            log(f"luma seed-batched: evaluate.py seed {s} {name} from its checkpoints: fused "
+                f"accuracy {got:.4f}, as the run reported [{card}]")
+    phase_luma_many_vs_train(card, corpus)
+    log(f"luma seed-batched: phase 23 in {time.perf_counter() - t_phase:.1f} s [{card}]")
     return heads, dict(shapes)
 
 
@@ -2003,6 +2338,49 @@ def engine_times_only(card):
     return 0
 
 
+def luma_state_trials(card, trials):
+    """``--luma-state-trials N``: phase 22's card-vs-CPU steps and phase
+    23's ``train_many``-vs-``train`` steps (five seeds) N times, each time
+    from other weights and draws, on phase 22's corpus. Holds nothing:
+    prints, per comparison, how many trials and readings (one per step, and
+    seed) ``check_luma_step`` would refuse, and the largest gap of each
+    loss, gradient and statistic (``luma_step_gaps``), as one JSON line."""
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+
+    configure()
+    cuda_build.build([ck.KERNEL_SOURCE])
+    runs = {"card_vs_cpu": [], "many_vs_train": []}
+    with artifact_root("luma_trials_") as root:
+        corpus = luma_corpus(root)
+        for t in range(trials):
+            runs["card_vs_cpu"].append(
+                phase_luma_card_vs_cpu(card, corpus, trial=t, check=False))
+            runs["many_vs_train"].append(
+                phase_luma_many_vs_train(card, corpus, trial=t, check=False))
+    summary = {}
+    for name, by_trial in runs.items():
+        flat = [gaps for trial in by_trial for gaps in trial]
+        largest = {}
+        for gaps in flat:
+            for key, v in gaps.items():
+                largest[key] = max(largest.get(key, 0.0), v)
+        kinds = {}
+        for key, v in largest.items():
+            kinds[key.split()[0]] = max(kinds.get(key.split()[0], 0.0), v)
+        summary[name] = {
+            "trials": len(by_trial), "readings": len(flat),
+            "refused_trials": sum(any(luma_step_faults(g) for g in trial) for trial in by_trial),
+            "refused_readings": sum(bool(luma_step_faults(g)) for g in flat),
+            "largest_by_kind": kinds,
+            "largest": dict(sorted(largest.items(), key=lambda kv: -kv[1]))}
+        log(f"luma state trials {name}: {summary[name]} [{card}]")
+    print(json.dumps({"card": card, "limits": LUMA_STEP_LIMITS, "luma_state_trials": summary}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2011,6 +2389,8 @@ def main() -> int:
         return head_times_only(card_line())
     if sys.argv[1:] == ["--engine-times"]:
         return engine_times_only(card_line())
+    if sys.argv[1:2] == ["--luma-state-trials"]:
+        return luma_state_trials(card_line(), int(sys.argv[2]))
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
@@ -2069,7 +2449,12 @@ def main() -> int:
     uf_epochs, uf_heads, uf_shapes, _ = phase_unfused_dmvae(ck, pm, card, fused_bb_ms)
     prof_heads, prof_shapes = phase_seed_batched_profile(ck, card)
     cub_shapes = dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))
-    luma_heads, luma_shapes = phase_luma(ck, pm, card)
+    with artifact_root("luma_") as root:
+        corpus = luma_corpus(root)
+        luma_heads, luma_shapes, luma_fits = phase_luma(ck, pm, card, root, corpus)
+        with artifact_root("luma_vmap_"):
+            luma_sb_heads, luma_sb_shapes = phase_luma_seed_batched(ck, pm, card, corpus,
+                                                                    luma_fits)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -2078,11 +2463,12 @@ def main() -> int:
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
-                     + im_heads + uf_heads + prof_heads + luma_heads),
+                     + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
-                             "scene_profile": prof_heads, "luma": luma_heads},
+                             "scene_profile": prof_heads, "luma": luma_heads,
+                             "luma_seed_batched": luma_sb_heads},
         "max_abs_err": max_abs_err,
         **timing,
         "device_ms_by_shape": device_by_shape,
@@ -2090,7 +2476,7 @@ def main() -> int:
         "launches_by_shape": {"serving": serve_shapes, "training": train_shapes,
                               "seed_batched": sb_shapes, "synthetic": syn_shapes,
                               "cub": cub_shapes, "scene_profile": prof_shapes,
-                              "luma": luma_shapes},
+                              "luma": luma_shapes, "luma_seed_batched": luma_sb_shapes},
     }, {
         "name": "probe_epoch",
         "route": "cuda",
@@ -2099,7 +2485,7 @@ def main() -> int:
         "launches": epoch_launches + syn_epoch_launches + im_epochs + uf_epochs,
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
                              "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
-                             "luma": 0},
+                             "luma": 0, "luma_seed_batched": 0},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

@@ -17,6 +17,10 @@ step (JAX ``core/megakernel.py:113-124``), so an epoch of n = 8000 rows at
 B = 128 is 62 steps, and Adam counts 62 steps per epoch. Unshuffled epochs
 (``shuffle=False``) take the rows in order and draw no permutation.
 Validation and the plateau state run after each epoch as in the step loop.
+A fit resumes mid-training as the step loop does (JAX lines 116 and
+146-152): ``start_epoch`` and a :class:`~.train.TrainState`, whose moments
+are the four stacked parameters' (w1, b1, w2, b2), the probe's parameter
+order, so a state of either program resumes the other.
 
 Scope (``supports_probe_megakernel``): the fused probes with one hidden
 layer of at most 128 units and at most 8 heads, AdamW, cosine/plateau/
@@ -36,11 +40,12 @@ from ..ops.probe_megakernel import MAX_HIDDEN, MAX_VIEWS, run_epoch_kernel
 from .train import (
     OptimizerConfig,
     _finish,
-    _plateau_init,
     batch_sizes,
+    capture_state,
     epoch_batches,
     epoch_order,
     lr_for_epoch,
+    resume_state,
     validate,
 )
 
@@ -115,22 +120,24 @@ def make_probe_megakernel_program(
     val_fn,
     drop_last: bool = False,
     shuffle: bool = True,
+    start_epoch: int = 0,
 ):
-    """``program(stack, randomness, data, val_data) -> TrainResult``, which
-    fits the probe's :class:`~..models.dmvae_fused.StackedMLP` ``stack`` in
-    place."""
+    """``program(stack, randomness, data, val_data, resume=None) ->
+    TrainResult``, which fits the probe's
+    :class:`~..models.dmvae_fused.StackedMLP` ``stack`` in place over epochs
+    [start_epoch, start_epoch + epochs), from ``resume`` (a
+    :class:`~.train.TrainState`) when given."""
     sizes = batch_sizes(n_train, batch_size, drop_last)
     s_total = len(sizes)
     v_heads = desc.num_modalities + (1 if desc.has_shared else 0)
     keep = 1.0 - desc.dropout
     weight_decay = optimizer.weight_decay
 
-    def program(stack, randomness, data, val_data):
+    def program(stack, randomness, data, val_data, resume=None):
         p4 = [stack.w1.data, stack.b1.data, stack.w2.data, stack.b2.data]
         device = p4[0].device
-        mus = tuple(torch.zeros_like(p) for p in p4)
-        nus = tuple(torch.zeros_like(p) for p in p4)
-        plateau = _plateau_init(optimizer, device)
+        moments, count, plateau = resume_state(optimizer, p4, randomness, resume)
+        mus, nus = (tuple(t) for t in zip(*moments))
         xin_all = _stack_views(desc, data)                           # (N, V, pad)
         yoh_all = F.one_hot(data["y"].long(), desc.num_classes).float()
         host_masks = np.zeros((s_total, batch_size, 1), np.float32)
@@ -138,9 +145,8 @@ def make_probe_megakernel_program(
             host_masks[i, :rows] = 1.0
         rmasks = torch.from_numpy(host_masks).to(device)
         weights = torch.tensor(sizes, dtype=torch.float32).to(device)
-        count = 0
         history = []
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, start_epoch + epochs):
             perm = epoch_order(randomness, n_train, shuffle, device)
             lr = lr_for_epoch(optimizer, epoch, plateau[0])
 
@@ -176,6 +182,6 @@ def make_probe_megakernel_program(
             val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau,
                                                   device)
             history.append((train_loss, val_loss, val_acc))
-        return _finish(history, plateau[0])
+        return _finish(history, capture_state(zip(mus, nus), count, plateau, randomness))
 
     return program

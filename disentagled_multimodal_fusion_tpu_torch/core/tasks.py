@@ -225,17 +225,22 @@ def build_disentangledssl_task(
     condzs: bool = True,
     usezsx: bool = False,
     epochs: int = 50,
+    feature_encoders=None,
     device=None,
 ):
     """(model, loss_fn, optimizer) of the DisentangledSSL backbone
     (disentangledssl.py:17-194; JAX ``core/tasks.py:616-675``): Adam + cosine
     over ``epochs``. The loss ignores the row mask, since SupCon couples all
-    rows of a batch, so train it with ``drop_last``."""
+    rows of a batch, so train it with ``drop_last``. With
+    ``feature_encoders`` (two encoder specs) each view goes through its
+    encoder first; ``output_dim`` stays the views' raw widths, and the
+    encoders' keep-masks lead each step's draws."""
     model = _build(DisentangledSSL, seed, device, output_dim=tuple(output_dim),
                    hidden_dim=hidden_dim, embed_dim=embed_dim, a=a, distribution=distribution,
                    vmfkappa=vmfkappa, lmd_start_value=lmd_start_value,
                    lmd_end_value=lmd_end_value, lmd_n_iterations=lmd_n_iterations,
-                   lmd_start_iteration=lmd_start_iteration, condzs=condzs, usezsx=usezsx)
+                   lmd_start_iteration=lmd_start_iteration, condzs=condzs, usezsx=usezsx,
+                   feature_encoders=feature_encoders)
 
     def loss(batch, mask, epoch, draws, step):
         del mask, epoch

@@ -27,16 +27,24 @@ on the device.
   step in the order its own :func:`train` would draw (an
   :class:`Objective` splits a loss's draws from its arithmetic).
 
-* Model state (the LUMA encoders' BatchNorm statistics; JAX lines 190,
-  215-219 and 554) lives in the model's buffers and is carried step by step:
-  each training forward normalises by its batch's statistics and writes the
-  new running ones (``models.layers.batch_norm`` computes them as a
-  function of (input, statistics)); validation, after the epoch's steps,
-  normalises by the running ones. The epoch-kernel predicate declines such
-  fits (no probe has state). :func:`train_many` takes no model state yet.
+* Model state (the LUMA encoders' BatchNorm statistics, the JAX package's
+  ``batch_stats``; JAX lines 190, 215-219 and 554) lives in the model's
+  buffers and is carried step by step: each training forward normalises by
+  its batch's statistics and writes the new running ones
+  (``models.layers.batch_norm`` computes them as a function of (input,
+  statistics)); validation, after the epoch's steps, normalises by the
+  running ones. The epoch-kernel predicate declines such fits (no probe has
+  state). :func:`train_many` stacks the state beside the parameters
+  (:func:`stack_model_state`): each vmapped step hands every instance's
+  statistics to the forward as buffers and takes the new ones back, so each
+  instance keeps its own.
+* Mid-training resume (JAX lines 175-201): ``train(start_epoch=k,
+  resume=result.state)`` continues a fit of k epochs from its optimizer
+  moments, step count, plateau state and generator state (the model holds
+  its parameters and statistics), equal to the uninterrupted fit; so does
+  the epoch-kernel program, from the same :class:`TrainState`.
 
-Left out (``ROADMAP.md``): the mesh, :func:`train_many` over model state
-and the step loop's mid-training resume.
+Left out (``ROADMAP.md``): the mesh.
 """
 
 from __future__ import annotations
@@ -72,6 +80,16 @@ class OptimizerConfig:
     min_lr: float = 0.0
 
 
+class TrainState(NamedTuple):
+    """What an exact resume of :func:`train` needs besides the model, which
+    holds its parameters and statistics."""
+
+    moments: tuple  # an (m, v) pair per trainable parameter, in parameter order
+    count: int      # optimizer steps taken
+    plateau: tuple  # (lr, best, bad), 0-d tensors
+    rng: Any        # the generator's state (None for a randomness without state())
+
+
 class TrainResult(NamedTuple):
     """Per-epoch histories of one fit, fetched once at its end."""
 
@@ -79,6 +97,7 @@ class TrainResult(NamedTuple):
     val_loss: np.ndarray    # (E,) nan without validation
     val_acc: np.ndarray     # (E,) nan without validation
     final_lr: float
+    state: Optional[TrainState] = None  # for train(start_epoch=, resume=)
 
 
 class Randomness:
@@ -239,12 +258,34 @@ def gather_rows(data, idx: torch.Tensor):
     return {k: take(v) for k, v in data.items()}
 
 
-def _finish(history, plateau_lr) -> TrainResult:
+def _finish(history, state: TrainState) -> TrainResult:
     """One device-to-host copy of the whole fit's histories."""
     rows = torch.stack([torch.stack(col) for col in zip(*history)])
-    out = torch.cat([rows.reshape(-1), plateau_lr.reshape(1).to(rows.dtype)]).cpu().numpy()
+    lr = state.plateau[0]
+    out = torch.cat([rows.reshape(-1), lr.reshape(1).to(rows.dtype)]).cpu().numpy()
     tl, vl, va = out[:-1].reshape(3, -1)
-    return TrainResult(train_loss=tl, val_loss=vl, val_acc=va, final_lr=float(out[-1]))
+    return TrainResult(train_loss=tl, val_loss=vl, val_acc=va, final_lr=float(out[-1]),
+                       state=state)
+
+
+def resume_state(optimizer: OptimizerConfig, params: Sequence[torch.Tensor], randomness,
+                 resume: Optional[TrainState]):
+    """(moments, count, plateau) to start a fit from: ``resume``'s, with
+    ``randomness`` set back to its generator state, or fresh ones."""
+    if resume is None:
+        device = params[0].device
+        return ([(torch.zeros_like(p), torch.zeros_like(p)) for p in params], 0,
+                _plateau_init(optimizer, device))
+    if resume.rng is not None:
+        randomness.restore(resume.rng)
+    return ([(m.clone(), v.clone()) for m, v in resume.moments], resume.count,
+            tuple(t.clone() for t in resume.plateau))
+
+
+def capture_state(moments, count: int, plateau, randomness) -> TrainState:
+    """The :class:`TrainState` at the end of a fit."""
+    rng = randomness.state() if hasattr(randomness, "state") else None
+    return TrainState(tuple(moments), count, tuple(plateau), rng)
 
 
 def validate(cfg: OptimizerConfig, val_fn, val_data, epoch: int, plateau, device):
@@ -272,8 +313,11 @@ def train(
     megakernel: Any = None,
     drop_last: bool = False,
     shuffle: bool = True,
+    start_epoch: int = 0,
+    resume: Optional[TrainState] = None,
 ) -> TrainResult:
-    """Fit ``model``'s parameters in place.
+    """Fit ``model``'s parameters in place over epochs [start_epoch,
+    start_epoch + epochs).
 
     ``loss_fn`` is an :class:`Objective`: each epoch draws its permutation
     (unless ``shuffle`` is off), then every step's draws, then computes
@@ -288,6 +332,13 @@ def train(
     carry one). When the fit qualifies (``supports_probe_megakernel``), the
     whole-epoch kernel program replaces the step loop: same randomness
     stream, one kernel call per epoch.
+
+    Mid-training resume: ``start_epoch=k, resume=first.state`` on the
+    model the first call of k epochs fitted continues it exactly (the
+    epoch-indexed schedules and annealing, Adam's step count, the plateau
+    state and the generator); the two calls' histories together equal one
+    uninterrupted fit's. The global step a ``with_step`` objective sees is
+    Adam's step count, which ``resume`` carries.
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
@@ -298,19 +349,18 @@ def train(
             program = make_probe_megakernel_program(
                 desc=megakernel, n_train=n_train, optimizer=optimizer, epochs=epochs,
                 batch_size=batch_size, val_fn=val_fn, drop_last=drop_last, shuffle=shuffle,
+                start_epoch=start_epoch,
             )
-            return program(model.stack, randomness, data, val_data)
+            return program(model.stack, randomness, data, val_data, resume)
 
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
-    moments = [(torch.zeros_like(p), torch.zeros_like(p)) for p in params]
+    moments, count, plateau = resume_state(optimizer, params, randomness, resume)
     weight_decay = optimizer.weight_decay if optimizer.name == "adamw" else 0.0
-    plateau = _plateau_init(optimizer, device)
     sizes = batch_sizes(n_train, batch_size, drop_last)
     weights = torch.tensor(sizes, dtype=torch.float32).to(device)
-    count = 0
     history = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, start_epoch + epochs):
         perm = epoch_order(randomness, n_train, shuffle, device)
         draws = loss_fn.draw_epoch(randomness, sizes)
         lr = lr_for_epoch(optimizer, epoch, plateau[0])
@@ -326,7 +376,7 @@ def train(
         train_loss = torch.sum(torch.stack(losses) * weights) / weights.sum()
         val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device)
         history.append((train_loss, val_loss, val_acc))
-    return _finish(history, plateau[0])
+    return _finish(history, capture_state(moments, count, plateau, randomness))
 
 
 # ------------------------------------------------------------ seed-batched fits
@@ -358,14 +408,36 @@ def stack_params(models: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
             for k, p in named[0].items() if p.requires_grad}
 
 
+def model_state_names(model: nn.Module):
+    """The names of ``model``'s state: the buffers its training forward
+    writes, the BatchNorm running statistics (the JAX package's
+    ``batch_stats``); [] for a stateless model."""
+    from ..models.layers import BatchNorm
+
+    return [f"{prefix}.{name}" for prefix, module in model.named_modules()
+            if isinstance(module, BatchNorm) for name, _ in module.named_buffers(recurse=False)]
+
+
+def stack_model_state(models: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
+    """The models' state (:func:`model_state_names`) stacked on a leading
+    instance axis; {} for stateless models."""
+    named = [dict(m.named_buffers()) for m in models]
+    return {k: torch.stack([n[k].detach() for n in named]) for k in model_state_names(models[0])}
+
+
 @torch.no_grad()
-def load_params(models: Sequence[nn.Module], params: Dict[str, Any]) -> None:
+def load_params(models: Sequence[nn.Module], params: Dict[str, Any],
+                model_state: Optional[Dict[str, Any]] = None) -> None:
     """Copy instance ``s`` of the stacked ``params`` (tensors or numpy
-    arrays) into ``models[s]``."""
+    arrays), and of the stacked ``model_state`` when given, into
+    ``models[s]``."""
     for s, model in enumerate(models):
         for k, p in model.named_parameters():
             if k in params:
                 p.copy_(torch.as_tensor(params[k][s]))
+        for k, b in model.named_buffers():
+            if model_state and k in model_state:
+                b.copy_(torch.as_tensor(model_state[k][s]))
 
 
 def _stack_draws(draws):
@@ -393,12 +465,14 @@ def _take_rows(data, idx: torch.Tensor, broadcast: bool):
 
 
 class ManyState(NamedTuple):
-    """What an exact resume of :func:`train_many` needs."""
+    """What an exact resume of :func:`train_many` needs besides the
+    parameters."""
 
     moments: tuple  # an (m, v) pair per parameter, stacked
     count: int      # optimizer steps taken
     plateau: tuple  # (lr, best, bad), each (S,)
     rng: tuple      # each instance's generator state
+    model_state: Dict[str, torch.Tensor]  # name -> (S, ...) running statistics
 
 
 class ManyResult(NamedTuple):
@@ -430,6 +504,7 @@ def train_many(
     segment_epochs: Optional[int] = None,
     drop_last: bool = False,
     shuffle: bool = True,
+    model_state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> ManyResult:
     """Fit S instances of ``model`` at once; instance s equals :func:`train`
     of ``model`` with ``params[.][s]`` and ``randomness[s]``.
@@ -449,20 +524,28 @@ def train_many(
     plateau state is per instance (its LR an (S,) tensor broadcast to every
     parameter); the cosine LR is shared.
 
+    ``model_state`` maps ``model``'s state buffers (:func:`model_state_names`)
+    to stacked (S, ...) initial values (:func:`stack_model_state`): each
+    step's forward gets instance s's statistics as the model's buffers, and
+    their new values are carried to the next step, so instance s moves its
+    own statistics as :func:`train` moves the model's; validation
+    normalises by them. The result's ``model_state`` holds the final ones.
+
     ``segment_epochs`` runs the epochs in segments of that length, each
-    resumed exactly from the last one's optimizer, plateau and generator
-    states (:class:`ManyState`).
+    resumed exactly from the last one's optimizer, plateau, generator and
+    model states (:class:`ManyState`).
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
     fit = (model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn, val_data,
            data_broadcast, drop_last, shuffle)
+    model_state = dict(model_state or {})
     if not segment_epochs or segment_epochs >= epochs:
-        return _train_many_segment(*fit, params, 0, epochs, None)
+        return _train_many_segment(*fit, params, model_state, 0, epochs, None)
     parts, start, resume = [], 0, None
     while start < epochs:
         seg = min(segment_epochs, epochs - start)
-        r = _train_many_segment(*fit, params, start, seg, resume)
+        r = _train_many_segment(*fit, params, model_state, start, seg, resume)
         parts.append(r)
         params, resume, start = r.params, r.state, start + seg
     cat = lambda k: torch.cat([getattr(r, k) for r in parts], dim=1)  # noqa: E731
@@ -471,10 +554,10 @@ def train_many(
 
 
 def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn,
-                        val_data, broadcast, drop_last, shuffle, params, start_epoch, epochs,
-                        resume):
+                        val_data, broadcast, drop_last, shuffle, params, model_state, start_epoch,
+                        epochs, resume):
     """Epochs [start_epoch, start_epoch + epochs) of :func:`train_many`,
-    from ``resume`` when given."""
+    from ``resume`` (and its model state) when given."""
     from torch.func import grad_and_value, vmap
 
     params = {k: v.detach().clone() for k, v in params.items()}
@@ -487,9 +570,10 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
         plateau = tuple(t.expand(s_count).clone() for t in _plateau_init(optimizer, device))
     else:
         moments = tuple((m.clone(), v.clone()) for m, v in resume.moments)
-        count, plateau = resume.count, resume.plateau
+        count, plateau, model_state = resume.count, resume.plateau, resume.model_state
         for r, st in zip(randomness, resume.rng):
             r.restore(st)
+    stats = {k: v.detach().clone() for k, v in model_state.items()}
     sizes = batch_sizes(n_train, batch_size, drop_last)
     # the step weights made on the device: a copy from the host would wait
     # for the device to drain
@@ -497,12 +581,16 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
     weights[-1] = float(sizes[-1])
     data_dim = None if broadcast else 0
 
-    def loss_of(p, batch, mask, epoch, draws, step):
-        loss, aux = functional(model, p, loss_fn.compute, batch, mask, epoch, draws, step)
-        return loss, loss
+    def loss_of(p, st, batch, mask, epoch, draws, step):
+        # the forward writes the new statistics into these copies in place
+        # (``models.layers.BatchNorm``); they come back as the aux
+        new = {k: v.clone() for k, v in st.items()}
+        loss, _ = functional(model, {**p, **new}, loss_fn.compute, batch, mask, epoch, draws,
+                             step)
+        return loss, new
 
-    def val_of(p, vdata, epoch):
-        return functional(model, p, val_fn, vdata, epoch)
+    def val_of(p, st, vdata, epoch):
+        return functional(model, {**p, **st}, val_fn, vdata, epoch)
 
     history = []
     for epoch in range(start_epoch, start_epoch + epochs):
@@ -520,8 +608,9 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
             mask = torch.ones(idx.shape[1], dtype=torch.float32, device=device)
             d = _stack_draws([per_inst[step] for per_inst in draws])
             step_fn = vmap(grad_and_value(loss_of, has_aux=True),
-                           in_dims=(0, 0, None, None, None if d is None else 0, None))
-            grads, (loss, _) = step_fn(params, batch, mask, epoch, d, count)
+                           in_dims=(0, 0, 0, None, None, None if d is None else 0, None))
+            grads, (loss, new) = step_fn(params, stats, batch, mask, epoch, d, count)
+            stats = {k: new[k].detach() for k in stats}
             count += 1
             bc1, bc2 = bias_corrections(count)
             for (k, p), mv in zip(params.items(), moments):
@@ -533,11 +622,11 @@ def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, ra
             val_loss = val_acc = torch.full((s_count,), math.nan, device=device)
         else:
             with torch.no_grad():
-                val_loss, val_acc = vmap(val_of, in_dims=(0, data_dim, None))(
-                    params, val_data, epoch)
+                val_loss, val_acc = vmap(val_of, in_dims=(0, 0, data_dim, None))(
+                    params, stats, val_data, epoch)
             val_loss, val_acc = val_loss.float(), val_acc.float()
             plateau = _plateau_update(optimizer, plateau, val_loss)
         history.append((train_loss, val_loss, val_acc))
     tl, vl, va = (torch.stack(col, dim=1) for col in zip(*history))
-    state = ManyState(moments, count, plateau, tuple(r.state() for r in randomness))
+    state = ManyState(moments, count, plateau, tuple(r.state() for r in randomness), stats)
     return ManyResult(params, tl, vl, va, plateau[0], state)

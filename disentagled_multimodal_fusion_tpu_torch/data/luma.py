@@ -111,42 +111,57 @@ def _scalar(text: str):
     return t
 
 
-def parse_flat_yaml(text: str) -> dict:
-    """The flat mapping of scalars and lists of scalars that
-    ``yaml.safe_dump`` writes for a metadata dict."""
-    out, key = {}, None
+def parse_block_yaml(text: str) -> dict:
+    """The mapping of scalars, lists of scalars and nested mappings (by
+    indentation) that ``yaml.safe_dump`` writes for a metadata dict or a
+    compile config (``dump_yaml``)."""
+    root: dict = {}
+    stack = [(-1, root)]  # (indent of the key that owns the mapping, mapping)
+    open_key = None       # (indent, mapping, key) of the last key without a value
     for line in text.splitlines():
         if not line.strip() or line.lstrip().startswith("#"):
             continue
+        indent = len(line) - len(line.lstrip(" "))
         stripped = line.strip()
         if stripped.startswith("- ") or stripped == "-":
-            if key is None:
+            if open_key is None:
                 raise ValueError(f"a list item outside a key: {line!r}")
-            if not isinstance(out[key], list):
-                out[key] = []
-            out[key].append(_scalar(stripped[1:]))
+            _, mapping, key = open_key
+            if not isinstance(mapping[key], list):
+                mapping[key] = []
+            mapping[key].append(_scalar(stripped[1:]))
             continue
-        if line[0].isspace() or ":" not in line:
-            raise ValueError(f"not a flat YAML mapping line: {line!r}")
-        key, _, value = line.partition(":")
-        key = key.strip()
-        value = value.strip()
+        if ":" not in stripped:
+            raise ValueError(f"not a YAML mapping line: {line!r}")
+        if open_key is not None and indent > open_key[0] and open_key[1][open_key[2]] is None:
+            child: dict = {}
+            open_key[1][open_key[2]] = child
+            stack.append((open_key[0], child))
+        while stack[-1][0] >= indent:
+            stack.pop()
+        mapping = stack[-1][1]
+        key, _, value = stripped.partition(":")
+        key, value = key.strip(), value.strip()
+        open_key = None
         if value == "[]":
-            out[key] = []
+            mapping[key] = []
         elif value == "{}":
-            out[key] = {}
+            mapping[key] = {}
+        elif value == "":
+            mapping[key] = None  # a list or mapping may follow
+            open_key = (indent, mapping, key)
         else:
-            out[key] = _scalar(value)
-    return out
+            mapping[key] = _scalar(value)
+    return root
 
 
 def read_metadata(path: Path) -> dict:
-    """``metadata.yaml`` through PyYAML, or :func:`parse_flat_yaml` without it."""
+    """``metadata.yaml`` through PyYAML, or :func:`parse_block_yaml` without it."""
     text = path.read_text()
     try:
         import yaml
     except ImportError:
-        return parse_flat_yaml(text) or {}
+        return parse_block_yaml(text) or {}
     return yaml.safe_load(text) or {}
 
 
@@ -438,19 +453,48 @@ def get_luma_ood_arrays(data_path: str, audio_config=None, text_config=None, ima
     return tuple(x[keep] for x in xs), y[keep], ds.num_id_classes
 
 
-# ------------------------------------------------------------ test fixture
-def _dump_metadata(meta: dict) -> str:
-    """``yaml.safe_dump(meta)`` for a flat mapping of ints and string lists
-    (sorted keys, block lists), without PyYAML."""
-    lines = []
-    for key in sorted(meta):
-        value = meta[key]
-        if isinstance(value, list):
-            lines.append(f"{key}:")
-            lines.extend(f"- {item}" for item in value)
+# ------------------------------------------------------------ YAML writer
+def _yaml_scalar(value) -> str:
+    """A scalar as ``yaml.safe_dump`` writes the plain ones; any other
+    string double-quoted (JSON's escapes, which YAML reads)."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return repr(value)
+    if isinstance(value, float):
+        mantissa, e, exp = repr(value).partition("e")
+        # YAML 1.1 reads a float's exponent only after a point: 1.0e-05
+        return mantissa + (".0" if e and "." not in mantissa else "") + e + exp
+    text = str(value)
+    plain = (text and all(c.isalnum() or c in "_./-" for c in text) and text[0] not in "-."
+             and _scalar(text) == text)
+    return text if plain else json.dumps(text)
+
+
+def dump_yaml(data: dict, sort_keys: bool = True, indent: int = 0) -> str:
+    """``yaml.safe_dump(data, sort_keys=...)`` for nested mappings of
+    scalars and lists of scalars, without PyYAML: block style, two spaces
+    per level, list items at their key's indent. :func:`parse_block_yaml`
+    reads it back."""
+    pad, lines = " " * indent, []
+    for key in (sorted(data) if sort_keys else data):
+        value = data[key]
+        if isinstance(value, dict) and value:
+            lines.append(f"{pad}{key}:")
+            lines.append(dump_yaml(value, sort_keys, indent + 2).rstrip("\n"))
+        elif isinstance(value, (list, tuple)) and value:
+            lines.append(f"{pad}{key}:")
+            lines.extend(f"{pad}- {_yaml_scalar(item)}" for item in value)
+        elif isinstance(value, (dict, list, tuple)):
+            lines.append(f"{pad}{key}: {'{}' if isinstance(value, dict) else '[]'}")
         else:
-            lines.append(f"{key}: {value}")
+            lines.append(f"{pad}{key}: {_yaml_scalar(value)}")
     return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------------------ test fixture
 
 
 def make_fake_luma(root: str, n_classes: int = 4, train_per_class: int = 6,
@@ -508,5 +552,5 @@ def make_fake_luma(root: str, n_classes: int = 4, train_per_class: int = 6,
     }
     if ood_classes:
         meta["ood_classes"] = [f"class_{c}" for c in range(n_classes, n_classes + ood_classes)]
-    (root / "metadata.yaml").write_text(_dump_metadata(meta))
+    (root / "metadata.yaml").write_text(dump_yaml(meta))
     return str(root)

@@ -13,8 +13,17 @@ epoch's draws from a fit's randomness (the augmentations of both views,
 then the four heads' vMF marginals w and tangent noise v, or the normal
 head's noise), and :meth:`DisentangledSSL.loss` computes the loss from them.
 So the rejection sampler runs once per epoch outside autograd, and a test
-can replay the JAX package's draws. The views' feature encoders are the
-identity (the JAX package's LUMA encoders are not ported).
+can replay the JAX package's draws.
+
+``feature_encoders`` (specs for ``layers.build_encoders``, e.g. two of LUMA's
+Audio, Text and Image encoders; JAX lines 44-54) encode each view, clean and
+augmented, before the shared and private encoders; without them the views
+pass as they are (the JAX package's identity encoders). ``output_dim`` stays
+the views' raw widths, which the augmentations act on; the MLPs take the
+encoders' output widths. Each step's draws then start with the encoders'
+keep-masks, in the order the forward calls them (view 1 clean, view 1
+augmented, view 2 clean, view 2 augmented), drawn for every step of the
+epoch ahead of the model's own draws, as the DMVAE's are.
 """
 
 from __future__ import annotations
@@ -28,18 +37,18 @@ from ..ops.augment import augment_data, draw_augment
 from ..ops.contrastive import _l2_normalize, ortho_loss, supcon_loss
 from ..ops.schedulers import exponential_schedule
 from ..ops.vmf import vmf_rotate
-from .layers import MLP
+from .layers import MLP, Encoded, build_encoders
 
 HEADS = 4  # zs1, zs2 and their augmented twins
 
 
-class DisentangledSSL(nn.Module):
+class DisentangledSSL(Encoded):
     def __init__(self, output_dim: Sequence[int], generator: torch.Generator,
                  hidden_dim: int = 512, embed_dim: int = 100, a: float = 1.0,
                  distribution: str = "vmf", vmfkappa: float = 1.0,
                  lmd_start_value: float = 0.0, lmd_end_value: float = 0.0,
                  lmd_n_iterations: int = 8000, lmd_start_iteration: int = 0,
-                 condzs: bool = True, usezsx: bool = False):
+                 condzs: bool = True, usezsx: bool = False, feature_encoders=None):
         super().__init__()
         if distribution not in ("vmf", "normal"):
             raise ValueError(distribution)
@@ -48,7 +57,11 @@ class DisentangledSSL(nn.Module):
         self.distribution, self.vmfkappa = distribution, vmfkappa
         self.lmd = (lmd_start_value, lmd_end_value, lmd_n_iterations, lmd_start_iteration)
         self.condzs, self.usezsx = condzs, usezsx
-        x1_dim, x2_dim = self.output_dim
+        self.feat_encs = build_encoders(feature_encoders, generator)
+        if feature_encoders:
+            x1_dim, x2_dim = (int(dict(kw)["output_dim"]) for _, kw in feature_encoders)
+        else:
+            x1_dim, x2_dim = self.output_dim
         extra = embed_dim if condzs else 0
 
         def mk(in_dim):
@@ -67,7 +80,10 @@ class DisentangledSSL(nn.Module):
         the marginals w (rows, 4) from ``randomness.vmf_w`` and the tangent
         noise v (rows, 4, m - 1), for the normal head eps (rows, 4, m). Head
         i of a step is zs1, zs2, zsv1, zsv2 in that order. Each step's
-        draws are one flat tuple of tensors."""
+        draws are one flat tuple of tensors, after the feature encoders'
+        keep-masks of that step (drawn first, step by step, when the model
+        has encoders)."""
+        enc = [self._encoder_masks(randomness, rows) for rows in sizes]
         total, m = sum(sizes), self.embed_dim
         parts = [t for d in self.output_dim for t in draw_augment(randomness, total, d)]
         if self.distribution == "vmf":
@@ -76,7 +92,24 @@ class DisentangledSSL(nn.Module):
         else:
             parts.append(randomness.normal((total, HEADS, m)))
         cut = [list(torch.split(t, list(sizes))) for t in parts]
-        return [tuple(c[i] for c in cut) for i in range(len(sizes))]
+        return [tuple(enc[i]) + tuple(c[i] for c in cut) for i in range(len(sizes))]
+
+    def _encoder_calls(self, rows: int):
+        """Each encoder call's keep-mask shapes, in forward order: view 1
+        clean and augmented, then view 2 ([] without encoders)."""
+        shapes = self.enc_drop_shapes(rows)
+        return [shapes[0], shapes[0], shapes[1], shapes[1]] if shapes else []
+
+    def _encoder_masks(self, randomness, rows: int) -> list:
+        encs = [] if self.feat_encs is None else [self.feat_encs[i] for i in (0, 0, 1, 1)]
+        return [randomness.bernoulli(enc.keep, shape)
+                for enc, shapes in zip(encs, self._encoder_calls(rows)) for shape in shapes]
+
+    def _encode(self, i: int, x, masks=None):
+        """View i (0 or 1) through its feature encoder (training with
+        ``masks``, evaluation without), or as it is without encoders."""
+        x = x.float()
+        return x if self.feat_encs is None else self.feat_encs[i](x, masks)
 
     def _phead(self, params: torch.Tensor, head_draws, i: int) -> torch.Tensor:
         """Head i's sample on ``params`` (classifiers.py:444-466)."""
@@ -95,7 +128,7 @@ class DisentangledSSL(nn.Module):
 
     def get_embedding(self, xs):
         """(concat(zsx1, zsx2), [z1x1, z2x2]) (disentangledssl.py:67-80)."""
-        x1, x2 = xs[0].float(), xs[1].float()
+        x1, x2 = self._encode(0, xs[0]), self._encode(1, xs[1])
         zsx1, zsx2 = self.encoder_x1s(x1), self.encoder_x2s(x2)
         if self.condzs:
             z1x1 = self.encoder_x1(torch.cat([x1, zsx1], dim=1))
@@ -104,10 +137,14 @@ class DisentangledSSL(nn.Module):
             z1x1, z2x2 = self.encoder_x1(x1), self.encoder_x2(x2)
         return torch.cat([zsx1, zsx2], dim=1), [z1x1, z2x2]
 
-    def forward(self, x1, x2, v1, v2, head_draws, iteration: int):
+    def forward(self, x1, x2, v1, v2, head_draws, iteration: int, enc_masks=None):
         """Loss forward on clean (x) and augmented (v) views
-        (disentangledssl.py:82-160): (loss, logs)."""
-        x1, x2, v1, v2 = x1.float(), x2.float(), v1.float(), v2.float()
+        (disentangledssl.py:82-160): (loss, logs). ``enc_masks``: the
+        feature encoders' keep-masks of the four encoder calls (one list
+        each; None without encoders)."""
+        masks = enc_masks or [None] * 4
+        x1, v1 = self._encode(0, x1, masks[0]), self._encode(0, v1, masks[1])
+        x2, v2 = self._encode(1, x2, masks[2]), self._encode(1, v2, masks[3])
         e1, e2 = self.encoder_x1s(x1), self.encoder_x2s(x2)
         e1_v, e2_v = self.encoder_x1s(v1), self.encoder_x2s(v2)
         zs1, zs2, zsv1, zsv2 = (self._phead(e, head_draws, i)
@@ -152,6 +189,11 @@ class DisentangledSSL(nn.Module):
         views with their draws, then the loss forward. ``draws`` is one
         step's tuple from :meth:`draw`."""
         x1, x2 = xs[0].float(), xs[1].float()
-        v1 = augment_data(x1, draws[0:3])
-        v2 = augment_data(x2, draws[3:6])
-        return self(x1, x2, v1, v2, draws[6:], iteration)
+        enc_masks, at = [], 0
+        for shapes in self._encoder_calls(x1.shape[0]):
+            enc_masks.append(list(draws[at:at + len(shapes)]))
+            at += len(shapes)
+        own = draws[at:]
+        v1 = augment_data(x1, own[0:3])
+        v2 = augment_data(x2, own[3:6])
+        return self(x1, x2, v1, v2, own[6:], iteration, enc_masks or None)

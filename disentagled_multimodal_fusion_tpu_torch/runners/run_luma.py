@@ -34,6 +34,20 @@ the rows. Epochs default to the reference's debug values (DMVAE 3, heads 2;
 for the audio encoder's conv branch; ``--use-ood`` trains on every class
 (and cannot be combined with ``--ood-eval``).
 
+``--vmap-seeds`` (with two seeds or more; JAX lines 286-441) trains all
+seeds at once: one ``core.train.train_many`` for the DMVAE over the
+encoders, on the shared corpus (``data_broadcast``), with each seed's
+BatchNorm statistics stacked beside its parameters; then each seed's
+embeddings from its own backbone (seed by seed, in row chunks); then one
+``train_many`` per model, the probes on the stacked per-seed embeddings,
+late and intermediate fusion on the shared views. Validation runs the heads
+of all seeds through one head-kernel launch. Each seed is then evaluated,
+scored (``--ood-eval``), checkpointed and logged under the sequential
+engine's names. ``--segment-epochs N`` runs each ``train_many`` in exactly
+resumed segments of N epochs. With ``--rows-file`` the whole block is
+skipped only when every seed is complete; otherwise every seed is trained.
+``--force-vmap-seeds`` is accepted and changes nothing.
+
 Randomness follows the JAX key layout of ``jax.random.split(PRNGKey(seed),
 16)`` through stand-in generator seeds: slot k seeds ``torch.Generator(seed
 * 16 + k)``. Slot 0 draws the DMVAE's weights, 1 its fit's shuffles, noise
@@ -42,15 +56,22 @@ and encoder masks, 2-7 the six models' weights, 8-13 their fits' draws and
 (fusion m's weights from ``fold_in(keys[15], m)``, job i's fit from
 ``fold_in(keys[8], 1000 + i)``); their stand-ins are
 ``runners.common.intermediate_seed(seed, m)`` and ``intermediate_seed(seed,
-8 + i)``, which never meet a slot.
+8 + i)``, which never meet a slot. ``--vmap-seeds`` gives the DMVAE and the
+six models the same slots as the sequential engine, so each seed's base
+rows are its sequential rows up to the rounding of batched products. Its
+intermediate jobs follow the JAX package's vmapped layout instead (job j >=
+6 from ``fold_in(keys[8], j)`` and its fit from ``fold_in(keys[9], j)``),
+whose stand-ins are ``intermediate_seed(seed, 16 + j - 6)`` and
+``intermediate_seed(seed, 24 + j - 6)``; the sequential engine's stand-ins
+lie below 22, so the two layouts meet no slot of each other's within one
+run.
 
 The port runs on the CUDA card unless ``--device cpu``. Not ported yet
-(``ROADMAP.md``): ``--vmap-seeds`` and ``--segment-epochs`` (seed-batched
-LUMA), ``--dtype bfloat16`` and the mesh flags.
+(``ROADMAP.md``): ``--dtype bfloat16`` and the mesh flags.
 
 Example:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_luma \\
-      --data-path data/luma_compiled --seeds 0 --ood-eval
+      --data-path data/luma_compiled --seeds 0 1 2 3 4 --vmap-seeds --ood-eval
 """
 
 from __future__ import annotations
@@ -65,9 +86,12 @@ import torch
 from ..core.setup import resolve_device
 
 # options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--vmap-seeds", "--segment-epochs", "--dtype bfloat16",
-              "--data-parallel/--model-parallel")
+NOT_PORTED = ("--dtype bfloat16", "--data-parallel/--model-parallel")
 ENC_OUT = 200  # the Audio/Text/Image encoders' output width
+# the seed-batched engine's intermediate jobs: job j >= 6 takes its weights
+# from intermediate_seed(seed, VMAP_INIT + j - 6) and its fit from
+# intermediate_seed(seed, VMAP_FIT + j - 6)
+VMAP_INIT, VMAP_FIT = 16, 24
 
 
 def feature_configs(C, use_2d: bool = False):
@@ -165,16 +189,66 @@ def ood_info(task, id_data, ood_data, num_classes: int):
     return evaluate_ood(ev_id, ev_ood, num_classes)
 
 
+def on_views(name: str, fusion) -> bool:
+    """True for the models that train on the raw views (late and
+    intermediate fusion), False for the probes on the embeddings."""
+    return name.endswith("_fusion") or fusion is not None
+
+
+def embed_splits(model, data):
+    """The backbone's embeddings as probe data: (train, test, OOD or None)."""
+    from ..core.tasks import embed_dataset_chunked
+
+    out = []
+    for xs, y in ((data["xs_tr"], data["y_tr"]), (data["xs_te"], data["y_te"])):
+        zc, zp = embed_dataset_chunked(model, xs)
+        out.append({"zc": zc, "zp": zp, "y": y})
+    if data["xs_ood"] is None:
+        return out[0], out[1], None
+    zc, zp = embed_dataset_chunked(model, data["xs_ood"])
+    return out[0], out[1], {"zc": zc, "zp": zp, "y": ood_labels(data)}
+
+
+def ood_labels(data):
+    """Labels of the OOD rows: outside the ID heads' range, so zeros (the
+    evidence ignores them)."""
+    y_tr = data["y_tr"]
+    return torch.zeros(data["xs_ood"][0].shape[0], dtype=y_tr.dtype, device=y_tr.device)
+
+
+def finish_job(*, name: str, fusion, task, result, seed: int, te_data, ood_data,
+               num_classes: int, fit_s: float, probe_epochs: int) -> dict:
+    """A fitted model's row: its evaluation (``dmvae_dis`` and the
+    intermediate fusions in the per-view layout, the others with the shared
+    layout), OOD AUROCs when ``ood_data`` is given, its training log and its
+    checkpoint."""
+    from ..core.checkpoint import save_checkpoint
+    from ..core.logging import log_training_csv
+    from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
+
+    if name == "dmvae_dis" or fusion is not None:
+        info = evaluate_subjective_model(task, te_data)
+    else:
+        info = evaluate_subjective_model_with_shared(task, te_data)
+    if ood_data is not None:
+        info["ood"] = ood_info(task, te_data, ood_data, num_classes)
+    log_training_csv(f"{name}_fusion_dsLUMA_seed{seed}", result)
+    info["path"] = save_checkpoint(head_checkpoint(name, seed), task.model,
+                                   {"model": name, "dataset": "LUMA", "seed": seed})
+    info["fit_seconds"] = fit_s
+    print(f"[seed {seed}] {name}: fused_acc={info['fused']['accuracy']:.4f} "
+          f"fit {fit_s:.2f} s, {1e3 * fit_s / probe_epochs:.3f} ms/epoch", flush=True)
+    return info
+
+
 def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs: int,
              probe_epochs: int, device, fused_dmvae: bool, rows_out: dict):
     """Fit and evaluate one seed's models into ``rows_out``. ``data``:
     {'xs_tr', 'y_tr', 'xs_te', 'y_te', 'xs_ood' (or None)}; ``jobs``:
     [(name, seed -> task, fusion or None)] in the protocol's order."""
     from ..core.checkpoint import save_checkpoint
-    from ..core.logging import log_training_csv
-    from ..core.tasks import dmvae_objective, embed_dataset_chunked
+    from ..core.tasks import dmvae_objective
     from ..core.train import Randomness, train
-    from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
     from ..models.fusions import INTERMEDIATE_FUSIONS
     from .common import intermediate_seed
 
@@ -182,8 +256,7 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
         return seed * 16 + k
 
     batch_size = C("dataloader.batch_size", 64)
-    xs_tr, y_tr, xs_te, y_te, xs_ood = (data[k] for k in ("xs_tr", "y_tr", "xs_te", "y_te",
-                                                          "xs_ood"))
+    xs_tr, y_tr = data["xs_tr"], data["y_tr"]
     n_train = int(y_tr.shape[0])
     t0 = time.time()
     model = build_backbone(C, slot(0), specs, device, fused=fused_dmvae)
@@ -196,17 +269,9 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
     print(f"[seed {seed}] DMVAE trained: {fit_s:.2f} s, {1e3 * fit_s / dmvae_epochs:.3f} ms/epoch, "
           f"last train loss {float(res.train_loss[-1]):.4f}", flush=True)
 
-    zc_tr, zp_tr = embed_dataset_chunked(model, xs_tr)
-    zc_te, zp_te = embed_dataset_chunked(model, xs_te)
-    probe = ({"zc": zc_tr, "zp": zp_tr, "y": y_tr}, {"zc": zc_te, "zp": zp_te, "y": y_te})
-    late = ({"xs": xs_tr, "y": y_tr}, {"xs": xs_te, "y": y_te})
-    probe_ood = late_ood = None
-    if xs_ood is not None:
-        zc_o, zp_o = embed_dataset_chunked(model, xs_ood)
-        # labels lie outside the ID heads' range; the evidence ignores them
-        y_ood = torch.zeros(xs_ood[0].shape[0], dtype=y_tr.dtype, device=y_tr.device)
-        probe_ood = {"zc": zc_o, "zp": zp_o, "y": y_ood}
-        late_ood = {"xs": xs_ood, "y": y_ood}
+    probe_tr, probe_te, probe_ood = embed_splits(model, data)
+    late = ({"xs": xs_tr, "y": y_tr}, {"xs": data["xs_te"], "y": data["y_te"]})
+    late_ood = None if data["xs_ood"] is None else {"xs": data["xs_ood"], "y": ood_labels(data)}
 
     for i, (name, builder, fusion) in enumerate(jobs):
         if fusion is None:
@@ -216,29 +281,102 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
         else:
             task = builder(intermediate_seed(seed, INTERMEDIATE_FUSIONS.index(fusion)))
         fit_seed = slot(8 + i) if i < 6 else intermediate_seed(seed, 8 + i)
-        on_views = name.endswith("_fusion") or fusion is not None
-        tr_data, te_data = late if on_views else probe
+        views = on_views(name, fusion)
+        tr_data, te_data = late if views else (probe_tr, probe_te)
         t_fit = time.perf_counter()
         res_m = train(model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
                       optimizer=task.optimizer, epochs=probe_epochs, batch_size=batch_size,
                       randomness=Randomness(fit_seed, device), val_fn=task.val_fn,
                       val_data=te_data)
-        fit_s = time.perf_counter() - t_fit
-        if name == "dmvae_dis" or fusion is not None:
-            info = evaluate_subjective_model(task, te_data)
-        else:
-            info = evaluate_subjective_model_with_shared(task, te_data)
-        if xs_ood is not None:
-            info["ood"] = ood_info(task, te_data, late_ood if on_views else probe_ood,
-                                   num_classes)
-        log_training_csv(f"{name}_fusion_dsLUMA_seed{seed}", res_m)
-        info["path"] = save_checkpoint(head_checkpoint(name, seed), task.model,
-                                       {"model": name, "dataset": "LUMA", "seed": seed})
-        info["fit_seconds"] = fit_s
-        rows_out[name] = info
-        print(f"[seed {seed}] {name}: fused_acc={info['fused']['accuracy']:.4f} "
-              f"fit {fit_s:.2f} s, {1e3 * fit_s / probe_epochs:.3f} ms/epoch", flush=True)
+        rows_out[name] = finish_job(
+            name=name, fusion=fusion, task=task, result=res_m, seed=seed, te_data=te_data,
+            ood_data=late_ood if views else probe_ood, num_classes=num_classes,
+            fit_s=time.perf_counter() - t_fit, probe_epochs=probe_epochs)
     print(f"[seed {seed}] done in {time.time() - t0:.1f}s", flush=True)
+
+
+def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_epochs: int,
+                      probe_epochs: int, device, fused_dmvae: bool, segment_epochs, rows: dict):
+    """Fit and evaluate every seed's models into ``rows[seed]['Normal']
+    ['LUMA']``, each model of all seeds in one ``train_many`` (module
+    docstring); ``rows[seed]`` already holds each seed's skip rows."""
+    from ..core.checkpoint import save_checkpoint
+    from ..core.tasks import dmvae_objective
+    from ..core.train import (
+        Randomness,
+        TrainResult,
+        load_params,
+        stack_model_state,
+        stack_params,
+        train_many,
+    )
+    from .common import intermediate_seed
+
+    def slot(seed, k):
+        return seed * 16 + k
+
+    def fit_all(models, loss_fn, optimizer, val_fn, tr_data, te_data, fit_seeds, epochs,
+                broadcast):
+        """One train_many of ``models`` (loaded back into them): their
+        per-seed histories and the fit's wall seconds."""
+        t_fit = time.perf_counter()
+        res = train_many(model=models[0], params=stack_params(models),
+                         model_state=stack_model_state(models), loss_fn=loss_fn, data=tr_data,
+                         n_train=n_train, optimizer=optimizer, epochs=epochs,
+                         batch_size=batch_size, randomness=[Randomness(f, device)
+                                                            for f in fit_seeds],
+                         val_fn=val_fn, val_data=te_data, data_broadcast=broadcast,
+                         segment_epochs=segment_epochs)
+        load_params(models, res.params, res.state.model_state)
+        hist = torch.stack([res.train_loss, res.val_loss, res.val_acc]).cpu().numpy()
+        lrs = res.final_lr.cpu().numpy()
+        results = [TrainResult(*hist[:, i], final_lr=float(lrs[i])) for i in range(len(models))]
+        return results, time.perf_counter() - t_fit
+
+    batch_size = C("dataloader.batch_size", 64)
+    n_train = int(data["y_tr"].shape[0])
+    s_count = len(seeds)
+    t0 = time.time()
+    backbones = [build_backbone(C, slot(s, 0), specs, device, fused=fused_dmvae) for s in seeds]
+    loss_fn, opt = dmvae_objective(backbones[0], lr=C("dmvae.lr", 1e-4), num_epochs=dmvae_epochs)
+    results, fit_s = fit_all(backbones, loss_fn, opt, None, {"xs": data["xs_tr"]}, None,
+                             [slot(s, 1) for s in seeds], dmvae_epochs, True)
+    for s, model in zip(seeds, backbones):
+        save_checkpoint(backbone_checkpoint(s), model, {"dataset": "LUMA", "seed": s})
+    print(f"DMVAE x{s_count} seeds trained: {fit_s:.2f} s, {1e3 * fit_s / dmvae_epochs:.3f} "
+          f"ms/epoch, last train loss {[round(float(r.train_loss[-1]), 4) for r in results]}",
+          flush=True)
+
+    # each seed's embeddings from its own backbone and statistics, in row
+    # chunks (the image CNN's activations of every seed at once would not fit)
+    embedded = [embed_splits(model, data) for model in backbones]
+    probe_tr, probe_te = ({k: torch.stack([e[i][k] for e in embedded]) for k in ("zc", "zp", "y")}
+                          for i in (0, 1))
+    late = ({"xs": data["xs_tr"], "y": data["y_tr"]}, {"xs": data["xs_te"], "y": data["y_te"]})
+    late_ood = None if data["xs_ood"] is None else {"xs": data["xs_ood"], "y": ood_labels(data)}
+
+    for j, (name, builder, fusion) in enumerate(jobs):
+        if fusion is None:
+            tasks = [builder(slot(s, 2 + j)) for s in seeds]
+            fit_seeds = [slot(s, 8 + j) for s in seeds]
+        else:
+            tasks = [builder(intermediate_seed(s, VMAP_INIT + j - 6)) for s in seeds]
+            fit_seeds = [intermediate_seed(s, VMAP_FIT + j - 6) for s in seeds]
+        views = on_views(name, fusion)
+        tr_data, te_data = late if views else (probe_tr, probe_te)
+        results, fit_s = fit_all([t.model for t in tasks], tasks[0].loss_fn, tasks[0].optimizer,
+                                 tasks[0].val_fn, tr_data, te_data, fit_seeds, probe_epochs,
+                                 views)
+        for i, (s, task) in enumerate(zip(seeds, tasks)):
+            ood = late_ood if views else embedded[i][2]
+            rows[s]["Normal"]["LUMA"][name] = finish_job(
+                name=name, fusion=fusion, task=task, result=results[i], seed=s,
+                te_data=te_data if views else embedded[i][1], ood_data=ood,
+                num_classes=num_classes, fit_s=fit_s, probe_epochs=probe_epochs)
+        accs = [rows[s]["Normal"]["LUMA"][name]["fused"]["accuracy"] for s in seeds]
+        print(f"{name} x{s_count}: fused_acc {np.mean(accs):.4f} +/- {np.std(accs):.4f}, fit "
+              f"{fit_s:.2f} s, {1e3 * fit_s / probe_epochs:.3f} ms/epoch", flush=True)
+    print(f"seeds {list(seeds)} done in {time.time() - t0:.1f}s", flush=True)
 
 
 def write_reports(rows, seeds):
@@ -281,6 +419,7 @@ def write_reports(rows, seeds):
 
 def parse_args(argv=None):
     from ..models.fusions import INTERMEDIATE_FUSIONS
+    from .common import add_force_vmap_flag
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -313,15 +452,19 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the plain "
                              "PyTorch path)")
-    parser.add_argument("--vmap-seeds", action="store_true")
-    parser.add_argument("--segment-epochs", type=int, default=None)
+    parser.add_argument("--vmap-seeds", action="store_true",
+                        help="train all seeds at once, one seed-batched fit per model type "
+                             "(the corpus is shared by all seeds)")
+    parser.add_argument("--segment-epochs", type=int, default=None,
+                        help="run each seed-batched fit in exactly resumed segments of this "
+                             "many epochs")
     parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
+    add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
     used = [flag for flag, on in zip(NOT_PORTED, (
-        args.vmap_seeds, args.segment_epochs is not None, args.dtype != "float32",
-        args.data_parallel > 1 or args.model_parallel > 1)) if on]
+        args.dtype != "float32", args.data_parallel > 1 or args.model_parallel > 1)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     if args.use_ood and args.ood_eval:
@@ -404,7 +547,20 @@ def main(argv=None):
         print(f"--rows-file: resuming; {len(done)} completed seed(s) found {done}", flush=True)
 
     t_start = time.time()
-    for seed in seeds:
+    if args.vmap_seeds and len(seeds) > 1:
+        if all(complete(s) for s in seeds):
+            print("--rows-file: every seed complete, skipping training", flush=True)
+        else:
+            for s in seeds:
+                rows[s] = {"Normal": {"LUMA": dict(skipped)}}
+            run_seeds_batched(C=C, seeds=seeds, data=data, specs=specs, jobs=jobs,
+                              num_classes=num_classes, dmvae_epochs=dmvae_epochs,
+                              probe_epochs=probe_epochs, device=device,
+                              fused_dmvae=not args.no_fused_dmvae,
+                              segment_epochs=args.segment_epochs, rows=rows)
+            rows_file.save(rows)
+    sequential = [] if args.vmap_seeds and len(seeds) > 1 else seeds
+    for seed in sequential:
         if complete(seed):
             print(f"[seed {seed}] already complete (--rows-file), skipping", flush=True)
             continue

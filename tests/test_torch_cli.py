@@ -22,8 +22,9 @@
   with ``--ood-eval``, prints its ``LUMA protocol done`` line and writes its
   reports and checkpoints, and ``runners/evaluate.py --dataset LUMA``
   reports the fused accuracy it printed; ``run_luma.py`` refuses the flags
-  it does not have yet (``--vmap-seeds``, ``--segment-epochs``, ``--dtype
-  bfloat16``, the mesh) with a parser error that points at ROADMAP.md.
+  it does not have yet (``--dtype bfloat16``, the mesh) with a parser error
+  that points at ROADMAP.md (``--vmap-seeds`` and ``--segment-epochs`` run:
+  tests/test_torch_luma_seed_batched.py).
 """
 
 import json
@@ -194,11 +195,9 @@ def test_evaluate_luma_reports_the_runs_fused_accuracy_when_run_as_a_module(luma
     assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
 
 
-@pytest.mark.parametrize("flags", [["--vmap-seeds"], ["--segment-epochs", "2"],
-                                   ["--dtype", "bfloat16"], ["--data-parallel", "2"],
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"], ["--data-parallel", "2"],
                                    ["--model-parallel", "2"]],
-                         ids=["vmap_seeds", "segment_epochs", "bfloat16", "data_parallel",
-                              "model_parallel"])
+                         ids=["bfloat16", "data_parallel", "model_parallel"])
 def test_run_luma_refuses_what_is_not_ported(flags, capsys):
     from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
 

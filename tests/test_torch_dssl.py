@@ -215,13 +215,14 @@ def _views(b, seed):
     return [rng.standard_normal((b, d)).astype(np.float32) for d in DIMS]
 
 
-def jax_step_draws(model, params, key, b):
+def jax_step_draws(model, params, key, b, dims=DIMS):
     """Every draw of JAX's ``disentangledssl_loss`` at ``key``, in the
-    port's layout: the two views' augmentation draws, then w (b, 4) and v
-    (b, 4, m - 1) for vMF heads or eps (b, 4, m) for normal heads. The
-    heads' key is flax's ``make_rng('noise')`` of the loss forward."""
+    port's layout: the two views' augmentation draws (views of widths
+    ``dims``), then w (b, 4) and v (b, 4, m - 1) for vMF heads or eps (b, 4,
+    m) for normal heads. The heads' key is flax's ``make_rng('noise')`` of
+    the loss forward."""
     k_a1, k_a2, k_fwd = jax.random.split(key, 3)
-    draws = [*_aug_draws(k_a1, b, DIMS[0]), *_aug_draws(k_a2, b, DIMS[1])]
+    draws = [*_aug_draws(k_a1, b, dims[0]), *_aug_draws(k_a2, b, dims[1])]
     k_noise = model.apply({"params": params}, method=lambda mdl: mdl.make_rng("noise"),
                           rngs={"noise": k_fwd})
     keys = jax.random.split(k_noise, 4)
@@ -421,3 +422,68 @@ def test_run_refuses_dssl_on_a_dataset_of_more_views(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="2-modal"):
         run.main(["--backbone", "dssl", "--datasets", "HandWritten", "--quick", "--seeds", "0",
                   "--conditions", "Normal", "--device", "cpu"])
+
+
+# ------------------------------------------------- with LUMA feature encoders
+RAW = (40, 128)  # the audio MFCCs and the text ids, encoded to DIMS
+
+
+def _encoder_specs():
+    return (("AudioEncoder", dict(input_dim=RAW[0], output_dim=DIMS[0], dropout=0.1)),
+            ("TextEncoder", dict(input_dim=RAW[1], output_dim=DIMS[1], dropout=0.1)))
+
+
+def test_feature_encoders_loss_and_gradients_match_jax():
+    """DSSL over LUMA's Audio and Text encoders (JAX ``models/disentangledssl.py:44-54``):
+    the loss (rtol 1e-5) and every gradient (rtol 1e-4 / atol 1e-6, the
+    tolerance of the SupCon gradient above) with JAX's augmentation, head
+    and dropout draws fed in; the port draws the encoders' masks ahead of
+    its own, in the forward's call order."""
+    from disentagled_multimodal_fusion_tpu.models import layers as jlayers
+    from test_torch_luma import jitted_draws, port_mask
+
+    encoders = (jlayers.AudioEncoder(input_dim=RAW[0], output_dim=DIMS[0], dropout=0.1),
+                jlayers.TextEncoder(input_dim=RAW[1], output_dim=DIMS[1], dropout=0.1))
+    jmodel = JaxDSSL(output_dim=RAW, hidden_dim=HIDDEN, embed_dim=EMBED, **LMD,
+                     feature_encoders=encoders)
+    params = jmodel.init({"params": jax.random.PRNGKey(0)},
+                         [jnp.zeros((4, d)) for d in RAW], method=JaxDSSL.get_embedding)["params"]
+    b, step, key = 16, 4, jax.random.PRNGKey(3)
+    rng = np.random.default_rng(8)
+    xs = [rng.standard_normal((b, d)).astype(np.float32) for d in RAW]
+    jxs = [jnp.asarray(x) for x in xs]
+
+    def jloss(p, k):
+        return disentangledssl_loss(jmodel, p, jxs, step, k)[0]
+
+    run, kinds = jitted_draws(jax.value_and_grad(jloss), names=("bernoulli",))
+    (ref, ref_grads), masks = run(params, key)
+    assert kinds == ["bernoulli"] * 8  # two hidden layers per call, four calls
+    own = [T(np.asarray(d)) for d in jax_step_draws(jmodel, params, key, b, dims=RAW)]
+
+    model, objective, _ = ttasks.build_disentangledssl_task(
+        output_dim=RAW, hidden_dim=HIDDEN, embed_dim=EMBED, device="cpu", **LMD,
+        feature_encoders=_encoder_specs())
+    load_flax_params(model, jax.device_get(params))
+    draws = tuple(port_mask(m) for m in masks) + tuple(own)
+    loss, _ = model.loss([T(x) for x in xs], draws, step)
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-5)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    want = flax_to_state_dict(jax.device_get(ref_grads))
+    assert set(want) == set(names) and any(n.startswith("feat_encs.1.") for n in names)
+    for name, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+    # the port's own draws: the encoders' masks lead each step's tuple
+    steps = objective.draw_epoch(Randomness(1, "cpu"), [b, 5])
+    shapes = [tuple(t.shape) for t in steps[1][:8]]
+    assert shapes == [(5, 128), (5, 256)] * 2 + [(5, 256), (5, 256)] * 2
+    assert [tuple(t.shape) for t in steps[1][8:14]] == [(5,), (5, RAW[0]), (5, RAW[0]),
+                                                      (5,), (5, RAW[1]), (5, RAW[1])]
+    with torch.no_grad():
+        zc, zp = ttasks.embed_dataset_ssl(model, [T(x) for x in xs])
+    jzc, jzp = jtasks.embed_dataset_ssl(jmodel, params, jxs)
+    np.testing.assert_allclose(zc.numpy(), np.asarray(jzc), **TOL)
+    np.testing.assert_allclose(zp.numpy(), np.asarray(jzp), **TOL)

@@ -244,11 +244,11 @@ def test_get_luma_ood_arrays_matches_jax_bitwise(corpus, monkeypatch, hide):
 
 def test_flat_metadata_reader_reads_what_pyyaml_reads(corpus):
     text = open(f"{corpus}/metadata.yaml").read()
-    assert tluma.parse_flat_yaml(text) == yaml.safe_load(text)
+    assert tluma.parse_block_yaml(text) == yaml.safe_load(text)
     meta = {"num_classes": 42, "ood_classes": ["a b", "it's", "1x"], "ratio": 0.5,
             "flag": True, "name": "bert-base-uncased", "none": None, "empty": []}
     dumped = yaml.safe_dump(meta)
-    assert tluma.parse_flat_yaml(dumped) == yaml.safe_load(dumped) == meta
+    assert tluma.parse_block_yaml(dumped) == yaml.safe_load(dumped) == meta
 
 
 def test_feature_cache_has_the_jax_name_and_is_reused(corpus, tmp_path):
@@ -597,7 +597,8 @@ def test_luma_modules_import_no_pandas_yaml_or_jax():
     script = """
 import sys
 for name in ("data.luma", "data.audio", "data.wordpiece", "data.native_featurizer",
-             "eval.ood", "runners.run_luma", "runners.test_luma", "runners.evaluate"):
+             "eval.ood", "runners.run_luma", "runners.test_luma", "runners.evaluate",
+             "runners.compile_luma"):
     __import__("disentagled_multimodal_fusion_tpu_torch." + name)
 banned = ("pandas", "yaml", "jax", "flax", "transformers", "disentagled_multimodal_fusion_tpu")
 loaded = [m for m in sys.modules if m.split(".")[0] in banned]
