@@ -26,14 +26,22 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    and at LUMA's C = 42 (V = 3 and 4 at B = 840 and 160, phase 22's cut
    corpus, and at B = 4200 and 800, the full corpus's test and OOD rows),
    also at five seeds' heads in one launch (S x V = 15 and 20 at the same
-   four B, phase 23's vmap rule);
+   four B, phase 23's vmap rule); and the head kernel's bf16 build
+   (``BF16_SHAPES``: HandWritten's (7|6, 400) at D = 200 and 240 and
+   (7, 256), LUMA's (3|4, 840|160) and the stacked (15|20, 840) and (20,
+   4200)) against its plain version and
+   against float64 of the bf16-rounded operands, at the bf16 rule of
+   tests/test_torch_bf16.py (``assert_bf16_evidence_close``), from a
+   float32, a bf16 and a strided x (equal bits);
 4. kernel, plain and library times (CUDA events, profiler device time)
    beside the least time the card could take for the same work, the head
    kernel's device time at every main-path shape (serving buckets,
    validation, the synthetic sweep, the Scene seeds, LUMA and its five
    stacked seeds; plain and library times too at the synthetic, CUB and
    Scene shapes, at LUMA's (4, 4200) and (3, 840) and at every stacked LUMA
-   shape); the profiler window of the probe epoch must
+   shape), and the bf16 build's at ``BF16_SHAPES`` beside a bf16
+   ``baddbmm`` chain and its bound at the bf16 tensor-core peak; the
+   profiler window of the probe epoch must
    hold exactly its four kernels, S launches each per epoch (S = 16 on
    HandWritten, 62 on the synthetic sweep, 5 on CUB with its tail of 80),
    and nothing else but the wrapper's PyTorch operations;
@@ -164,7 +172,36 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     0 and 4 their rows' fused accuracy for dmvae_cml and cml_fusion; and one
     seed-batched cml_fusion epoch on 640 rows (five seeds) held step by
     step against each seed's ``train`` on the card, at phase 22's step
-    tolerances (``phase_luma_many_vs_train``).
+    tolerances (``phase_luma_many_vs_train``);
+24. LUMA in bf16 on phase 22's corpus and cache, at full width and depth:
+    ``runners/run_luma.py --dtype bfloat16 --ood-eval
+    --include-intermediate`` on seed 0, then with ``--vmap-seeds --seeds 0
+    1 2 3 4 --segment-epochs 2``: every row finite, late fusion >= 0.07 for
+    every seed, the head kernel's bf16 build launched at exactly phase 22's
+    and 23's shapes and counts (30 and 102), its f32 build and the epoch
+    kernel never; ``runners/evaluate.py`` (which restores and runs in
+    float32, as in the JAX package) on seed 0's bf16 checkpoints within
+    0.01 of the run's fused accuracy for dmvae_cml and cml_fusion
+    (``LUMA_BF16_EVAL_GAP``); and one
+    bf16 cml_fusion epoch step by step on the card against the CPU at phase
+    22's step limits (``phase_luma_bf16``);
+25. HandWritten Normal seed 0 in bf16 (``runners/run.py --dtype bfloat16
+    --probe-engine megakernel``) at half depth (``BF16_HANDWRITTEN_CUT``):
+    each fused accuracy >= 0.93 and within 0.05 of phase 8's, the epoch
+    kernel never (a bf16 probe trains through the step loop), the bf16 head
+    kernel 6 x (head epochs + 1) times, its f32 build never;
+26. export, run right after phase 13 on its checkpoints:
+    ``runners/serve.py --export-dir`` for dmvae_cml and cml_fusion at
+    buckets 1, 8, 64 and 256 writes one ``.pt2`` per bucket under the JAX
+    package's names, each graph with exactly one ``dmf.evidential_heads``
+    call; one fresh subprocess per model (the two run at once), with only
+    torch, the exported ``dmf_head_op.py`` and ``evidential_head.so``,
+    replays the four
+    artifacts under the profiler: outputs equal to the direct call on the
+    card (rtol 1e-5 / atol 1e-6, ``pred`` equal), the head kernel once per
+    call, no module of the package loaded (``phase_export``).
+
+Each phase logs its time.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -174,11 +211,12 @@ commit, it times that commit's kernel in the same call. ``python3
 chip_smoke.py --engine-times`` only times ``--vmap-seeds`` against
 ``--one-program-cells`` on two full-depth HandWritten cells (about 35
 minutes) and checks that their reports agree. ``python3 chip_smoke.py
---luma-state-trials N`` only repeats phase 22's and phase 23's state
+--luma-state-trials N`` only repeats phase 22's, 23's and 24's state
 comparisons N times from other weights and draws and prints their
 readings (``luma_state_trials``).
 
-It prints a JSON line ``{"kernels": [...]}`` and, last,
+It prints a JSON line ``{"kernels": [...]}`` (the head kernel, its bf16
+build and the probe epoch) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
 """
@@ -203,8 +241,10 @@ import torch
 
 SERVED_MODELS = ("dmvae_cml", "dmvae_dis", "cml_fusion")
 BUCKETS = (1, 8, 64, 256)
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, bf16
+# dense on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 SEEDS = (0, 1, 2, 3, 4)
@@ -408,44 +448,178 @@ def phase_kernel_times(ck, card):
 @contextlib.contextmanager
 def head_shape_tally():
     """Counts the head kernel's launches by (V, B, D, H, C) while the main
-    path runs, at the wrapper's launch function (so a vmapped call counts
-    at the S x V heads it launches); the launch count itself stays the
-    wrapper's."""
-    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+    path runs, at the operator's launch function (``ops/head_op.py``; so a
+    vmapped call counts at the S x V heads it launches), the bf16 build's
+    under keys ending in ",bf16"; the launch counts themselves stay the
+    wrappers'."""
+    from disentagled_multimodal_fusion_tpu_torch.ops import head_op
 
-    real = ck._launch
+    real = head_op.launch
     tally = collections.Counter()
 
-    def counted(x, w1, b1, w2, b2):
-        tally[shape_key(*x.shape, w1.shape[-1], w2.shape[-1])] += 1
-        return real(x, w1, b1, w2, b2)
+    def counted(x, w1, b1, w2, b2, bf16):
+        key = shape_key(*x.shape, w1.shape[-1], w2.shape[-1]) + (",bf16" if bf16 else "")
+        tally[key] += 1
+        return real(x, w1, b1, w2, b2, bf16)
 
-    ck._launch = counted
+    head_op.launch = counted
     try:
         yield tally
     finally:
-        ck._launch = real
+        head_op.launch = real
 
 
-def head_device_ms(ck, shape, n=100):
-    """Device-only time of the head kernel at one shape from the profiler,
-    or None when the profiler reports no device time."""
+def head_device_ms(ck, shape, n=100, fn=None, kernel="evidential_heads_kernel"):
+    """Device-only time of the head kernel (``fn``, by default the f32
+    wrapper) at one shape from the profiler, or None when the profiler
+    reports no device time for ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn = fn or ck.evidential_heads_stacked
     args = head_inputs(*shape, seed=0)
     for _ in range(10):
-        ck.evidential_heads_stacked(*args)
+        fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            ck.evidential_heads_stacked(*args)
+            fn(*args)
         torch.cuda.synchronize()
     for ev in prof.key_averages():
-        if "evidential_heads_kernel" in ev.key:
+        if kernel in ev.key:
             total_us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
             if total_us > 0 and ev.count:
                 return total_us / ev.count / 1e3
     return None
+
+
+# the bf16 build's shapes (phases 3 and 4): HandWritten's probe heads, LUMA's
+# (3|4, 840|160) of phases 22 and 24, and the stacked (15|20, 840) and
+# (20, 4200) of the seed-batched engine (the last a full corpus's)
+BF16_SHAPES = (VALIDATION_SHAPES[:3] + [(7, 256, 200, 128, 10)] + LUMA_SHAPES
+               + [(15, 840, 200, 128, 42), (20, 840, 200, 128, 42), (20, 4200, 200, 128, 42)])
+# the most launched bf16 shape of the run (phase 25's late fusion at the
+# widest view, 303 launches); main() holds the run's tally to it
+BF16_MAIN = (6, 400, 240, 128, 10)
+
+
+def bf16_reference64(x, w1, b1, w2, b2):
+    """The bf16 mode in float64: the operands rounded to bf16, each
+    product summed exactly and rounded to bf16, the bias added and rounded
+    where the kernel rounds, the evidence in float64."""
+    from disentagled_multimodal_fusion_tpu_torch.ops.evidence import evidence_activation
+
+    def r(t):
+        return t.to(torch.bfloat16).double()
+
+    h = torch.relu(r(r(torch.einsum("vbd,vdh->vbh", r(x), r(w1))) + r(b1)[:, None, :]))
+    z = r(r(torch.einsum("vbh,vhc->vbc", h, r(w2))) + r(b2)[:, None, :])
+    return evidence_activation(z).transpose(0, 1)
+
+
+def assert_bf16_evidence_close(got, ref, label):
+    """bf16 evidence through its log, the logit it came from: within 2 bf16
+    ulps (2^-7 |ref| + 1e-3) but for at most 1 in 1000 entries, none beyond
+    4 ulps of its own size or of the tensor's rms (tests/test_torch_bf16.py
+    sets the rule from the CPU's readings). Returns (entries beyond 2
+    ulps, the largest gap over the outlier bound, the max abs error of the
+    evidence)."""
+    g, r = got.double().log(), ref.double().log()
+    err = (g - r).abs()
+    beyond = int((err > 2.0 ** -7 * r.abs() + 1e-3).sum())
+    worst = 2.0 ** -6 * (r.abs() + r.pow(2).mean().sqrt())
+    ratio = float((err / worst).max())
+    if not bool(torch.isfinite(got).all()) or beyond > got.numel() // 1000 or ratio > 1.0:
+        raise AssertionError(f"{label}: {beyond} of {got.numel()} entries beyond 2 bf16 ulps, "
+                             f"largest gap {ratio:.3f} of the 4-ulp bound")
+    return beyond, ratio, float((got.double() - ref.double()).abs().max())
+
+
+def library_heads_bf16(x, w1, b1, w2, b2):
+    """The bf16 heads through PyTorch's library calls: baddbmm -> relu ->
+    baddbmm in bf16 -> evidence in float32."""
+    from disentagled_multimodal_fusion_tpu_torch.ops.evidence import evidence_activation
+
+    bf = torch.bfloat16
+    h = torch.relu(torch.baddbmm(b1.to(bf)[:, None, :], x.to(bf), w1.to(bf)))
+    z = torch.baddbmm(b2.to(bf)[:, None, :], h, w2.to(bf))
+    return evidence_activation(z.float()).transpose(0, 1)
+
+
+def bf16_bound(x, w1, b1, w2, b2):
+    """(ms, 'operations' | 'bytes') of the bf16 heads: the products at the
+    bf16 tensor-core peak, against the bytes of these inputs (x in its own
+    type, the float32 parameters) and the float32 output."""
+    v, b, d = x.shape
+    h, c = w1.shape[-1], w2.shape[-1]
+    flops = 2.0 * v * b * (d * h + h * c)
+    nbytes = (x.element_size() * x.numel()
+              + 4.0 * (w1.numel() + b1.numel() + w2.numel() + b2.numel() + b * v * c))
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_bf16_kernel_checks(ck):
+    """The head kernel's bf16 build against its plain version on the card
+    and against float64 of the bf16-rounded operands, at ``BF16_SHAPES``,
+    from a float32 x (as the main path gives it), from a bf16 x (equal
+    bits) and from a strided x (equal bits); the f32 build refuses a bf16
+    x. Returns the largest max abs error against the plain version."""
+    worst = 0.0
+    for i, shape in enumerate(BF16_SHAPES):
+        args = head_inputs(*shape, seed=500 + i)
+        before = ck.evidential_heads_stacked_bf16.launches
+        out = ck.evidential_heads_stacked_bf16(*args)
+        out_bf16_x = ck.evidential_heads_stacked_bf16(args[0].to(torch.bfloat16), *args[1:])
+        strided = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+        out_strided = ck.evidential_heads_stacked_bf16(strided, *args[1:])
+        torch.cuda.synchronize()
+        if ck.evidential_heads_stacked_bf16.launches != before + 3:
+            raise AssertionError(f"evidential_head bf16 {shape}: not one launch per call")
+        if not (torch.equal(out, out_bf16_x) and torch.equal(out, out_strided)):
+            raise AssertionError(f"evidential_head bf16 {shape}: a bf16 or strided x changed "
+                                 f"the result")
+        plain = ck.evidential_heads_stacked_bf16_plain(*args)
+        beyond, ratio, abs_err = assert_bf16_evidence_close(out, plain, f"bf16 {shape}")
+        beyond64, ratio64, abs64 = assert_bf16_evidence_close(
+            out, bf16_reference64(*args), f"bf16 {shape} f64")
+        worst = max(worst, abs_err)
+        log(f"check evidential_head bf16 {shape_key(*shape)}: against the plain version "
+            f"{beyond} entries beyond 2 ulps, largest gap {ratio:.3f} of the 4-ulp bound, max "
+            f"abs err {abs_err:.3e}; against float64 {beyond64}, {ratio64:.3f}, {abs64:.3e}")
+    args = head_inputs(*BF16_SHAPES[0], seed=0)
+    try:
+        ck.evidential_heads_stacked(args[0].to(torch.bfloat16), *args[1:])
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("the f32 evidential_head kernel took a bf16 x")
+    return worst
+
+
+def phase_bf16_kernel_times(ck, card):
+    """The bf16 build at ``BF16_SHAPES``: profiler device time, CUDA events
+    per call, the plain version's and the bf16 ``baddbmm`` chain's events,
+    and the bound. Returns the row at ``BF16_MAIN`` and {shape key: times}."""
+    timed, main_row = {}, None
+    for shape in BF16_SHAPES:
+        args = head_inputs(*shape, seed=1)
+        device_ms = head_device_ms(ck, shape, fn=ck.evidential_heads_stacked_bf16,
+                                   kernel="evidential_heads_bf16_kernel")
+        ms = event_ms(ck.evidential_heads_stacked_bf16, args)
+        plain_ms = event_ms(ck.evidential_heads_stacked_bf16_plain, args)
+        library_ms = event_ms(library_heads_bf16, args)
+        bound_ms, bound_by = bf16_bound(*args)
+        row = dict(device_ms=device_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        timed[shape_key(*shape)] = row
+        if shape == BF16_MAIN:
+            main_row = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}
+        log(f"time evidential_head bf16 {shape_key(*shape)}: device "
+            + (f"{device_ms:.5f} ms" if device_ms is not None else "not measured")
+            + f", events {ms:.5f} ms, plain {plain_ms:.5f} ms, library (bf16 baddbmm) "
+              f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    return main_row, timed
 
 
 def phase_device_time(ck, card):
@@ -754,7 +928,8 @@ def artifact_root(prefix):
 def phase_training(ck, pm, card):
     """The training path: runners/run.py main on HandWritten Normal, seed 0,
     with the probe fits through the epoch kernel. Returns both kernels'
-    launch counts over it and the cell's wall time."""
+    launch counts over it, the head kernel's by shape, the cell's wall time
+    and each model's fused accuracy."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
     from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
 
@@ -790,7 +965,62 @@ def phase_training(ck, pm, card):
     log(f"train: HandWritten Normal seed 0 in {wall:.1f} s; probe_epoch launched "
         f"{epoch_launches} times, evidential_head {head_launches} times "
         f"(by shape {dict(shapes)}) [{card}]")
-    return epoch_launches, head_launches, dict(shapes), wall
+    accs = {name: info["fused"]["accuracy"] for name, info in models.items()}
+    return epoch_launches, head_launches, dict(shapes), wall, accs
+
+
+# phase 25 at half the depth of phase 8 (PERF.md section 4): its probes train
+# through the step loop (a bf16 probe has no epoch-kernel descriptor), which
+# costs more per epoch than phase 8's epoch kernel
+BF16_HANDWRITTEN_CUT = {"dmvae.num_epochs": 50, "probes.model_epochs": 100}
+BF16_HANDWRITTEN_FLOOR = 0.93
+
+
+def phase_training_bf16(ck, pm, card, f32_accs):
+    """The training path in bf16: runners/run.py --dtype bfloat16 on
+    HandWritten Normal, seed 0, --probe-engine megakernel, at
+    ``BF16_HANDWRITTEN_CUT``: each fused accuracy >= 0.93 and within 0.05
+    of phase 8's float32 one; the probes through the step loop (the epoch
+    kernel launched 0 times), the head kernel's bf16 build once per
+    validation epoch and evaluation of the six fits, its f32 build never.
+    Returns the bf16 launches and their shapes."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    with artifact_root("train_bf16_"), cut_config(BF16_HANDWRITTEN_CUT), \
+            head_shape_tally() as shapes:
+        probe_epochs = make_getter(load_config())("probes.model_epochs")
+        pm.run_epoch_kernel.launches = 0
+        ck.evidential_heads_stacked.launches = 0
+        ck.evidential_heads_stacked_bf16.launches = 0
+        t0 = time.perf_counter()
+        rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
+                            "Normal", "--probe-engine", "megakernel", "--dtype", "bfloat16"])
+        wall = time.perf_counter() - t0
+        epochs, f32_heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+        heads = ck.evidential_heads_stacked_bf16.launches
+    models = rows[0]["Normal"]["HandWritten"]
+    if len(models) != 6:
+        raise AssertionError(f"bf16 HandWritten: {len(models)} models trained, expected 6")
+    for name, info in models.items():
+        acc = info["fused"]["accuracy"]
+        log(f"train bf16 HandWritten {name}: fused accuracy {acc:.4f} (phase 8, float32, full "
+            f"depth: {f32_accs[name]:.4f}), fit {info['fit_seconds']:.2f} s, "
+            f"{1e3 * info['fit_seconds'] / probe_epochs:.3f} ms/epoch [{card}]")
+        if not (acc >= BF16_HANDWRITTEN_FLOOR and abs(acc - f32_accs[name]) <= 0.05):
+            raise AssertionError(f"bf16 {name} fused accuracy {acc:.4f}: below "
+                                 f"{BF16_HANDWRITTEN_FLOOR} or more than 0.05 from "
+                                 f"{f32_accs[name]:.4f}")
+    expected = 6 * (probe_epochs + 1)
+    if epochs or f32_heads or heads != expected or sum(shapes.values()) != heads \
+            or not all(key.endswith(",bf16") for key in shapes):
+        raise AssertionError(f"bf16 HandWritten: probe_epoch launched {epochs} times, the f32 "
+                             f"head {f32_heads}, the bf16 head {heads} (expected {expected}; "
+                             f"by shape {dict(shapes)})")
+    log(f"train bf16: HandWritten Normal seed 0 at {BF16_HANDWRITTEN_CUT} in {wall:.1f} s; "
+        f"probe_epoch launched 0 times, evidential_head f32 0 times, bf16 {heads} times (by "
+        f"shape {dict(shapes)}) [{card}]")
+    return heads, dict(shapes)
 
 
 def phase_engines(card):
@@ -1069,6 +1299,115 @@ def phase_restore(card, kept, rows):
         raise AssertionError(f"evaluate.py reports fused accuracy {got}, the sweep {want}")
     log(f"restore: evaluate.py dmvae_cml HandWritten seed 0: fused accuracy {got:.4f}, as the "
         f"seed-batched sweep reported [{card}]")
+
+
+EXPORTED_MODELS = ("dmvae_cml", "cml_fusion")
+
+# the replay of one model's artifacts in a fresh interpreter that imports
+# torch and the operator's file only (its working directory is the export
+# directory; no package is on its path)
+REPLAY_SCRIPT = """
+import importlib.util, json, sys
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+name, buckets, views = sys.argv[1], [int(b) for b in sys.argv[2].split(",")], int(sys.argv[3])
+spec = importlib.util.spec_from_file_location("dmf_head_op", "dmf_head_op.py")
+op = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(op)
+op.load("evidential_head.so")
+report = {}
+for b in buckets:
+    io = np.load(f"io_b{b}.npz")
+    xs = tuple(torch.from_numpy(io[f"arr_{i}"]).cuda() for i in range(views))
+    program = torch.export.load(f"{name}_HandWritten_seed0_b{b}.pt2").module()
+    with torch.no_grad():
+        program(xs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = program(xs)
+            torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "evidential_heads_kernel" in e.key)
+    assert kernels == 1, (b, kernels)
+    np.testing.assert_array_equal(out["pred"].cpu().numpy(), io["pred"])
+    gaps = {}
+    for k in ("probs", "evidence", "fused_evidence", "epistemic", "aleatoric"):
+        got = out[k].cpu().numpy()
+        np.testing.assert_allclose(got, io[k], rtol=1e-5, atol=1e-6, err_msg=f"{b} {k}")
+        gaps[k] = float(np.abs(got - io[k]).max())
+    report[b] = {"head_kernel_launches": kernels, "max_abs_diff": gaps}
+bad = [m for m in sys.modules if "disentagled" in m]
+assert not bad, bad
+print(json.dumps(report))
+"""
+
+
+def phase_export(ck, card):
+    """Export: runners/serve.py --export-dir for dmvae_cml and cml_fusion at
+    ``BUCKETS`` from phase 13's checkpoints (the seed-batched phase's, at
+    serve.py's default paths): one ``.pt2`` per bucket under the JAX
+    package's names, each graph holding exactly one ``dmf.evidential_heads``
+    call; then one fresh subprocess per model replays its four artifacts
+    under torch.profiler with ``dmf_head_op.py`` and ``evidential_head.so``
+    from the export directory: outputs equal to the direct call on the card
+    (rtol 1e-5 / atol 1e-6, ``pred`` equal), the head kernel once per call,
+    no module of the package loaded; the two subprocesses run at once.
+    Returns the head kernel's launches of the serve.py runs (their bucket
+    benches; the replays launch in their own processes)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.serve import head_op_calls, to_host
+    from disentagled_multimodal_fusion_tpu_torch.runners import serve
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config())
+    launches, replays = 0, {}
+    for name in EXPORTED_MODELS:
+        out = Path(os.environ["DMF_ARTIFACT_ROOT"]) / "exported" / name
+        flags = ["--model", name, "--dataset", "HandWritten", "--seed", "0", "--buckets",
+                 *map(str, BUCKETS)]
+        ck.evidential_heads_stacked.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = serve.main(flags + ["--reps", "3", "--export-dir", str(out)])
+        export_s = time.perf_counter() - t0
+        launches += ck.evidential_heads_stacked.launches
+        names = [f"{name}_HandWritten_seed0_b{b}.pt2" for b in BUCKETS]
+        if [Path(p).name for p in report["exported"]] != \
+                names + ["dmf_head_op.py", "evidential_head.so"]:
+            raise AssertionError(f"export {name}: wrote {report['exported']}")
+        infer, xs = serve.load(serve.parse_args(flags), C, torch.device("cuda"))
+        for b, artifact in zip(BUCKETS, names):
+            calls = head_op_calls(torch.export.load(str(out / artifact)))
+            if calls != 1:
+                raise AssertionError(f"export {artifact}: {calls} dmf.evidential_heads calls")
+            direct = to_host(infer(tuple(x[:b] for x in xs)))
+            np.savez(out / f"io_b{b}.npz", *[x[:b].cpu().numpy() for x in xs], **direct)
+        log(f"export {name}: {len(names)} artifacts, one dmf.evidential_heads call each, in "
+            f"{export_s:.1f} s (serve.py with its bucket bench) [{card}]")
+        replays[name] = (out, len(xs))
+    # both replays at once: each is mostly its interpreter's start-up
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = {name: subprocess.Popen([sys.executable, "-c", REPLAY_SCRIPT, name,
+                                     ",".join(map(str, BUCKETS)), str(views)],
+                                    cwd=out, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, env=env)
+             for name, (out, views) in replays.items()}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"export {name}: the replay failed: {stderr[-3000:]}")
+            replay = json.loads(stdout.strip().splitlines()[-1])
+            log(f"export {name}: replayed without the package in "
+                f"{time.perf_counter() - t0:.1f} s: {replay} [{card}]")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
 
 
 def phase_synthetic(ck, pm, card, backbone):
@@ -1793,6 +2132,10 @@ def luma_step_gaps(got, ref):
     return out
 
 
+# phase 24's bf16 step (the heads in bf16, the encoders float32) is held to
+# the same limits: its first 40 readings on the card came to 0.285 of the
+# loss's, 0.150 of the validation's, 6.6e-4 of the statistics' and 2.65e-3
+# in gradient norm (PERF.md section 2)
 LUMA_STEP_LIMITS = {"loss": 1.0, "val_loss": 1.0, "stat": 1.0, "grad": LUMA_GRAD_TOL}
 
 
@@ -1866,7 +2209,7 @@ def _stats(model):
     return {k: state[k] for k in model_state_names(model)}
 
 
-def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
+def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True, dtype=None):
     """One cml_fusion epoch over the LUMA encoders on the cut corpus's first
     640 train rows, held step by step on the card against the CPU. At each
     step of 64 rows both sides take a one-step fit at lr 0 from the CPU's
@@ -1877,7 +2220,8 @@ def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
     steps of lr of either sign, and over an epoch the two trajectories part
     by up to 8 lr (PERF.md section 2). ``trial`` k draws the weights and
     draws from other generators; without ``check`` nothing is held, and it
-    returns each step's ``luma_step_gaps``."""
+    returns each step's ``luma_step_gaps``. With ``dtype="bfloat16"`` both
+    sides build the heads in bf16 (phase 24)."""
     import dataclasses
 
     from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
@@ -1887,8 +2231,9 @@ def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
     steps = len(tr[1]) // batch
     recorder = _Recorder(Randomness(16 * trial + 8, "cpu"))
     sides = {"cpu": "cpu", "card": device}
-    tasks = {side: run_luma.head_builders(C, classes, 1, specs, dev)["cml_fusion"](16 * trial + 6)
-             for side, dev in sides.items()}
+    tasks = {side: run_luma.head_builders(C, classes, 1, specs, dev, dtype)["cml_fusion"](
+        16 * trial + 6) for side, dev in sides.items()}
+    label = "luma card vs CPU" + ("" if dtype is None else f" ({dtype})")
     val = {side: _luma_rows(te, dev) for side, dev in sides.items()}
     frozen = dataclasses.replace(tasks["cpu"].optimizer, lr=0.0)
     readings, worst, secs = [], {}, {"cpu": 0.0, "card": 0.0}
@@ -1913,7 +2258,7 @@ def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
             readings.append(luma_step_gaps(got["card"], got["cpu"]))
         else:
             for kind, gap in check_luma_step(got["card"], got["cpu"],
-                                             f"luma card vs CPU step {k}").items():
+                                             f"{label} step {k}").items():
                 worst[kind] = max(worst.get(kind, 0.0), gap)
         task = tasks["cpu"]
         train(model=task.model, loss_fn=task.loss_fn, n_train=batch,
@@ -1921,7 +2266,7 @@ def phase_luma_card_vs_cpu(card, corpus, device="cuda", trial=0, check=True):
               optimizer=task.optimizer, epochs=1, batch_size=batch, randomness=recorder)
     if not check:
         return readings
-    log(f"luma card vs CPU: cml_fusion, {steps} steps of {batch} rows, each from the CPU's "
+    log(f"{label}: cml_fusion, {steps} steps of {batch} rows, each from the CPU's "
         f"state: last step's loss {got['card']['loss']:.6f} (CPU {got['cpu']['loss']:.6f}), "
         f"val loss {got['card']['val_loss']:.6f} (CPU {got['cpu']['val_loss']:.6f}); largest "
         f"gaps {worst}; steps {secs['card']:.2f} s on the card, "
@@ -2125,6 +2470,104 @@ def phase_luma_many_vs_train(card, corpus, n_seeds=len(SEEDS), trial=0, check=Tr
 def sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+# evaluate.py re-runs seed 0's bf16 checkpoints in float32: its fused
+# accuracy may differ from the bf16 run's by the rows whose argmax the
+# rounding flips, 0-3 of 840 in five runs on the card (0.0035 at most);
+# 0.01 is 8 rows, while a restore that lost the BatchNorm statistics or a
+# head would fall to chance (1/42 = 0.024) from cml_fusion's 0.23-0.29
+LUMA_BF16_EVAL_GAP = 0.01
+
+
+def phase_luma_bf16(ck, pm, card, corpus, seq_fits):
+    """The LUMA protocol in bf16 on phase 22's corpus and feature cache, at
+    the config's full width and depth: runners/run_luma.py --dtype bfloat16
+    --ood-eval --include-intermediate, sequentially on seed 0 and with
+    --vmap-seeds --segment-epochs 2 on seeds 0-4. Late fusion >= 0.07 for
+    every seed, every row finite; the head kernel's bf16 build at exactly
+    phase 22's and 23's shapes and counts, its f32 build and the epoch
+    kernel never; runners/evaluate.py (float32) on seed 0's bf16
+    checkpoints within ``LUMA_BF16_EVAL_GAP`` of the run's fused accuracy;
+    and one bf16 cml_fusion epoch step by
+    step on the card against the CPU (``check_luma_step``). Returns
+    the bf16 launches {engine: count} and their shapes."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import evaluate, run_luma
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
+
+    C = make_getter(load_config("luma_config.yaml"))
+    probe_epochs = C("probes.model_epochs")
+    test_rows = LUMA_CORPUS["n_classes"] * LUMA_CORPUS["test_per_class"]
+    ood_rows = LUMA_CORPUS["ood_classes"] * LUMA_CORPUS["test_per_class"]
+    want = ["dmvae_dis", "dmvae_cml", "dmvae_joint", "dbf_fusion", "cml_fusion", "avg_fusion",
+            "intermediate_fusion"]
+    engines = {
+        "sequential": (["--seeds", "0"], [0],
+                       _luma_head_shapes(probe_epochs, test_rows, ood_rows)),
+        "seed-batched": (["--vmap-seeds", "--seeds", *map(str, SEEDS), "--segment-epochs", "2"],
+                         list(SEEDS),
+                         _luma_stacked_head_shapes(probe_epochs, SEEDS, test_rows, ood_rows)),
+    }
+    launches, all_shapes = {}, {}
+    for engine, (flags, seeds, expected) in engines.items():
+        expected = {f"{key},bf16": n for key, n in expected.items()}
+        with artifact_root(f"luma_bf16_{engine}_"):
+            with head_shape_tally() as shapes, contextlib.redirect_stdout(_Tee()) as tee:
+                pm.run_epoch_kernel.launches = 0
+                ck.evidential_heads_stacked.launches = 0
+                ck.evidential_heads_stacked_bf16.launches = 0
+                t0 = time.perf_counter()
+                rows = run_luma.main(["--data-path", corpus, *flags, "--ood-eval",
+                                      "--include-intermediate", "--dtype", "bfloat16"])
+                wall = time.perf_counter() - t0
+                epochs, f32_heads = (pm.run_epoch_kernel.launches,
+                                     ck.evidential_heads_stacked.launches)
+                heads = ck.evidential_heads_stacked_bf16.launches
+            dmvae_s = float(re.search(r"DMVAE (?:x\d+ seeds )?trained: ([0-9.]+) s",
+                                      tee.text()).group(1))
+            for s in seeds:
+                models = rows[s]["Normal"]["LUMA"]
+                if sorted(models) != sorted(want):
+                    raise AssertionError(f"luma bf16 {engine} seed {s}: rows {sorted(models)}")
+                for name in want:
+                    _finite_row(f"bf16 {engine} seed {s} {name}", models[name])
+                    if not all(0.0 <= v <= 1.0 for v in models[name]["ood"].values()):
+                        raise AssertionError(f"luma bf16 seed {s} {name}: OOD "
+                                             f"{models[name]['ood']}")
+                    acc = models[name]["fused"]["accuracy"]
+                    if name in ("dbf_fusion", "cml_fusion", "avg_fusion") \
+                            and not acc >= LUMA_LATE_FLOOR:
+                        raise AssertionError(f"luma bf16 {engine} seed {s} {name} fused "
+                                             f"accuracy {acc:.4f} < {LUMA_LATE_FLOOR}")
+                log(f"luma bf16 {engine} seed {s}: fused accuracies "
+                    + str({n: round(models[n]["fused"]["accuracy"], 4) for n in want}))
+            if engine == "sequential":
+                for name in ("dmvae_cml", "cml_fusion"):
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        info = evaluate.main(["--model", name, "--dataset", "LUMA", "--seed",
+                                              "0", "--data-path", corpus])
+                    got = info["fused"]["accuracy"]
+                    run_acc = rows[0]["Normal"]["LUMA"][name]["fused"]["accuracy"]
+                    if not abs(got - run_acc) <= LUMA_BF16_EVAL_GAP:
+                        raise AssertionError(f"luma bf16 evaluate.py {name}: fused accuracy "
+                                             f"{got} (float32), the bf16 run {run_acc}")
+                    log(f"luma bf16: evaluate.py {name} (float32) from the bf16 checkpoints: "
+                        f"fused accuracy {got:.4f}, the bf16 run {run_acc:.4f} [{card}]")
+        first = rows[seeds[0]]["Normal"]["LUMA"]
+        log(f"luma bf16 {engine}: DMVAE fit {dmvae_s:.2f} s (phase 22's float32 one seed "
+            f"{seq_fits['dmvae']:.2f} s); fits "
+            + str({n: round(first[n]["fit_seconds"], 2) for n in want})
+            + f" (phase 22's float32 one seed: "
+            + str({n: round(seq_fits[n], 2) for n in want}) + f") [{card}]")
+        if epochs or f32_heads or dict(shapes) != expected or heads != sum(expected.values()):
+            raise AssertionError(f"luma bf16 {engine}: probe_epoch launched {epochs} times, the "
+                                 f"f32 head {f32_heads}, the bf16 head {heads} by shape "
+                                 f"{dict(shapes)}, expected {expected}")
+        log(f"luma bf16 {engine}: seeds {seeds} in {wall:.1f} s; probe_epoch launched 0 times, "
+            f"evidential_head f32 0 times, bf16 {heads} times (by shape {dict(shapes)}) [{card}]")
+        launches[engine], all_shapes[engine] = heads, dict(shapes)
+    phase_luma_card_vs_cpu(card, corpus, dtype="bfloat16")
+    return launches, all_shapes
 
 
 def phase_luma_seed_batched(ck, pm, card, corpus, seq_fits):
@@ -2339,8 +2782,9 @@ def engine_times_only(card):
 
 
 def luma_state_trials(card, trials):
-    """``--luma-state-trials N``: phase 22's card-vs-CPU steps and phase
-    23's ``train_many``-vs-``train`` steps (five seeds) N times, each time
+    """``--luma-state-trials N``: phase 22's card-vs-CPU steps, phase 23's
+    ``train_many``-vs-``train`` steps (five seeds) and phase 24's bf16
+    card-vs-CPU steps N times, each time
     from other weights and draws, on phase 22's corpus. Holds nothing:
     prints, per comparison, how many trials and readings (one per step, and
     seed) ``check_luma_step`` would refuse, and the largest gap of each
@@ -2351,7 +2795,7 @@ def luma_state_trials(card, trials):
 
     configure()
     cuda_build.build([ck.KERNEL_SOURCE])
-    runs = {"card_vs_cpu": [], "many_vs_train": []}
+    runs = {"card_vs_cpu": [], "many_vs_train": [], "card_vs_cpu_bf16": []}
     with artifact_root("luma_trials_") as root:
         corpus = luma_corpus(root)
         for t in range(trials):
@@ -2359,6 +2803,8 @@ def luma_state_trials(card, trials):
                 phase_luma_card_vs_cpu(card, corpus, trial=t, check=False))
             runs["many_vs_train"].append(
                 phase_luma_many_vs_train(card, corpus, trial=t, check=False))
+            runs["card_vs_cpu_bf16"].append(
+                phase_luma_card_vs_cpu(card, corpus, trial=t, check=False, dtype="bfloat16"))
     summary = {}
     for name, by_trial in runs.items():
         flat = [gaps for trial in by_trial for gaps in trial]
@@ -2414,48 +2860,78 @@ def main() -> int:
         if not frames or any(int(x) for frame in frames for x in frame):
             raise AssertionError(f"{name}: ptxas reports a stack frame or spills: {frames}")
 
-    max_abs_err = phase_kernel_checks(ck)
-    epoch_abs_err = phase_probe_epoch_checks(pm)
-    timing = phase_kernel_times(ck, card)
-    device_by_shape, head_times_by_shape = phase_device_time(ck, card)
-    epoch_timing, epoch_times_by_shape = phase_probe_epoch_times(pm, card)
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{label} in {time.perf_counter() - t0:.1f} s [{card}]")
+        return out
+
+    max_abs_err = timed("phase 3 evidential_head checks", phase_kernel_checks, ck)
+    bf16_abs_err = timed("phase 3 evidential_head bf16 checks", phase_bf16_kernel_checks, ck)
+    epoch_abs_err = timed("phase 3 probe_epoch checks", phase_probe_epoch_checks, pm)
+    timing = timed("phase 4 evidential_head times", phase_kernel_times, ck, card)
+    device_by_shape, head_times_by_shape = timed("phase 4 evidential_head device times",
+                                                 phase_device_time, ck, card)
+    bf16_timing, bf16_times_by_shape = timed("phase 4 evidential_head bf16 times",
+                                             phase_bf16_kernel_times, ck, card)
+    epoch_timing, epoch_times_by_shape = timed("phase 4 probe_epoch times",
+                                               phase_probe_epoch_times, pm, card)
     epoch_timing = {k: epoch_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}
-    serve_launches, serve_shapes = phase_serving(ck, card)
-    phase_request_profile(card)
-    phase_daemon_and_http(card)
-    epoch_launches, train_head_launches, train_shapes, seq_wall = phase_training(ck, pm, card)
-    phase_engines(card)
-    phase_vmapped_heads(ck, card)
+    serve_launches, serve_shapes = timed("phase 5 serving", phase_serving, ck, card)
+    timed("phase 5 request profile", phase_request_profile, card)
+    timed("phases 6-7 daemon and HTTP", phase_daemon_and_http, card)
+    epoch_launches, train_head_launches, train_shapes, seq_wall, f32_accs = timed(
+        "phase 8 training", phase_training, ck, pm, card)
+    timed("phase 9 engines", phase_engines, card)
+    timed("phase 10 vmapped heads", phase_vmapped_heads, ck, card)
     with artifact_root("seed_batched_"), cut_config(SEED_BATCHED_CUT):
         with kept_checkpoints() as kept:
-            sb_launches, sb_shapes, sb_rows, _ = phase_seed_batched(ck, card, seq_wall)
-        phase_seed_batched_engines(card)
-        phase_restore(card, kept, sb_rows)
+            sb_launches, sb_shapes, sb_rows, _ = timed("phase 11 seed-batched",
+                                                       phase_seed_batched, ck, card, seq_wall)
+        timed("phase 12 seed-batched engines", phase_seed_batched_engines, card)
+        timed("phase 13 restore", phase_restore, card, kept, sb_rows)
+        # on phase 13's checkpoints, before its artifact root goes
+        export_launches = timed("phase 26 export", phase_export, ck, card)
     with artifact_root("synthetic_dmvae_"):
-        syn = phase_synthetic(ck, pm, card, "dmvae")
+        syn = timed("phase 14 synthetic", phase_synthetic, ck, pm, card, "dmvae")
         # the probes' checkpoints share their names, so DSSL has its own root
         with artifact_root("synthetic_dssl_"), cut_config(DSSL_CUT, "synthetic_config.yaml"):
-            dssl = phase_synthetic(ck, pm, card, "dssl")
+            dssl = timed("phase 15 synthetic DSSL", phase_synthetic, ck, pm, card, "dssl")
         with artifact_root("synthetic_vmap_"):
-            syn_sb_launches, syn_sb_shapes = phase_synthetic_seed_batched(ck, card)
-        phase_synthetic_restore(card, syn[0])
+            syn_sb_launches, syn_sb_shapes = timed("phase 16 synthetic seed-batched",
+                                                   phase_synthetic_seed_batched, ck, card)
+        timed("phase 17 synthetic restore", phase_synthetic_restore, card, syn[0])
     syn_head_launches = syn[2] + dssl[2] + syn_sb_launches
     syn_epoch_launches = syn[1] + dssl[1]
     syn_shapes = dict(collections.Counter(syn[3]) + collections.Counter(dssl[3])
                       + collections.Counter(syn_sb_shapes))
-    phase_fusions(card)
-    _, im_epochs, im_heads, im_shapes, fused_bb_ms = phase_intermediate(ck, pm, card)
-    uf_epochs, uf_heads, uf_shapes, _ = phase_unfused_dmvae(ck, pm, card, fused_bb_ms)
-    prof_heads, prof_shapes = phase_seed_batched_profile(ck, card)
+    timed("phase 18 fusions", phase_fusions, card)
+    _, im_epochs, im_heads, im_shapes, fused_bb_ms = timed(
+        "phase 19 intermediate", phase_intermediate, ck, pm, card)
+    uf_epochs, uf_heads, uf_shapes, _ = timed("phase 20 unfused DMVAE", phase_unfused_dmvae,
+                                              ck, pm, card, fused_bb_ms)
+    prof_heads, prof_shapes = timed("phase 21 profile", phase_seed_batched_profile, ck, card)
     cub_shapes = dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))
     with artifact_root("luma_") as root:
         corpus = luma_corpus(root)
-        luma_heads, luma_shapes, luma_fits = phase_luma(ck, pm, card, root, corpus)
+        luma_heads, luma_shapes, luma_fits = timed("phase 22 LUMA", phase_luma, ck, pm, card,
+                                                   root, corpus)
         with artifact_root("luma_vmap_"):
-            luma_sb_heads, luma_sb_shapes = phase_luma_seed_batched(ck, pm, card, corpus,
-                                                                    luma_fits)
+            luma_sb_heads, luma_sb_shapes = timed("phase 23 LUMA seed-batched",
+                                                  phase_luma_seed_batched, ck, pm, card,
+                                                  corpus, luma_fits)
+        luma_bf16_heads, luma_bf16_shapes = timed("phase 24 LUMA bf16", phase_luma_bf16, ck,
+                                                  pm, card, corpus, luma_fits)
+    hw_bf16_heads, hw_bf16_shapes = timed("phase 25 HandWritten bf16", phase_training_bf16, ck,
+                                          pm, card, f32_accs)
 
+    bf16_tally = collections.Counter(hw_bf16_shapes)
+    for shapes in luma_bf16_shapes.values():
+        bf16_tally.update(shapes)
+    if bf16_tally.most_common(1)[0][0] != shape_key(*BF16_MAIN) + ",bf16":
+        raise AssertionError(f"the kernels line times the bf16 build at {BF16_MAIN}, but the "
+                             f"run launched it most at {bf16_tally.most_common(1)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "evidential_head",
@@ -2463,12 +2939,14 @@ def main() -> int:
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
-                     + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads),
+                     + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads
+                     + export_launches),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
                              "scene_profile": prof_heads, "luma": luma_heads,
-                             "luma_seed_batched": luma_sb_heads},
+                             "luma_seed_batched": luma_sb_heads, "export": export_launches,
+                             "luma_bf16": 0, "handwritten_bf16": 0},
         "max_abs_err": max_abs_err,
         **timing,
         "device_ms_by_shape": device_by_shape,
@@ -2478,6 +2956,21 @@ def main() -> int:
                               "cub": cub_shapes, "scene_profile": prof_shapes,
                               "luma": luma_shapes, "luma_seed_batched": luma_sb_shapes},
     }, {
+        "name": "evidential_head_bf16",
+        "route": "cuda",
+        "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
+        "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
+        "launches": sum(luma_bf16_heads.values()) + hw_bf16_heads,
+        "launches_by_path": {"luma_bf16": luma_bf16_heads["sequential"],
+                             "luma_seed_batched_bf16": luma_bf16_heads["seed-batched"],
+                             "handwritten_bf16": hw_bf16_heads},
+        "max_abs_err": bf16_abs_err,
+        **bf16_timing,
+        "times_by_shape": bf16_times_by_shape,
+        "launches_by_shape": {"luma_bf16": luma_bf16_shapes["sequential"],
+                              "luma_seed_batched_bf16": luma_bf16_shapes["seed-batched"],
+                              "handwritten_bf16": hw_bf16_shapes},
+    }, {
         "name": "probe_epoch",
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/probe_epoch.cu",
@@ -2485,7 +2978,8 @@ def main() -> int:
         "launches": epoch_launches + syn_epoch_launches + im_epochs + uf_epochs,
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
                              "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
-                             "luma": 0, "luma_seed_batched": 0},
+                             "luma": 0, "luma_seed_batched": 0, "luma_bf16": 0,
+                             "handwritten_bf16": 0},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

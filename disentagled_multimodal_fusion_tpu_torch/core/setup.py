@@ -3,8 +3,10 @@
 Counterpart of ``disentagled_multimodal_fusion_tpu/core/setup.py``. The JAX
 package pins f32-accurate matmuls for parity with the reference's numerics
 (its ``core/setup.py:29-46``); here that means TF32 off for both cuBLAS
-matmuls and cuDNN convolutions. The compilation cache and the multi-host
-init of the JAX side have no counterpart.
+matmuls and cuDNN convolutions, and bf16 products (``--dtype bfloat16``)
+summed in f32: cuBLAS's default may reduce a bf16 GEMM's partial sums in
+bf16, which neither XLA nor the JAX package does. The compilation cache
+and the multi-host init of the JAX side have no counterpart.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ import torch
 
 
 def configure() -> None:
-    """Keep float32 matmuls in full float32 on the card (no TF32)."""
+    """Keep float32 matmuls in full float32 on the card (no TF32), and sum
+    bf16 products in f32 (no bf16 reduced-precision reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

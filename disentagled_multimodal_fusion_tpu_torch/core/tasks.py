@@ -27,6 +27,16 @@ frozen-backbone and eval forwards over stacked seeds. The DisentangledSSL object
 (its vMF rejection sampler syncs with the host once per block, not per
 step) and takes the global step for its lambda schedule.
 
+``dtype`` (every builder but DisentangledSSL's; JAX lines 97-102) is the
+models' compute type: None or ``"float32"``, or ``"bfloat16"`` for the
+``--dtype bfloat16`` mode, in which the backbone's and the heads' products
+run in bf16 while the parameters, the optimizer's state, the losses and
+the BatchNorm statistics stay float32. A bf16 probe gets no epoch-kernel
+descriptor (JAX lines 276, 363): it trains through the step loop, and its
+eval forward goes through the head kernel's bf16 build. The feature
+encoders keep their own type (their specs' ``dtype``; the runners build
+them in float32, as the JAX runners do).
+
 ``feature_encoders`` (the DMVAE, late-fusion and intermediate-fusion
 builders; JAX lines 127-177, 411-566) are specs for
 ``models.layers.build_encoders``, LUMA's Audio, Text and Image encoders:
@@ -51,6 +61,7 @@ from ..models.baselines import FusedLateFusion, IntermediateFusion, LateFusion
 from ..models.dmvae import DMVAE
 from ..models.disentangledssl import DisentangledSSL
 from ..models.dmvae_fused import FusedDMVAE
+from ..models.layers import norm_dtype
 from ..models.probes import (
     DisentangledEvidentialProbe,
     EvidentialProbe,
@@ -172,6 +183,7 @@ def build_dmvae_task(
     lambda_per_modality: Optional[Sequence[float]] = None,
     fused_modalities: bool = False,
     feature_encoders=None,
+    dtype=None,
     device=None,
 ) -> nn.Module:
     """The DMVAE backbone, FusedDMVAE when ``fused_modalities`` and the
@@ -181,7 +193,8 @@ def build_dmvae_task(
     cls = FusedDMVAE if fused_modalities else DMVAE
     return _build(cls, seed, device, x_dims=tuple(output_dim), hidden_dim=hidden_dim,
                   embed_dim=embed_dim, poe_temperature=poe_temperature, a=a, dropout=dropout,
-                  lambda_per_modality=lambda_per_modality, feature_encoders=feature_encoders)
+                  lambda_per_modality=lambda_per_modality, feature_encoders=feature_encoders,
+                  dtype=dtype)
 
 
 def dmvae_objective(model, *, lr: float = 1e-4, num_epochs: int = 50):
@@ -301,12 +314,14 @@ def build_probe_task(
     num_epochs: int = 200,
     shared_input_dim: Optional[int] = None,
     fused_heads: bool = True,
+    dtype=None,
     device=None,
 ) -> EvidentialTask:
     """Shared + private evidential probe. Data: {'zc': (B, Ds), 'zp': (B, N, D), 'y'}."""
     hidden = tuple(hidden_dim)
+    dtype = norm_dtype(dtype)
     kw = dict(num_modalities=num_modalities, num_classes=num_classes, input_dim=input_dim,
-              hidden_dim=hidden, shared_input_dim=shared_input_dim)
+              hidden_dim=hidden, shared_input_dim=shared_input_dim, dtype=dtype)
     if not fused_heads:
         model = _build(EvidentialProbe, seed, device, **kw)
         return EvidentialTask(model, lambda d: model(d["zc"], list(d["zp"].unbind(dim=1))),
@@ -321,7 +336,7 @@ def build_probe_task(
     opt = OptimizerConfig(name="adamw", lr=lr, weight_decay=1e-4, schedule="cosine",
                           cosine_t_max=num_epochs, eta_min=1e-6)
     mk = None
-    if len(hidden) == 1:
+    if len(hidden) == 1 and dtype is None:
         mk = ProbeMegakernelDesc(num_modalities, num_classes, input_dim, shared_input_dim,
                                  hidden[0], float(dropout), float(fused),
                                  float(annealing_start), True)
@@ -342,14 +357,16 @@ def build_disentangled_probe_task(
     aggregation: str = "cml",
     num_epochs: int = 200,
     fused_heads: bool = True,
+    dtype=None,
     device=None,
 ) -> EvidentialTask:
     """Private-only evidential probe. Data: {'zp': (B, N, D), 'y'}."""
     if aggregation not in ("cml", "avg"):
         raise ValueError("aggregation must be one of ['cml', 'avg']")
     hidden = tuple(hidden_dim)
+    dtype = norm_dtype(dtype)
     kw = dict(num_modalities=num_modalities, num_classes=num_classes, input_dim=input_dim,
-              hidden_dim=hidden)
+              hidden_dim=hidden, dtype=dtype)
     if not fused_heads:
         model = _build(DisentangledEvidentialProbe, seed, device, **kw)
         return EvidentialTask(model, lambda d: model(list(d["zp"].unbind(dim=1))),
@@ -364,7 +381,7 @@ def build_disentangled_probe_task(
     opt = OptimizerConfig(name="adamw", lr=lr, weight_decay=0.01, schedule="plateau",
                           plateau_factor=0.1, plateau_patience=5)
     mk = None
-    if len(hidden) == 1:
+    if len(hidden) == 1 and dtype is None:
         mk = ProbeMegakernelDesc(num_modalities, num_classes, input_dim, None, hidden[0],
                                  float(dropout), 1.0, float(annealing_start), False)
     return EvidentialTask(model, forward, AGGREGATIONS[aggregation], num_classes, loss_fn,
@@ -385,6 +402,7 @@ def build_late_fusion_task(
     fused: float = 1.0,
     fused_heads: bool = True,
     feature_encoders=None,
+    dtype=None,
     device=None,
 ) -> EvidentialTask:
     """Per-view evidential heads on raw views, through ``feature_encoders``
@@ -392,7 +410,7 @@ def build_late_fusion_task(
     N views (B, S_i), 'y'}."""
     hidden = tuple(hidden_dim)
     kw = dict(output_dims=tuple(output_dims), num_classes=num_classes, hidden_dim=hidden,
-              feature_encoders=feature_encoders)
+              feature_encoders=feature_encoders, dtype=dtype)
     if not fused_heads:
         model = _build(LateFusion, seed, device, **kw)
         return EvidentialTask(model, lambda d: model(d["xs"]), AGGREGATIONS[aggregation],
@@ -423,6 +441,7 @@ def build_intermediate_fusion_task(
     fusion_output_dim: int = 64,
     fusion_rank: int = 8,
     feature_encoders=None,
+    dtype=None,
     device=None,
 ) -> EvidentialTask:
     """Fusion -> one evidential head (baselines.py:153-252; JAX
@@ -436,7 +455,7 @@ def build_intermediate_fusion_task(
     model = _build(IntermediateFusion, seed, device, output_dims=tuple(output_dims),
                    num_classes=num_classes, hidden_dim=hidden_dim, dropout=dropout,
                    fusion=fusion, fusion_output_dim=fusion_output_dim,
-                   fusion_rank=fusion_rank, feature_encoders=feature_encoders)
+                   fusion_rank=fusion_rank, feature_encoders=feature_encoders, dtype=dtype)
 
     def loss(ev, y, epoch, mask):
         return single_evidential_loss(ev, y, annealing_step=epoch,

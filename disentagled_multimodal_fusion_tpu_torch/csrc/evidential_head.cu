@@ -1,4 +1,5 @@
-// Evidential-head forward for V stacked heads in one launch, f32 throughout.
+// Evidential-head forward for V stacked heads in one launch, f32 throughout;
+// at the end of the file its bf16 compute mode (--dtype bfloat16).
 //
 //   out[b, v, :] = evidence(relu(x[v, b, :] W1[v] + b1[v]) W2[v] + b2[v])
 //   evidence(z)  = exp(z' + ln 1e13 - logaddexp(z', ln 1e13)),  z' = clip(z, -10, 10)
@@ -63,6 +64,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -642,6 +644,136 @@ cudaError_t launch(const float* x, long long sxv, long long sxb, const float* w1
                             bulk_params);
 }
 
+// ---- the bf16 compute mode: --dtype bfloat16's heads ----
+//
+// What JAX's StackedMLP(dtype=bf16) and the f32 evidence compute, with its
+// roundings: every operand rounded to bf16, each product summed in f32 and
+// rounded to bf16 once, the bias added in bf16 (a second rounding), ReLU,
+// the same for the second layer, and the evidence in f32:
+//
+//   h = relu(bf16(bf16(x W1) + bf16(b1))),  z = bf16(bf16(h W2) + bf16(b2)),
+//   out = evidence(float(z))
+//
+// Weights and biases come in f32 (the parameters stay f32) and are rounded
+// here as they are read; x comes in f32 too and is rounded as it is staged
+// (the wrapper widens a bf16 x first, exactly).
+// Simple by design: f32 FMAs on the rounded values, no tensor cores. Grid
+// (row tiles of BF_BM, V) of 256 threads; each block stages K-chunks of x
+// and of the weights in shared memory and keeps its rows' relu(h) there as
+// bf16 (exact: h is rounded to bf16 anyway), so h never reaches device
+// memory. Thread t owns column t % 128 of a 128-column pass and rows
+// t / 128 + 2 i (16 accumulators); x and h are broadcast reads, the weight
+// tiles conflict-free. Every sum runs over k in order, so results do not
+// depend on x's strides. Bound at the main-path shapes: bytes (PERF.md).
+constexpr int BF_BM = 32;
+constexpr int BF_TN = 128;
+constexpr int BF_KC = 32;
+constexpr int BF_THREADS = 256;
+constexpr int BF_RPT = BF_BM * BF_TN / BF_THREADS;  // rows per thread
+
+__device__ __forceinline__ float bf16_round(float f) {
+  return __bfloat162float(__float2bfloat16_rn(f));
+}
+
+// One pass of BF_TN output columns n0.. of A [BF_BM x K] . W [K x N]: the
+// A tile comes from `a_tile(r, k)` (rounded, 0 beyond the edges), W from
+// global f32 w[k * N + n], rounded to bf16 as it is staged.
+template <typename ATile>
+__device__ __forceinline__ void bf16_pass(float (&acc)[BF_RPT], ATile a_tile, float* as,
+                                          float* ws, const float* __restrict__ w, int K, int N,
+                                          int n0) {
+  const int t = threadIdx.x, j = t % BF_TN, r0 = t / BF_TN;
+#pragma unroll
+  for (int i = 0; i < BF_RPT; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += BF_KC) {
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = t; i < BF_BM * BF_KC; i += BF_THREADS) {
+      const int r = i / BF_KC, k = i % BF_KC;
+      as[i] = k0 + k < K ? a_tile(r, k0 + k) : 0.0f;
+    }
+    for (int i = t; i < BF_KC * BF_TN; i += BF_THREADS) {
+      const int k = i / BF_TN, n = i % BF_TN;
+      ws[i] = (k0 + k < K && n0 + n < N)
+                  ? bf16_round(w[static_cast<long long>(k0 + k) * N + n0 + n])
+                  : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < BF_KC; ++k) {
+      const float wk = ws[k * BF_TN + j];
+#pragma unroll
+      for (int i = 0; i < BF_RPT; ++i) acc[i] = fmaf(as[(r0 + 2 * i) * BF_KC + k], wk, acc[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BF_THREADS)
+    evidential_heads_bf16_kernel(const float* __restrict__ x, long long sxv, long long sxb,
+                                 const float* __restrict__ w1, const float* __restrict__ b1,
+                                 const float* __restrict__ w2, const float* __restrict__ b2,
+                                 float* __restrict__ out, int V, int B, int D, int H, int C) {
+  extern __shared__ float bf_smem[];
+  float* as = bf_smem;                  // [BF_BM][BF_KC]
+  float* ws = as + BF_BM * BF_KC;       // [BF_KC][BF_TN]
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(ws + BF_KC * BF_TN);  // [BF_BM][H]
+  const int v = blockIdx.y, b0 = blockIdx.x * BF_BM;
+  const int t = threadIdx.x, j = t % BF_TN, r0 = t / BF_TN;
+  const float* xv = x + v * sxv;
+  float acc[BF_RPT];
+
+  // layer 1: relu(bf16(bf16(x W1) + bf16(b1))) into hs
+  const auto x_tile = [&](int r, int k) {
+    return b0 + r < B ? bf16_round(xv[static_cast<long long>(b0 + r) * sxb + k]) : 0.0f;
+  };
+  for (int n0 = 0; n0 < H; n0 += BF_TN) {
+    bf16_pass(acc, x_tile, as, ws, w1 + static_cast<long long>(v) * D * H, D, H, n0);
+    if (n0 + j < H) {
+      const float bias = bf16_round(b1[static_cast<long long>(v) * H + n0 + j]);
+#pragma unroll
+      for (int i = 0; i < BF_RPT; ++i) {
+        const float h = bf16_round(bf16_round(acc[i]) + bias);
+        hs[(r0 + 2 * i) * H + n0 + j] = __float2bfloat16_rn(fmaxf(h, 0.0f));
+      }
+    }
+  }
+  // layer 2 and the evidence (hs is complete once the first chunk's
+  // barrier inside bf16_pass has passed)
+  const auto h_tile = [&](int r, int k) { return __bfloat162float(hs[r * H + k]); };
+  for (int n0 = 0; n0 < C; n0 += BF_TN) {
+    bf16_pass(acc, h_tile, as, ws, w2 + static_cast<long long>(v) * H * C, H, C, n0);
+    if (n0 + j < C) {
+      const float bias = bf16_round(b2[static_cast<long long>(v) * C + n0 + j]);
+#pragma unroll
+      for (int i = 0; i < BF_RPT; ++i) {
+        const int r = r0 + 2 * i;
+        if (b0 + r < B) {
+          const float z = bf16_round(bf16_round(acc[i]) + bias);
+          out[(static_cast<long long>(b0 + r) * V + v) * C + n0 + j] = evidence(z);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_bf16(const float* x, long long sxv, long long sxb, const float* w1,
+                        const float* b1, const float* w2, const float* b2, float* out, int V,
+                        int B, int D, int H, int C, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (BF_BM * BF_KC + BF_KC * BF_TN) +
+                      sizeof(__nv_bfloat16) * static_cast<size_t>(BF_BM) * H;
+  const Device& dev = device();
+  if (smem > static_cast<size_t>(dev.smem_optin)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(evidential_heads_bf16_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((B + BF_BM - 1) / BF_BM, V);
+  evidential_heads_bf16_kernel<<<grid, BF_THREADS, smem, stream>>>(
+      x, sxv, sxb, w1, b1, w2, b2, out, V, B, D, H, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -674,6 +806,28 @@ int dmf_evidential_heads(const void* x, long long sxv, long long sxb, const void
                       ? launch<2>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n)
                       : launch<1>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s, n);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// The bf16 compute mode (see the kernel above), with the arguments of
+// dmf_evidential_heads: x, the weights, biases and out f32 in the same
+// layouts (x is rounded to bf16 as it is staged).
+int dmf_evidential_heads_bf16(const void* x, long long sxv, long long sxb, const void* w1,
+                              const void* b1, const void* w2, const void* b2, void* out,
+                              int V, int B, int D, int H, int C, void* stream) {
+  const Device& dev = device();
+  if (dev.err != cudaSuccess) return static_cast<int>(dev.err);
+  if (V <= 0 || B <= 0 || D <= 0 || H <= 0 || C <= 0 || V > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* w1f = static_cast<const float*>(w1);
+  const auto* b1f = static_cast<const float*>(b1);
+  const auto* w2f = static_cast<const float*>(w2);
+  const auto* b2f = static_cast<const float*>(b2);
+  auto* of = static_cast<float*>(out);
+  const cudaError_t e = launch_bf16(static_cast<const float*>(x), sxv, sxb, w1f, b1f, w2f, b2f,
+                                    of, V, B, D, H, C, s);
+  const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 

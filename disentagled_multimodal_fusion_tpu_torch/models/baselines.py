@@ -9,7 +9,8 @@ gradient wanted) the differentiable plain path. ``LateFusion`` is eval-only
 here. ``IntermediateFusion`` joins the flat views with a library fusion
 (``models/fusions.py``) and puts one evidential head, with dropout, on the
 result: evidence (B, C), computed by plain PyTorch as the JAX package
-computes it by plain XLA.
+computes it by plain XLA. ``dtype`` is the heads' (and not the encoders')
+compute type, as the JAX builders set it (``--dtype bfloat16``).
 
 Each model takes ``feature_encoders`` (specs for ``layers.build_encoders``;
 JAX lines 21-136): the views go through them first, and ``output_dims`` are
@@ -38,19 +39,19 @@ class LateFusion(Encoded):
 
     def __init__(self, output_dims: Sequence[int], num_classes: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 feature_encoders=None):
+                 feature_encoders=None, dtype=None):
         super().__init__()
         self.output_dims = tuple(output_dims)
         self.feat_encs = build_encoders(feature_encoders, generator)
         self.heads = nn.ModuleList(
-            EvidentialNN((d, *tuple(hidden_dim)), num_classes, generator)
+            EvidentialNN((d, *tuple(hidden_dim)), num_classes, generator, dtype=dtype)
             for d in self.output_dims
         )
 
     def forward(self, xs):
         """xs: N views (B, S_i). Returns (B, N, C)."""
-        feats = encode_views(self.feat_encs, xs)
-        return torch.stack([head(x.float()) for head, x in zip(self.heads, feats)], dim=1)
+        feats = encode_views(self.feat_encs, [x.float() for x in xs])
+        return torch.stack([head(x) for head, x in zip(self.heads, feats)], dim=1)
 
 
 class FusedLateFusion(Encoded):
@@ -58,20 +59,20 @@ class FusedLateFusion(Encoded):
 
     def __init__(self, output_dims: Sequence[int], num_classes: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 dropout: float = 0.3, feature_encoders=None):
+                 dropout: float = 0.3, feature_encoders=None, dtype=None):
         super().__init__()
         self.output_dims = tuple(output_dims)
         self.feat_encs = build_encoders(feature_encoders, generator)
         self.keep = 1.0 - dropout
         self.stack = StackedMLP(
             self.output_dims, tuple(hidden_dim), (num_classes,) * len(self.output_dims),
-            generator,
+            generator, dtype,
         )
 
     def forward(self, xs, drop_masks=None, enc_masks=None):
         """xs: N views (B, S_i); drop_masks: one boolean (B, N, hidden)
         keep-mask per hidden layer in training. Returns (B, N, C)."""
-        feats = encode_views(self.feat_encs, xs, enc_masks)
+        feats = encode_views(self.feat_encs, [x.float() for x in xs], enc_masks)
         return stacked_evidence(self.stack, pad_stack(feats), drop_masks, self.keep)
 
 
@@ -84,19 +85,22 @@ class IntermediateFusion(Encoded):
     def __init__(self, output_dims: Sequence[int], num_classes: int,
                  generator: torch.Generator, hidden_dim: int = 32, dropout: float = 0.3,
                  fusion: str = "concat", fusion_output_dim: int = 64, fusion_rank: int = 8,
-                 feature_encoders=None):
+                 feature_encoders=None, dtype=None):
         super().__init__()
         self.output_dims = tuple(output_dims)
         self.feat_encs = build_encoders(feature_encoders, generator)
         self.fusion, fused_dim = build_fusion(fusion, self.output_dims,
                                               output_dim=fusion_output_dim, rank=fusion_rank,
                                               generator=generator)
-        self.head = EvidentialNN((fused_dim, hidden_dim), num_classes, generator, dropout)
+        self.head = EvidentialNN((fused_dim, hidden_dim), num_classes, generator, dropout,
+                                 dtype)
 
     def forward(self, xs, drop_masks=None, enc_masks=None):
         """xs: N views (B, S_i); drop_masks: the head's boolean (B,
         hidden_dim) keep-mask in training. Returns evidence (B, C)."""
-        dtype = self.head.mlp.layers[0].weight.dtype  # float32 data, whatever it came as
-        feats = encode_views(self.feat_encs, xs, enc_masks)
-        fused = self.fusion([x.to(dtype).reshape(x.shape[0], -1) for x in feats])
+        # the views in the parameters' type, float32 (JAX lines 90-93): the
+        # fusion runs in it, the head then in its compute type
+        dtype = self.head.mlp.layers[0].weight.dtype
+        feats = encode_views(self.feat_encs, [x.to(dtype) for x in xs], enc_masks)
+        fused = self.fusion([x.reshape(x.shape[0], -1) for x in feats])
         return self.head(fused.reshape(fused.shape[0], -1), drop_masks)

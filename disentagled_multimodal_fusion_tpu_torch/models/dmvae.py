@@ -17,6 +17,12 @@ so a test can feed the JAX ones: the reparameterisation noise
 layer of every encoder and decoder (``drop_shapes``). ``feature_encoders``
 encode the views first, as in ``dmvae_fused.FusedDMVAE``, whose
 reconstruction target they are too.
+
+With a compute ``dtype`` (bf16) every MLP runs in it and returns it, so,
+as in the JAX package, the statistics, the reparameterised draws (the
+noise rounded to the statistics' type, as JAX draws it in that type), the
+PoE and the KL terms are bf16 too; each MSE against the float32 views is
+float32.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ class DMVAE(Encoded):
                  hidden_dim: int = 512, embed_dim: int = 100,
                  poe_temperature: float = 1.5, a: float = 1.0,
                  dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None,
-                 feature_encoders=None):
+                 feature_encoders=None, dtype=None):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
@@ -70,11 +76,11 @@ class DMVAE(Encoded):
         self.keep = 1.0 - dropout
         self.lam = tuple(lambda_per_modality or [1.0] * len(self.x_dims))
         self.encoders = nn.ModuleList(
-            MLP((d, hidden_dim, hidden_dim), 4 * embed_dim, generator, dropout)
+            MLP((d, hidden_dim, hidden_dim), 4 * embed_dim, generator, dropout, dtype)
             for d in self.x_dims
         )
         self.decoders = nn.ModuleList(
-            MLP((2 * embed_dim, hidden_dim, hidden_dim), d, generator, dropout)
+            MLP((2 * embed_dim, hidden_dim, hidden_dim), d, generator, dropout, dtype)
             for d in self.x_dims
         )
 
@@ -96,8 +102,9 @@ class DMVAE(Encoded):
 
     def get_embedding(self, xs, return_poe: bool = True):
         """(shared embedding, [private embedding per modality]), in eval mode."""
+        views = encode_views(self.feat_encs, [x.float() for x in xs])
         stats = [torch.split(enc(x), self.embed_dim, dim=1)
-                 for enc, x in zip(self.encoders, encode_views(self.feat_encs, xs))]
+                 for enc, x in zip(self.encoders, views)]
         mu_p_all = [s[2] for s in stats]
         if return_poe:
             mu_poe, _ = product_of_experts(
@@ -120,7 +127,7 @@ class DMVAE(Encoded):
             raise ValueError("the training forward needs the feature encoders' keep-masks")
         masks = list(drop_masks) if drop_masks else [None] * (4 * n)
         pairs_of = lambda k: None if masks[k] is None else masks[k:k + 2]  # noqa: E731
-        feats = [x.float() for x in encode_views(self.feat_encs, xs, enc_masks)]
+        feats = encode_views(self.feat_encs, [x.float() for x in xs], enc_masks)
         stats = [torch.split(enc(x, pairs_of(2 * i)), self.embed_dim, dim=1)
                  for i, (enc, x) in enumerate(zip(self.encoders, feats))]
         mu_s, logv_s, mu_p, logv_p = ([s[k] for s in stats] for k in range(4))

@@ -34,7 +34,8 @@ from torch import nn
 
 from ..ops.gaussian import gaussian_kl_standard, product_of_experts, reparameterize
 from .dmvae import _masked_mean_rows
-from .layers import Encoded, build_encoders, encode_views, torch_bias_init, xavier_uniform
+from .layers import (Encoded, build_encoders, dropout, encode_views, norm_dtype,
+                     torch_bias_init, xavier_uniform)
 
 
 class StackedMLP(nn.Module):
@@ -47,11 +48,18 @@ class StackedMLP(nn.Module):
     b (N, out). ``drop_masks`` (train mode) holds one boolean keep-mask
     (..., N, hidden) per hidden layer, applied after its ReLU as flax's
     ``Dropout`` does: ``where(mask, h / keep, 0)``.
+
+    ``dtype`` (JAX lines 86-125) is the compute type: the input, each
+    weight and each bias are rounded to it, each product is rounded to it
+    and the bias added in it, ReLU and dropout run in it, and the output
+    returns to float32 so that the VAE statistics, KL and MSE stay float32.
+    The parameters stay float32.
     """
 
     def __init__(self, in_dims: Sequence[int], hidden: Union[int, Sequence[int]],
-                 out_dims: Sequence[int], generator: torch.Generator):
+                 out_dims: Sequence[int], generator: torch.Generator, dtype=None):
         super().__init__()
+        self.dtype = norm_dtype(dtype)
         n = len(in_dims)
         hiddens = [hidden, hidden] if isinstance(hidden, int) else list(hidden)
         widths = [*hiddens, max(out_dims)]
@@ -72,15 +80,18 @@ class StackedMLP(nn.Module):
         return getattr(self, f"w{i + 1}"), getattr(self, f"b{i + 1}")
 
     def forward(self, x, drop_masks=None, keep: float = 1.0):
-        y = x
+        dt = self.dtype
+        y = x if dt is None else x.to(dt)
         for i in range(self.num_layers):
             w, b = self.layer(i)
+            if dt is not None:
+                w, b = w.to(dt), b.to(dt)
             y = torch.einsum("...nd,ndh->...nh", y, w) + b
             if i < self.num_layers - 1:
                 y = torch.relu(y)
                 if drop_masks is not None:
-                    y = torch.where(drop_masks[i], y / keep, torch.zeros_like(y))
-        return y
+                    y = dropout(y, drop_masks[i], keep)
+        return y.float()
 
 
 def pad_stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -97,7 +108,7 @@ class FusedDMVAE(Encoded):
                  hidden_dim: int = 512, embed_dim: int = 100,
                  poe_temperature: float = 1.5, a: float = 1.0, cross_weight: float = 1.0,
                  dropout: float = 0.0, lambda_per_modality: Optional[Sequence[float]] = None,
-                 feature_encoders=None):
+                 feature_encoders=None, dtype=None):
         super().__init__()
         if len(x_dims) < 2:
             raise ValueError("DMVAE needs at least two modalities")
@@ -111,10 +122,10 @@ class FusedDMVAE(Encoded):
         self.a = a
         self.cross_weight = cross_weight
         self.encoder = StackedMLP(
-            self.x_dims, hidden_dim, (4 * embed_dim,) * n, generator
+            self.x_dims, hidden_dim, (4 * embed_dim,) * n, generator, dtype
         )
         self.decoder = StackedMLP(
-            (2 * embed_dim,) * n, hidden_dim, self.x_dims, generator
+            (2 * embed_dim,) * n, hidden_dim, self.x_dims, generator, dtype
         )
         # each modality's true width, and its valid columns of the padded width
         dims = torch.tensor(self.x_dims, dtype=torch.float32)

@@ -23,6 +23,12 @@ are not torch's defaults:
   parameters' precision (float32), no dropout. It is written as explicit
   products: the JAX package has no attention kernel to port.
 
+On bf16 views (from bf16 feature encoders) every op computes in the type
+JAX's promotion gives it: the parameter-free fusions and a product of two
+views (matrix3D's outer product) stay bf16, and a view that meets a float32
+parameter is taken to float32 first (``_promoted``), so the result is
+float32, as the JAX modules' is.
+
 Parameters keep the flax names where they are leaves (``W``, ``U``, ``V``,
 ``b``, ``factor_i``, ``fusion_weights``, ``fusion_bias``); ``convert.py``
 maps the flax submodule paths onto the port's (``Dense_i`` -> ``dense.i``,
@@ -82,6 +88,15 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+def _promoted(modalities, module):
+    """The views in the type that JAX's promotion gives them against the
+    module's parameters: a bf16 view meets float32 parameters in float32, as
+    the JAX ops compute it (a parameter-free fusion keeps its input's
+    type)."""
+    dtype = next(module.parameters()).dtype
+    return [m.to(torch.promote_types(m.dtype, dtype)) for m in modalities]
 
 
 def _ones_column(m: torch.Tensor) -> torch.Tensor:
@@ -144,7 +159,7 @@ class ConcatWithLinear(nn.Module):
         self.dense = nn.ModuleList([Dense(input_dim, output_dim, generator)])
 
     def forward(self, modalities):
-        return self.dense[0](torch.cat(list(modalities), dim=self.concat_dim))
+        return self.dense[0](torch.cat(_promoted(modalities, self), dim=self.concat_dim))
 
 
 class MultiplicativeInteractions2Modal(nn.Module):
@@ -194,10 +209,14 @@ class MultiplicativeInteractions2Modal(nn.Module):
             m1, m2 = (torch.clamp(m, self.clip[0], self.clip[1]) for m in (m1, m2))
         d0, d1 = self.input_dims
         W, U, V, b = self.W, self.U, self.V, self.b
+        # matrix3D's outer product of the views stays in their type (bf16 as
+        # in the JAX op); every product with a parameter is in the promoted one
+        outer = (torch.einsum("bn,bm->bnm", m1, m2).reshape(-1, d0 * d1)
+                 if self.output == "matrix3D" else None)
+        m1, m2 = _promoted([m1, m2], self)
         if self.output == "matrix3D":
             p, q = self.output_dim
-            outer = torch.einsum("bn,bm->bnm", m1, m2).reshape(-1, d0 * d1)
-            core = outer @ W.reshape(d0 * d1, p * q)
+            core = outer.to(m1.dtype) @ W.reshape(d0 * d1, p * q)
             bp = torch.einsum("bn,nd->bd", m1, U).reshape(-1, p, q) + b
             return (core + m2 @ V).reshape(-1, p, q) + bp
         if self.output == "matrix":
@@ -227,7 +246,8 @@ class MultiplicativeInteractions3Modal(nn.Module):
     def forward(self, modalities):
         a = self.mi[0](modalities[:2])
         b = self.mi[1](modalities[:2])
-        return torch.einsum("bm,bmp->bp", modalities[2], a) + b
+        (m3,) = _promoted(modalities[2:3], self)
+        return torch.einsum("bm,bmp->bp", m3, a) + b
 
 
 class LowRankTensorFusion(nn.Module):
@@ -245,6 +265,7 @@ class LowRankTensorFusion(nn.Module):
         self.fusion_bias = nn.Parameter(torch.zeros(1, output_dim))
 
     def forward(self, modalities):
+        modalities = _promoted(modalities, self)
         batch = modalities[0].shape[0]
         fused = 1.0
         for i, (modality, d) in enumerate(zip(modalities, self.input_dims)):
@@ -394,7 +415,7 @@ class ConcatTransformerFusion(nn.Module):
         self.transformer = LateFusionTransformer(generator, embed_dim)
 
     def forward(self, modalities):
-        return self.transformer(concat(modalities))
+        return self.transformer(concat(_promoted(modalities, self)))
 
 
 # --------------------------------------------------------------- registry

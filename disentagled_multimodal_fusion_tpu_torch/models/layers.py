@@ -27,6 +27,17 @@ variance biased; in evaluation it normalises by the running ones. The
 ``BatchNorm`` module keeps them as buffers (``mean``, ``var``), so a state
 dict, and a checkpoint, carries them; its training forward writes the new
 ones in place.
+
+``dtype`` (``norm_dtype``: None for float32, or ``"bfloat16"``) is the
+compute type of the JAX modules' ``dtype=`` (the ``--dtype bfloat16``
+mode), as flax's ``Dense(dtype=bf16)`` and ``Conv(dtype=bf16)`` compute:
+input, kernel and bias rounded to bf16, the product summed in f32 and
+rounded to bf16, then the bias added in bf16 (a second rounding); ReLU,
+max-pool and dropout's ``h / keep`` in bf16; the output stays bf16.
+Parameters stay float32. flax's ``BatchNorm(dtype=bf16)`` (with its
+default ``force_float32_reductions``) computes the statistics and the
+normalisation in f32 from the bf16 input and rounds its output to bf16
+once; the running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -39,6 +50,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.evidence import evidence_activation
+
+
+def norm_dtype(dtype) -> Optional[torch.dtype]:
+    """A model's compute type (JAX ``core/tasks.py:97-102``): None for
+    float32 (None, ``"float32"``, ``torch.float32``), ``torch.bfloat16`` for
+    ``"bfloat16"``; the losses stay float32 whatever it is."""
+    if dtype is None or dtype in ("float32", torch.float32):
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unsupported compute dtype {dtype!r}: float32 or bfloat16")
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -69,14 +91,19 @@ class TorchLinear(nn.Module):
     xavier-uniform (or ``torch_default``) kernel and the torch-default bias."""
 
     def __init__(self, in_features: int, out_features: int, generator: torch.Generator,
-                 init: str = "xavier"):
+                 init: str = "xavier", dtype=None):
         super().__init__()
         kernel = KERNEL_INITS[init]((in_features, out_features), generator)
         self.weight = nn.Parameter(kernel.t().contiguous())
         self.bias = nn.Parameter(torch_bias_init((out_features,), in_features, generator))
+        self.dtype = norm_dtype(dtype)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        # flax Dense(dtype=...): the product rounded, then the bias added
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class IdentityEncoder(nn.Module):
@@ -92,40 +119,48 @@ class MLP(nn.Module):
     ``output_dims``."""
 
     def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype=None):
         super().__init__()
         widths = [*layers, output_dims]
         self.keep = 1.0 - dropout
         self.hidden = tuple(layers[1:])
+        self.dtype = norm_dtype(dtype)
         self.layers = nn.ModuleList(
-            TorchLinear(a, b, generator) for a, b in zip(widths[:-1], widths[1:])
+            TorchLinear(a, b, generator, dtype=dtype) for a, b in zip(widths[:-1], widths[1:])
         )
 
     def forward(self, x, drop_masks=None):
         """``drop_masks``: in training, one boolean keep-mask (rows, h) per
-        hidden layer; None in eval mode."""
-        x = x.to(self.layers[0].weight.dtype)  # float32 data, whatever it came as
+        hidden layer; None in eval mode. The output is in the compute type."""
+        # the data in the parameters' type (float32), then in the compute type
+        x = x.to(self.dtype or self.layers[0].weight.dtype)
         for i, layer in enumerate(self.layers[:-1]):
             x = torch.relu(layer(x))
             if drop_masks is not None:
-                x = torch.where(drop_masks[i], x / self.keep, torch.zeros_like(x))
+                x = dropout(x, drop_masks[i], self.keep)
         return self.layers[-1](x)
 
 
 class EvidentialNN(nn.Module):
-    """MLP head with the saturated-exp evidence activation."""
+    """MLP head with the saturated-exp evidence activation, computed in
+    float32 whatever the MLP's compute type (JAX lines 149-150)."""
 
     def __init__(self, layers: Sequence[int], output_dims: int, generator: torch.Generator,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype=None):
         super().__init__()
-        self.mlp = MLP(layers, output_dims, generator, dropout)
+        self.mlp = MLP(layers, output_dims, generator, dropout, dtype)
 
     def forward(self, x, drop_masks=None):
-        return evidence_activation(self.mlp(x, drop_masks))
+        return evidence_activation(self.mlp(x, drop_masks).float())
 
 
 # ------------------------------------------------------------ LUMA encoders
-def _dropout(x, mask, keep: float):
+def dropout(x, mask, keep: float):
+    """flax's ``Dropout`` with its keep-mask: ``where(mask, x / keep, 0)``.
+    JAX takes the Python ``keep`` in x's type (a weak type), so a bf16 x is
+    divided by bf16(keep) (0.69921875 for 0.7), not by keep."""
+    if x.dtype == torch.bfloat16:
+        keep = torch.tensor(keep, dtype=x.dtype).item()
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -135,7 +170,9 @@ def batch_norm(x, weight, bias, mean, var, train: bool, momentum: float = 0.99,
     (y, (new_mean, new_var)). In training the batch statistics normalise and
     the running ones move to ``momentum * old + (1 - momentum) * batch``
     (biased variance); in evaluation the running ones normalise and are
-    returned unchanged."""
+    returned unchanged. A bf16 x is normalised in f32 (the statistics too)
+    and the output rounded back to bf16 once, as flax does."""
+    out_dtype, x = x.dtype, x.float()
     axes = [a for a in range(x.dim()) if a != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
     if train:
@@ -147,7 +184,7 @@ def batch_norm(x, weight, bias, mean, var, train: bool, momentum: float = 0.99,
         mu, var_b, new = mean, var, (mean, var)
     mul = torch.rsqrt(var_b + eps) * weight
     y = (x - mu.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
-    return y, new
+    return y.to(out_dtype), new
 
 
 class BatchNorm(nn.Module):
@@ -176,23 +213,30 @@ class Conv(nn.Module):
     """3 x 3 'SAME' convolution with torch Conv2d's default init; ``weight``
     (out, in, 3, 3), drawn as flax's (3, 3, in, out) kernel."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator):
+    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator, dtype=None):
         super().__init__()
         kernel = torch_default_kernel((3, 3, in_ch, out_ch), generator)
         self.weight = nn.Parameter(kernel.permute(3, 2, 0, 1).contiguous())
         self.bias = nn.Parameter(torch_bias_init((out_ch,), 9 * in_ch, generator))
+        self.dtype = norm_dtype(dtype)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, padding=1)
+        if self.dtype is None:
+            return F.conv2d(x, self.weight, self.bias, padding=1)
+        # flax Conv(dtype=...): the convolution rounded, then the bias added
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None, padding=1)
+        return y + self.bias.to(self.dtype)[:, None, None]
 
 
 class _ConvBlocks(nn.Module):
     """conv -> BatchNorm -> ReLU [-> 2 x 2 max-pool -> channel dropout] per
     block; ``pooled`` blocks pool and drop."""
 
-    def __init__(self, widths: Sequence[int], pooled: int, generator: torch.Generator):
+    def __init__(self, widths: Sequence[int], pooled: int, generator: torch.Generator,
+                 dtype=None):
         super().__init__()
-        self.conv = nn.ModuleList(Conv(a, b, generator) for a, b in zip(widths[:-1], widths[1:]))
+        self.conv = nn.ModuleList(Conv(a, b, generator, dtype)
+                                  for a, b in zip(widths[:-1], widths[1:]))
         self.bn = nn.ModuleList(BatchNorm(b) for b in widths[1:])
         self.channels = tuple(widths[1:])
         self.pooled = pooled
@@ -207,7 +251,7 @@ class _ConvBlocks(nn.Module):
             if i < self.pooled:
                 x = F.max_pool2d(x, 2, 2)
                 if masks:
-                    x = _dropout(x, masks[i], keep)
+                    x = dropout(x, masks[i], keep)
         return x
 
 
@@ -226,7 +270,7 @@ class _Encoder(nn.Module):
         for i, layer in enumerate(layers[:-1]):
             x = torch.relu(layer(x))
             if masks:
-                x = _dropout(x, masks[start + i], self.keep)
+                x = dropout(x, masks[start + i], self.keep)
         return layers[-1](x)
 
 
@@ -235,12 +279,14 @@ class ImageEncoder(_Encoder):
     blocks (32/64/128 channels) with BatchNorm, ReLU, max-pool and channel
     dropout, then 2048 -> 512 -> output_dim (JAX lines 152-187)."""
 
-    def __init__(self, generator: torch.Generator, output_dim: int = 200, dropout: float = 0.1):
+    def __init__(self, generator: torch.Generator, output_dim: int = 200, dropout: float = 0.1,
+                 dtype=None):
         super().__init__()
         self.keep = 1.0 - dropout
-        self.blocks = _ConvBlocks((3, 32, 64, 128), 3, generator)
-        self.layers = nn.ModuleList([TorchLinear(2048, 512, generator, "torch_default"),
-                                     TorchLinear(512, output_dim, generator, "torch_default")])
+        self.blocks = _ConvBlocks((3, 32, 64, 128), 3, generator, dtype)
+        self.layers = nn.ModuleList([TorchLinear(2048, 512, generator, "torch_default", dtype),
+                                     TorchLinear(512, output_dim, generator, "torch_default",
+                                                 dtype)])
 
     def _drop_shapes(self, rows: int):
         return self.blocks.drop_shapes(rows) + [(rows, 512)]
@@ -261,16 +307,16 @@ class AudioEncoder(_Encoder):
     frames) map, (B, H, W), (B, 1, H, W) or (B, H, W, 1)."""
 
     def __init__(self, generator: torch.Generator, input_dim: int = 40, output_dim: int = 200,
-                 dropout: float = 0.1, use_2d: bool = False):
+                 dropout: float = 0.1, use_2d: bool = False, dtype=None):
         super().__init__()
         self.keep = 1.0 - dropout
         self.use_2d = use_2d
         if use_2d:
-            self.blocks = _ConvBlocks((1, 32, 64, 128), 2, generator)
+            self.blocks = _ConvBlocks((1, 32, 64, 128), 2, generator, dtype)
             widths = (128, output_dim)
         else:
             widths = (input_dim, 128, 256, output_dim)
-        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default")
+        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default", dtype)
                                     for a, b in zip(widths[:-1], widths[1:]))
 
     def _drop_shapes(self, rows: int):
@@ -295,11 +341,11 @@ class TextEncoder(_Encoder):
     253-270)."""
 
     def __init__(self, generator: torch.Generator, input_dim: int = 128, output_dim: int = 200,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype=None):
         super().__init__()
         self.keep = 1.0 - dropout
         widths = (input_dim, 256, 256, output_dim)
-        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default")
+        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default", dtype)
                                     for a, b in zip(widths[:-1], widths[1:]))
 
     def _drop_shapes(self, rows: int):

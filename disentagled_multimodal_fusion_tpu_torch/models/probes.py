@@ -9,7 +9,9 @@ Counterpart of ``disentagled_multimodal_fusion_tpu/models/probes.py``:
 
 The fused variants stack their heads into one :class:`StackedMLP`. In an
 eval forward with one hidden layer, the configured one, they run all heads
-through the evidential head kernel (``ops/cuda_kernels.py``) in one launch.
+through the evidential head kernel (``ops/cuda_kernels.py``) in one launch,
+its bf16 build when the heads compute in bf16 (``dtype``; the evidence is
+float32 in both, JAX lines 127 and 152).
 That kernel has no backward, so a training forward (dropout masks given, or
 a gradient wanted) takes the differentiable plain path. The unfused
 variants are eval-only here (training runs the fused ones).
@@ -22,7 +24,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import evidential_heads_stacked
+from ..ops.cuda_kernels import evidential_heads_stacked, evidential_heads_stacked_bf16
 from ..ops.evidence import evidence_activation
 from .dmvae_fused import StackedMLP, pad_stack
 from .layers import EvidentialNN
@@ -37,11 +39,13 @@ def _wants_grad(stack: StackedMLP, x: torch.Tensor) -> bool:
 def stacked_evidence(stack: StackedMLP, x: torch.Tensor, drop_masks=None,
                      keep: float = 1.0) -> torch.Tensor:
     """Evidence (B, V, C) of the stacked heads on x (B, V, D): through the
-    kernel for an eval forward of one-hidden-layer heads, else layer by
-    layer (differentiable, with the dropout masks when given)."""
+    kernel (its bf16 build for bf16 heads) for an eval forward of
+    one-hidden-layer heads, else layer by layer (differentiable, with the
+    dropout masks when given)."""
     if stack.num_layers == 2 and drop_masks is None and not _wants_grad(stack, x):
         (w1, b1), (w2, b2) = stack.layer(0), stack.layer(1)
-        return evidential_heads_stacked(x.transpose(0, 1), w1, b1, w2, b2)
+        heads = evidential_heads_stacked if stack.dtype is None else evidential_heads_stacked_bf16
+        return heads(x.transpose(0, 1), w1, b1, w2, b2)
     return evidence_activation(stack(x, drop_masks, keep))
 
 
@@ -50,14 +54,14 @@ class EvidentialProbe(nn.Module):
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 shared_input_dim: Optional[int] = None):
+                 shared_input_dim: Optional[int] = None, dtype=None):
         super().__init__()
         hidden = tuple(hidden_dim)
         self.x_shared = EvidentialNN(
-            (shared_input_dim or input_dim, *hidden), num_classes, generator
+            (shared_input_dim or input_dim, *hidden), num_classes, generator, dtype=dtype
         )
         self.x_specs = nn.ModuleList(
-            EvidentialNN((input_dim, *hidden), num_classes, generator)
+            EvidentialNN((input_dim, *hidden), num_classes, generator, dtype=dtype)
             for _ in range(num_modalities)
         )
 
@@ -71,10 +75,10 @@ class DisentangledEvidentialProbe(nn.Module):
     """Private-only evidential heads, one module each."""
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
-                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,)):
+                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,), dtype=None):
         super().__init__()
         self.spec_heads = nn.ModuleList(
-            EvidentialNN((input_dim, *tuple(hidden_dim)), num_classes, generator)
+            EvidentialNN((input_dim, *tuple(hidden_dim)), num_classes, generator, dtype=dtype)
             for _ in range(num_modalities)
         )
 
@@ -90,12 +94,12 @@ class FusedEvidentialProbe(nn.Module):
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 shared_input_dim: Optional[int] = None, dropout: float = 0.3):
+                 shared_input_dim: Optional[int] = None, dropout: float = 0.3, dtype=None):
         super().__init__()
         in_dims = (shared_input_dim or input_dim,) + (input_dim,) * num_modalities
         self.keep = 1.0 - dropout
         self.stack = StackedMLP(
-            in_dims, tuple(hidden_dim), (num_classes,) * len(in_dims), generator
+            in_dims, tuple(hidden_dim), (num_classes,) * len(in_dims), generator, dtype
         )
 
     def forward(self, zc, zp_list, drop_masks=None):
@@ -108,12 +112,12 @@ class FusedDisentangledEvidentialProbe(nn.Module):
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 dropout: float = 0.3):
+                 dropout: float = 0.3, dtype=None):
         super().__init__()
         self.keep = 1.0 - dropout
         self.stack = StackedMLP(
             (input_dim,) * num_modalities, tuple(hidden_dim),
-            (num_classes,) * num_modalities, generator,
+            (num_classes,) * num_modalities, generator, dtype,
         )
 
     def forward(self, zp_list, drop_masks=None):

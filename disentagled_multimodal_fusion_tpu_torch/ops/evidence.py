@@ -6,13 +6,12 @@ same functions over a stacked ``(B, V, C)`` evidence tensor.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-LOG1E13 = 13.0 * math.log(10.0)
-CLIP = 10.0
+# the constants and the saturated exponential are defined once, in the
+# operator's file (which stands alone for replaying exported programs)
+from .head_op import CLIP, LOG1E13, saturated_exp
 
 
 class _ClipJax(torch.autograd.Function):
@@ -74,9 +73,7 @@ def evidence_activation(h: torch.Tensor, activation: str = "exp") -> torch.Tenso
     """
     if activation == "softplus":
         return F.softplus(h)
-    h = clip_jax(h)
-    log1e13 = torch.tensor(LOG1E13, dtype=h.dtype, device=h.device)
-    return torch.exp(h + log1e13 - torch.logaddexp(h, log1e13))
+    return saturated_exp(clip_jax(h))
 
 
 def cml_fusion(all_evidences: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,10 @@ import torch
 
 def reparameterize(eps: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """``mu + eps * exp(0.5 logvar)``; the caller draws ``eps ~ N(0, I)``,
-    so that a test can feed both frameworks the same noise."""
-    return mu + eps * torch.exp(0.5 * logvar)
+    so that a test can feed both frameworks the same noise. The noise is
+    taken in mu's type, as the JAX package draws it (bf16 under a bf16
+    compute type)."""
+    return mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
 
 
 def gaussian_kl_standard(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -100,6 +100,15 @@ Weights are drawn on the CPU; a fit's draws come from a generator on its
 device. So seed s of a seed-batched cell is a sequential fit of the same
 weights and generators, which ``tests/test_torch_run.py`` replays.
 
+``--dtype bfloat16`` (JAX lines 813-821) builds the backbone, the six heads
+and the intermediate fusions' heads with the bf16 compute type
+(``core/tasks.py``): their products run in bf16, the parameters, Adam's
+state and the losses stay float32, so the checkpoints have the float32
+format that ``evaluate.py`` and ``serve.py`` restore. A bf16 probe has no
+epoch-kernel descriptor, so ``--probe-engine megakernel`` trains it through
+the step loop, as the JAX package does; its validation and evaluation go
+through the head kernel's bf16 build. The DSSL backbone stays float32.
+
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run \
       --seeds 0 --datasets HandWritten --conditions Normal --probe-engine megakernel
@@ -119,7 +128,7 @@ import json
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -150,9 +159,10 @@ class CellSettings(NamedTuple):
     dmvae_a: float
     dmvae_dropout: float
     dmvae_lr: float
+    dtype: Optional[str] = None  # the compute type of --dtype (None: float32)
 
 
-def cell_settings(C, dataset_name: str, quick: bool) -> CellSettings:
+def cell_settings(C, dataset_name: str, quick: bool, dtype=None) -> CellSettings:
     lr = C("optim.dataset_lr", {}).get(
         dataset_name,
         {"CalTech": 3e-4, "Scene": 0.01, "CUB": 3e-3, "HandWritten": 3e-3, "PIE": 3e-3}[
@@ -169,7 +179,7 @@ def cell_settings(C, dataset_name: str, quick: bool) -> CellSettings:
         dmvae_epochs=2 if quick else C("dmvae.num_epochs", 100),
         dmvae_hidden=C("dmvae.hidden_dim", 512), embed_dim=C("dmvae.embed_dim", 200),
         dmvae_a=C("dmvae.a", 1e-5), dmvae_dropout=C("dmvae.dropout", 0.0),
-        dmvae_lr=C("dmvae.lr", 1e-4),
+        dmvae_lr=C("dmvae.lr", 1e-4), dtype=dtype,
     )
 
 
@@ -209,7 +219,7 @@ def build_backbone(st: CellSettings, dims, seed: int, device, fused: bool = True
 
     return build_dmvae_task(seed=seed, output_dim=dims, hidden_dim=st.dmvae_hidden,
                             embed_dim=st.embed_dim, a=st.dmvae_a, dropout=st.dmvae_dropout,
-                            fused_modalities=fused, device=device)
+                            fused_modalities=fused, dtype=st.dtype, device=device)
 
 
 def intermediate_job_name(fusion: str) -> str:
@@ -244,7 +254,8 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
     from ..models.fusions import fusion_dim
 
     head = dict(num_classes=num_classes, hidden_dim=st.probe_hidden, lr=st.lr,
-                dropout=st.probe_dropout, annealing_start=st.annealing_start, device=device)
+                dropout=st.probe_dropout, annealing_start=st.annealing_start, dtype=st.dtype,
+                device=device)
     probe = dict(head, num_modalities=len(dims), input_dim=input_dim or st.probe_input_dim,
                  num_epochs=st.probe_epochs)
 
@@ -262,7 +273,8 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
     def intermediate(fusion):
         return lambda seed: build_intermediate_fusion_task(
             seed=seed, output_dims=dims, num_classes=num_classes, dropout=st.probe_dropout,
-            lr=st.lr, annealing_start=st.annealing_start, fusion=fusion, device=device)
+            lr=st.lr, annealing_start=st.annealing_start, fusion=fusion, dtype=st.dtype,
+            device=device)
 
     specs = [
         HeadSpec("dmvae_dis", dis, "probe", False),
@@ -326,7 +338,7 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
 
 def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
                   noise=False, probe_engine="step", backbone="dmvae", fused_dmvae=True,
-                  intermediate_fusions=()):
+                  intermediate_fusions=(), dtype=None):
     """Train and evaluate the six models of one cell, and the intermediate
     fusions asked for, into ``rows_out``."""
     from ..core.checkpoint import save_checkpoint
@@ -349,7 +361,7 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
     xs_tr, y_tr = upload(train_idx)
     xs_te, y_te = upload(test_idx)
     n_train = len(train_idx)
-    st = cell_settings(C, dataset_name, quick)
+    st = cell_settings(C, dataset_name, quick, dtype)
     base = cell_seed(seed, dataset_name, conflict)
 
     def slot(k):
@@ -440,7 +452,7 @@ class _SeedBatchedCell(NamedTuple):
 
 
 def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, device,
-                        rows_by_seed, fused_dmvae=True, intermediate_fusions=()):
+                        rows_by_seed, fused_dmvae=True, intermediate_fusions=(), dtype=None):
     from ..core.sweep_cell import CellJob
     from ..core.tasks import dmvae_objective
     from ..core.train import Randomness
@@ -449,7 +461,7 @@ def _setup_seed_batched(*, C, seeds, dataset_name, conflict, noise, quick, devic
     xs_tr, xs_te, y_tr, y_te, dims, num_classes = prepare_cell_data(
         C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict, noise=noise,
         device=device)
-    st = cell_settings(C, dataset_name, quick)
+    st = cell_settings(C, dataset_name, quick, dtype)
     cells = [cell_seed(s, dataset_name, conflict) for s in seeds]
     backbones = [build_backbone(st, dims, fold_seed(c, 0), device, fused=fused_dmvae)
                  for c in cells]
@@ -511,7 +523,7 @@ def _write_job(job, fetched, seeds, dataset_name, cond, rows_by_seed, **extra):
 
 
 def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
-                          noise=False, fused_dmvae=True, intermediate_fusions=()):
+                          noise=False, fused_dmvae=True, intermediate_fusions=(), dtype=None):
     """All seeds of one cell at once, each fit a ``train_many`` over the
     stacked seeds, its results fetched and written when it ends. Every head
     row carries ``fit_seconds`` (its seed-batched fit, evaluation and fetch)
@@ -524,7 +536,8 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
     t0 = time.time()
     cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
                                noise=noise, quick=quick, device=device, rows_by_seed=rows_by_seed,
-                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions)
+                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions,
+                               dtype=dtype)
     st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
     xs_tr, xs_te, y_tr, y_te = cell.data
     t_fit = time.perf_counter()
@@ -554,7 +567,7 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
 
 def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
                          noise=False, fused_dmvae=True, intermediate_fusions=(),
-                         defer_artifacts=False):
+                         defer_artifacts=False, dtype=None):
     """The whole cell, all seeds, in one ``core.sweep_cell.run_cell`` call
     with one fetch at its end; the same fits as :func:`run_condition_vmapped`.
 
@@ -570,7 +583,8 @@ def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, row
     t0 = time.time()
     cell = _setup_seed_batched(C=C, seeds=seeds, dataset_name=dataset_name, conflict=conflict,
                                noise=noise, quick=quick, device=device, rows_by_seed=rows_by_seed,
-                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions)
+                               fused_dmvae=fused_dmvae, intermediate_fusions=intermediate_fusions,
+                               dtype=dtype)
     st, tag, s_count = cell.settings, f"[{dataset_name}/{cell.cond}]", len(seeds)
     xs_tr, xs_te, y_tr, y_te = cell.data
     result = run_cell(
@@ -648,7 +662,7 @@ def write_sweep_report(rows, excel_path):
 
 
 # options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--dtype bfloat16", "--data-parallel/--model-parallel")
+NOT_PORTED = ("--data-parallel/--model-parallel",)
 
 
 def parse_args(argv=None):
@@ -696,7 +710,10 @@ def parse_args(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="record the sweep with torch.profiler (CPU and CUDA activity) "
                              "into logs/traces/uq_sweep/trace.json, a Chrome trace")
-    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="the products' compute type (parameters, optimizer state and "
+                             "losses stay float32); bfloat16 runs the backbone's and the "
+                             "heads' products in bf16")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
     add_force_vmap_flag(parser)
@@ -716,7 +733,7 @@ def parse_args(argv=None):
         fusions.insert(0, "concat")
     args.intermediate_fusion = fusions
     used = [flag for flag, on in zip(NOT_PORTED, (
-        args.dtype != "float32", args.data_parallel > 1 or args.model_parallel > 1)) if on]
+        args.data_parallel > 1 or args.model_parallel > 1,)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     return args
@@ -760,7 +777,8 @@ def main(argv=None):
                                   noise=is_noise, quick=args.quick, device=device,
                                   rows_out=by_ds[ds_name], probe_engine=args.probe_engine,
                                   backbone=args.backbone, fused_dmvae=not args.no_fused_dmvae,
-                                  intermediate_fusions=args.intermediate_fusion)
+                                  intermediate_fusions=args.intermediate_fusion,
+                                  dtype=args.dtype)
                     rows_file.save(rows)
     if not args.skip_report:
         report = Path(C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
@@ -835,7 +853,7 @@ def _run_seed_batched(args, C, seeds, cells, device, rows, rows_file):
             kw = dict(C=C, seeds=seeds, dataset_name=ds_name, conflict=is_conflict,
                       noise=is_noise, quick=args.quick, device=device, rows_by_seed=rows_by_seed,
                       fused_dmvae=not args.no_fused_dmvae,
-                      intermediate_fusions=args.intermediate_fusion)
+                      intermediate_fusions=args.intermediate_fusion, dtype=args.dtype)
             if not args.one_program_cells:
                 run_condition_vmapped(**kw)
                 record(cond_name, ds_name, rows_by_seed)

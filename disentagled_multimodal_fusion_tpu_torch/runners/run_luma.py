@@ -66,8 +66,17 @@ whose stand-ins are ``intermediate_seed(seed, 16 + j - 6)`` and
 lie below 22, so the two layouts meet no slot of each other's within one
 run.
 
+``--dtype bfloat16`` (JAX lines 127-137) builds the DMVAE, the six models
+and the intermediate fusions with the bf16 compute type (``core/tasks.py``):
+the DMVAE's stacked MLPs and every evidential head compute in bf16 (the
+heads' validation and evaluation through the head kernel's bf16 build);
+the Audio, Text and Image encoders stay float32, as the JAX runner builds
+them (its lines 222-229 give them no dtype); parameters, Adam's state, the
+losses and the BatchNorm statistics stay float32, so the checkpoints keep
+their format.
+
 The port runs on the CUDA card unless ``--device cpu``. Not ported yet
-(``ROADMAP.md``): ``--dtype bfloat16`` and the mesh flags.
+(``ROADMAP.md``): the mesh flags.
 
 Example:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_luma \\
@@ -86,7 +95,7 @@ import torch
 from ..core.setup import resolve_device
 
 # options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--dtype bfloat16", "--data-parallel/--model-parallel")
+NOT_PORTED = ("--data-parallel/--model-parallel",)
 ENC_OUT = 200  # the Audio/Text/Image encoders' output width
 # the seed-batched engine's intermediate jobs: job j >= 6 takes its weights
 # from intermediate_seed(seed, VMAP_INIT + j - 6) and its fit from
@@ -122,7 +131,7 @@ def encoder_specs(audio_cfg, text_cfg):
             ("ImageEncoder", dict(output_dim=ENC_OUT, dropout=0.1)))
 
 
-def head_builders(C, num_classes: int, probe_epochs: int, specs, device):
+def head_builders(C, num_classes: int, probe_epochs: int, specs, device, dtype=None):
     """{name: (seed -> task)} of the six models, in the protocol's order."""
     from ..core.tasks import (
         build_disentangled_probe_task,
@@ -132,7 +141,7 @@ def head_builders(C, num_classes: int, probe_epochs: int, specs, device):
 
     head = dict(num_classes=num_classes, hidden_dim=tuple(C("probes.model_hidden_dim", (128,))),
                 lr=C("optim.luma_lr", 3e-4), dropout=C("probes.dropout_p", 0.1),
-                annealing_start=C("probes.annealing_start", 50), device=device)
+                annealing_start=C("probes.annealing_start", 50), dtype=dtype, device=device)
     probe = dict(head, num_modalities=3, input_dim=C("probes.input_dim", 200),
                  num_epochs=probe_epochs)
     builders = {"dmvae_dis": lambda s: build_disentangled_probe_task(seed=s, **probe)}
@@ -146,17 +155,17 @@ def head_builders(C, num_classes: int, probe_epochs: int, specs, device):
     return builders
 
 
-def intermediate_builder(C, num_classes: int, fusion: str, specs, device):
+def intermediate_builder(C, num_classes: int, fusion: str, specs, device, dtype=None):
     from ..core.tasks import build_intermediate_fusion_task
 
     return lambda s: build_intermediate_fusion_task(
         seed=s, output_dims=[ENC_OUT] * 3, num_classes=num_classes,
         dropout=C("probes.dropout_p", 0.1), lr=C("optim.luma_lr", 3e-4),
         annealing_start=C("probes.annealing_start", 50), fusion=fusion,
-        feature_encoders=specs, device=device)
+        feature_encoders=specs, dtype=dtype, device=device)
 
 
-def build_backbone(C, seed: int, specs, device, fused: bool = True):
+def build_backbone(C, seed: int, specs, device, fused: bool = True, dtype=None):
     """The LUMA DMVAE over the encoders of ``specs``."""
     from ..core.tasks import build_dmvae_task
 
@@ -164,7 +173,7 @@ def build_backbone(C, seed: int, specs, device, fused: bool = True):
                             hidden_dim=C("dmvae.hidden_dim", 512),
                             embed_dim=C("dmvae.embed_dim", 200), a=C("dmvae.a", 1e-5),
                             dropout=C("dmvae.dropout", 0.0), fused_modalities=fused,
-                            feature_encoders=specs, device=device)
+                            feature_encoders=specs, dtype=dtype, device=device)
 
 
 def backbone_checkpoint(seed: int) -> str:
@@ -242,7 +251,7 @@ def finish_job(*, name: str, fusion, task, result, seed: int, te_data, ood_data,
 
 
 def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs: int,
-             probe_epochs: int, device, fused_dmvae: bool, rows_out: dict):
+             probe_epochs: int, device, fused_dmvae: bool, rows_out: dict, dtype=None):
     """Fit and evaluate one seed's models into ``rows_out``. ``data``:
     {'xs_tr', 'y_tr', 'xs_te', 'y_te', 'xs_ood' (or None)}; ``jobs``:
     [(name, seed -> task, fusion or None)] in the protocol's order."""
@@ -259,7 +268,7 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
     xs_tr, y_tr = data["xs_tr"], data["y_tr"]
     n_train = int(y_tr.shape[0])
     t0 = time.time()
-    model = build_backbone(C, slot(0), specs, device, fused=fused_dmvae)
+    model = build_backbone(C, slot(0), specs, device, fused=fused_dmvae, dtype=dtype)
     loss_fn, opt = dmvae_objective(model, lr=C("dmvae.lr", 1e-4), num_epochs=dmvae_epochs)
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train, optimizer=opt,
@@ -296,7 +305,8 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
 
 
 def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_epochs: int,
-                      probe_epochs: int, device, fused_dmvae: bool, segment_epochs, rows: dict):
+                      probe_epochs: int, device, fused_dmvae: bool, segment_epochs, rows: dict,
+                      dtype=None):
     """Fit and evaluate every seed's models into ``rows[seed]['Normal']
     ['LUMA']``, each model of all seeds in one ``train_many`` (module
     docstring); ``rows[seed]`` already holds each seed's skip rows."""
@@ -337,7 +347,8 @@ def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_ep
     n_train = int(data["y_tr"].shape[0])
     s_count = len(seeds)
     t0 = time.time()
-    backbones = [build_backbone(C, slot(s, 0), specs, device, fused=fused_dmvae) for s in seeds]
+    backbones = [build_backbone(C, slot(s, 0), specs, device, fused=fused_dmvae, dtype=dtype)
+                 for s in seeds]
     loss_fn, opt = dmvae_objective(backbones[0], lr=C("dmvae.lr", 1e-4), num_epochs=dmvae_epochs)
     results, fit_s = fit_all(backbones, loss_fn, opt, None, {"xs": data["xs_tr"]}, None,
                              [slot(s, 1) for s in seeds], dmvae_epochs, True)
@@ -458,13 +469,16 @@ def parse_args(argv=None):
     parser.add_argument("--segment-epochs", type=int, default=None,
                         help="run each seed-batched fit in exactly resumed segments of this "
                              "many epochs")
-    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="the products' compute type (parameters, optimizer state, losses "
+                             "and BatchNorm statistics stay float32); bfloat16 runs the DMVAE's "
+                             "and the heads' products in bf16")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
     add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
     used = [flag for flag, on in zip(NOT_PORTED, (
-        args.dtype != "float32", args.data_parallel > 1 or args.model_parallel > 1)) if on]
+        args.data_parallel > 1 or args.model_parallel > 1,)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     if args.use_ood and args.ood_eval:
@@ -522,7 +536,7 @@ def main(argv=None):
             "xs_ood": xs_ood}
 
     jobs = [(name, builder, None) for name, builder in
-            head_builders(C, num_classes, probe_epochs, specs, device).items()]
+            head_builders(C, num_classes, probe_epochs, specs, device, args.dtype).items()]
     skipped = {}
     for fusion in args.intermediate_fusion:
         jname = intermediate_job_name(fusion)
@@ -532,7 +546,8 @@ def main(argv=None):
             print(f"  [LUMA] skipping {jname}: {e}", flush=True)
             skipped[jname] = {"skipped": str(e)}
             continue
-        jobs.append((jname, intermediate_builder(C, num_classes, fusion, specs, device), fusion))
+        jobs.append((jname, intermediate_builder(C, num_classes, fusion, specs, device,
+                                                 args.dtype), fusion))
 
     # a seed is complete with a row per job and per skipped fusion
     rows_file = RowsFile(args.rows_file, seeds, len(jobs) + len(skipped))
@@ -557,7 +572,7 @@ def main(argv=None):
                               num_classes=num_classes, dmvae_epochs=dmvae_epochs,
                               probe_epochs=probe_epochs, device=device,
                               fused_dmvae=not args.no_fused_dmvae,
-                              segment_epochs=args.segment_epochs, rows=rows)
+                              segment_epochs=args.segment_epochs, rows=rows, dtype=args.dtype)
             rows_file.save(rows)
     sequential = [] if args.vmap_seeds and len(seeds) > 1 else seeds
     for seed in sequential:
@@ -567,7 +582,8 @@ def main(argv=None):
         rows[seed] = {"Normal": {"LUMA": dict(skipped)}}
         run_seed(C=C, seed=seed, data=data, specs=specs, jobs=jobs, num_classes=num_classes,
                  dmvae_epochs=dmvae_epochs, probe_epochs=probe_epochs, device=device,
-                 fused_dmvae=not args.no_fused_dmvae, rows_out=rows[seed]["Normal"]["LUMA"])
+                 fused_dmvae=not args.no_fused_dmvae, rows_out=rows[seed]["Normal"]["LUMA"],
+                 dtype=args.dtype)
         rows_file.save(rows)
     write_reports(rows, seeds)
     print(f"LUMA protocol done in {time.time() - t_start:.1f}s", flush=True)

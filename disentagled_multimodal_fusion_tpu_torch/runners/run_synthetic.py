@@ -49,8 +49,11 @@ j = 0, 1, 2 for dmvae_cml, cml, avg. Fold seeds lie in [2**31, 2**32), so
 their low 32 bits never meet a sequential slot.
 
 ``--no-fused-dmvae`` trains the per-modality DMVAE in both engines (same
-checkpoint names). Refused as not ported yet: ``--dtype bfloat16`` and the
-mesh flags. ``--force-vmap-seeds`` is accepted and changes nothing.
+checkpoint names). ``--dtype bfloat16`` (JAX lines 74-79) runs the DMVAE
+backbone, the probe and late fusion with the bf16 compute type; the
+DisentangledSSL backbone stays float32, as the JAX help text says (lines
+47-51). Refused as not ported yet: the mesh flags. ``--force-vmap-seeds``
+is accepted and changes nothing.
 
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_synthetic \
@@ -112,9 +115,9 @@ def checkpoint_name(model: str, seed: int, dep: int, backbone: str = "dmvae") ->
     return f"late_fusion_seed{seed}_dep{dep}_agg{model}"
 
 
-def cell_settings(C, quick: bool):
+def cell_settings(C, quick: bool, dtype=None):
     """The sweep's settings as ``runners.run.CellSettings`` (the backbone
-    fit reads them)."""
+    fit reads them), with the compute type of ``--dtype``."""
     from .run import CellSettings
 
     return CellSettings(
@@ -127,6 +130,7 @@ def cell_settings(C, quick: bool):
         dmvae_epochs=3 if quick else C("dmvae.num_epochs", 100),
         dmvae_hidden=C("dmvae.hidden_dim", 512), embed_dim=C("dmvae.embed_dim", 16),
         dmvae_a=C("dmvae.a", 1e-5), dmvae_dropout=0.0, dmvae_lr=C("dmvae.lr", 1e-3),
+        dtype=dtype,
     )
 
 
@@ -145,7 +149,8 @@ def head_specs(C, st, view_dims, shared_dim: int, device, quick: bool):
             input_dim=st.probe_input_dim, hidden_dim=st.probe_hidden, lr=st.lr,
             dropout=st.probe_dropout, annealing_start=st.annealing_start,
             aggregation=C("dmvae_fusion.aggregation", "cml"), fused=0.0,
-            num_epochs=st.probe_epochs, shared_input_dim=shared_dim, device=device)
+            num_epochs=st.probe_epochs, shared_input_dim=shared_dim, dtype=st.dtype,
+            device=device)
 
     def late(agg):
         return lambda seed: build_late_fusion_task(
@@ -153,7 +158,7 @@ def head_specs(C, st, view_dims, shared_dim: int, device, quick: bool):
             hidden_dim=tuple(C("latefusion.hidden_dim", (128,))),
             dropout=C("latefusion.dropout", 0.1), lr=C("latefusion.lr", 3e-4),
             annealing_start=C("latefusion.annealing_start", 10), aggregation=agg, fused=0.0,
-            device=device)
+            dtype=st.dtype, device=device)
 
     return [("dmvae_cml", probe, "probe", True, st.probe_epochs),
             ("cml", late("cml"), "raw", False, late_epochs),
@@ -353,8 +358,11 @@ def parse_args(argv=None):
                              "PyTorch path)")
     parser.add_argument("--no-fused-dmvae", action="store_true",
                         help="train the per-modality DMVAE instead of the fused one")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="the products' compute type for the DMVAE, probe and late-fusion "
+                             "fits (parameters, optimizer state and losses stay float32; the "
+                             "DisentangledSSL backbone always runs float32)")
     # options of the JAX runner that the port does not have yet (ROADMAP.md)
-    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--model-parallel", type=int, default=1)
     add_force_vmap_flag(parser)
@@ -365,13 +373,8 @@ def parse_args(argv=None):
     if args.backbone == "dssl" and args.vmap_seeds:
         parser.error("--vmap-seeds trains the DMVAE backbone only (the SSL backbone has no "
                      "seed-batched trainer, as in the JAX package)")
-    used = []
-    if args.dtype != "float32":
-        used.append("--dtype bfloat16")
     if args.data_parallel > 1 or args.model_parallel > 1:
-        used.append("--data-parallel/--model-parallel")
-    if used:
-        parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
+        parser.error("--data-parallel/--model-parallel: not ported yet (see ROADMAP.md)")
     return args
 
 
@@ -385,7 +388,7 @@ def main(argv=None):
     seeds = args.seeds if args.seeds is not None else C("experiment.seeds", [0, 1, 2, 3, 4])
     deps = args.deps if args.deps is not None else C("experiment.deps", [0, 25, 50, 75, 100])
     data_kw = preset_data_kwargs(C, args.preset, args.quick)
-    st = cell_settings(C, args.quick)
+    st = cell_settings(C, args.quick, args.dtype)
     t_start = time.time()
     rows = {seed: {} for seed in seeds}
     if args.vmap_seeds:

@@ -9,8 +9,21 @@ model is restored from the checkpoints ``runners/run.py`` writes, at the
 JAX package's default paths (``checkpoints/dmvae_dataset{ds}_seed{seed}_
 a1e-05_normal`` and ``checkpoints/{model}_fusion_ds{ds}_seed{seed}``) or at
 ``--dmvae-checkpoint`` / ``--checkpoint``; ``--random-init`` skips the
-restore (serving speed does not depend on the weights). ``torch.export``
-artifacts (the JAX ``--export-dir``) are not ported yet.
+restore (serving speed does not depend on the weights). ``--export-dir``
+(JAX lines 250-261) writes one ``torch.export`` artifact per bucket,
+``{model}_{dataset}_seed{seed}_b{b}.pt2`` (the JAX package's names, with
+``.pt2`` for ``.stablehlo``), with the head kernel's operator file beside
+them (``dmf_head_op.py``, a copy of ``ops/head_op.py``) and, for a CUDA
+artifact, the kernel library it loads (``evidential_head.so``). They replay
+without the package:
+
+    import importlib.util, torch
+    spec = importlib.util.spec_from_file_location("dmf_head_op", "out/dmf_head_op.py")
+    op = importlib.util.module_from_spec(spec); spec.loader.exec_module(op)
+    op.load("out/evidential_head.so")  # CUDA artifacts only
+    outputs = torch.export.load("out/dmvae_cml_HandWritten_seed0_b8.pt2").module()(xs)
+
+The report lists the artifacts under ``exported``.
 
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
@@ -21,14 +34,19 @@ Examples:
 
   python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
       --model cml_fusion --dataset HandWritten --random-init --daemon --http-port 8000
+
+  python -m disentagled_multimodal_fusion_tpu_torch.runners.serve \
+      --model dmvae_cml --dataset HandWritten --random-init --export-dir exported
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -173,6 +191,27 @@ def bench_daemon(engine, xs, args):
     return st
 
 
+def export_buckets(infer, xs, args, device):
+    """One artifact per bucket under ``--export-dir``, and the head
+    kernel's operator file (and, on the card, its library) beside them:
+    the list of files written."""
+    from ..core.serve import export_inference
+    from ..ops import cuda_kernels, head_op
+
+    outdir = Path(args.export_dir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    written = []
+    for b in sorted(args.buckets):
+        path = outdir / f"{args.model}_{args.dataset}_seed{args.seed}_b{b}.pt2"
+        export_inference(infer, tuple(x[:b] for x in xs), path)
+        written.append(str(path))
+    written.append(shutil.copyfile(head_op.__file__, outdir / "dmf_head_op.py"))
+    if device.type == "cuda":
+        written.append(shutil.copyfile(cuda_kernels.library_path(),
+                                       outdir / "evidential_head.so"))
+    return [str(p) for p in written]
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -209,6 +248,10 @@ def parse_args(argv=None):
                         help="after the bench, serve over HTTP until interrupted "
                              "(POST /v1/infer, GET /v1/stats, /healthz)")
     parser.add_argument("--http-host", default="127.0.0.1")
+    parser.add_argument("--export-dir", default=None,
+                        help="write one torch.export artifact per bucket here "
+                             "({model}_{dataset}_seed{seed}_b{b}.pt2), with the head "
+                             "kernel's operator file (and on the card its library)")
     return parser.parse_args(argv)
 
 
@@ -226,6 +269,7 @@ def main(argv=None):
     engine = (make_engine(infer, xs, args.buckets)
               if (args.daemon or args.http_port is not None) else None)
     daemon_stats = bench_daemon(engine, xs, args) if args.daemon else None
+    exported = export_buckets(infer, xs, args, device) if args.export_dir else []
 
     report = {
         "model": args.model,
@@ -235,6 +279,7 @@ def main(argv=None):
         "random_init": args.random_init,
         "buckets": rows,
         "daemon": daemon_stats,
+        "exported": exported,
     }
     print(json.dumps(report, indent=1))
 

@@ -22,8 +22,8 @@
   with ``--ood-eval``, prints its ``LUMA protocol done`` line and writes its
   reports and checkpoints, and ``runners/evaluate.py --dataset LUMA``
   reports the fused accuracy it printed; ``run_luma.py`` refuses the flags
-  it does not have yet (``--dtype bfloat16``, the mesh) with a parser error
-  that points at ROADMAP.md (``--vmap-seeds`` and ``--segment-epochs`` run:
+  it does not have yet (the mesh, also beside ``--dtype bfloat16``, which
+  runs) with a parser error that points at ROADMAP.md (``--vmap-seeds`` and ``--segment-epochs`` run:
   tests/test_torch_luma_seed_batched.py).
 """
 
@@ -195,14 +195,16 @@ def test_evaluate_luma_reports_the_runs_fused_accuracy_when_run_as_a_module(luma
     assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
 
 
-@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"], ["--data-parallel", "2"],
-                                   ["--model-parallel", "2"]],
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16", "--data-parallel", "2"],
+                                   ["--data-parallel", "2"], ["--model-parallel", "2"]],
                          ids=["bfloat16", "data_parallel", "model_parallel"])
 def test_run_luma_refuses_what_is_not_ported(flags, capsys):
+    """The mesh flags are refused, with --dtype bfloat16 too (which runs
+    alone: tests/test_torch_bf16_runs.py)."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
 
     with pytest.raises(SystemExit) as exit_info:
         run_luma.parse_args(["--seeds", "0", *flags])
     assert exit_info.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported yet (see ROADMAP.md)" in err and flags[0] in err
+    assert "not ported yet (see ROADMAP.md)" in err and flags[-2] in err

@@ -4,8 +4,10 @@ On the CPU the port's wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernel in interpret mode. The cases and the tolerance
 (rtol 1e-5, atol 1e-6) are those of tests/test_pallas.py: both sides are
 float32 and differ only in summation order. The CUDA kernels themselves (the
-evidential head and the probe epoch) are held against their plain versions
-by the ``gpu`` tests below and by chip_smoke.py.
+evidential head, its bf16 build and the probe epoch) are held against their
+plain versions by the ``gpu`` tests below and by chip_smoke.py; the bf16
+build at the bf16 tolerance of tests/test_torch_bf16.py (its plain version
+is held against the JAX package there).
 
 The JAX kernels are imported inside the tests that use them, so that the
 ``gpu`` tests also run on a CUDA machine without JAX:
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+from disentagled_multimodal_fusion_tpu_torch.ops import head_op
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -93,7 +96,9 @@ def test_head_wrapper_under_vmap_folds_seeds_into_heads(monkeypatch):
     """Under torch.func.vmap the wrapper makes one call at S * V heads (on
     the CPU its plain version; on the card one launch), equal to the
     per-seed calls and to the plain version vmapped; an input without the
-    vmapped axis (one dataset shared by every seed) is broadcast."""
+    vmapped axis (one dataset shared by every seed) is broadcast. The
+    plain version is the one the operator ``dmf::evidential_heads`` runs on
+    the CPU (``ops/head_op.py``)."""
     s, v, b, d, h, c = 3, 4, 9, 12, 8, 5
     stacked = _stacked_head_inputs(np.random.default_rng(5), s, v, b, d, h, c)
     plain = ck.evidential_heads_stacked_plain
@@ -103,7 +108,7 @@ def test_head_wrapper_under_vmap_folds_seeds_into_heads(monkeypatch):
         calls.append(tuple(args[0].shape))
         return plain(*args)
 
-    monkeypatch.setattr(ck, "evidential_heads_stacked_plain", recorded)
+    monkeypatch.setattr(head_op, "evidential_heads_stacked_plain", recorded)
     with torch.no_grad():
         got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
         shared = torch.func.vmap(ck.evidential_heads_stacked, in_dims=(None, 0, 0, 0, 0))(
@@ -166,6 +171,50 @@ def test_cuda_kernel_matches_plain():
         assert ck.evidential_heads_stacked.launches == before + 1
         ref = ck.evidential_heads_stacked_plain(xs, *ws)
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _assert_bf16_evidence_close(got, ref):
+    """tests/test_torch_bf16.py's rule on the log of the evidence: within 2
+    bf16 ulps but for 1 in 1000 entries, none beyond 4 ulps of its own size
+    or of the tensor's rms."""
+    g, r = got.double().log(), ref.double().log()
+    err = (g - r).abs()
+    assert int((err > 2.0 ** -7 * r.abs() + 1e-3).sum()) <= got.numel() // 1000
+    assert bool((err <= 2.0 ** -6 * (r.abs() + r.pow(2).mean().sqrt())).all())
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_head_kernel_matches_plain():
+    """The bf16 build against its plain version on the card: from a float32
+    x (one launch each), from a bf16 x (the same bits), and under
+    torch.func.vmap (one launch at S x V heads); the f32 build refuses a
+    bf16 x."""
+    _needs_cuda()
+    rng = np.random.default_rng(11)
+    shapes = [(7, 256, 200, 128, 10), (3, 840, 200, 128, 42), (4, 160, 200, 128, 42),
+              (20, 840, 200, 128, 42), (1, 13, 47, 33, 68), (2, 50, 300, 256, 15)]
+    for v, b, d, h, c in shapes:
+        xs = torch.from_numpy(rng.standard_normal((v, b, d)).astype(np.float32)).cuda()
+        ws = [torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).cuda()
+              for s in ((v, d, h), (v, h), (v, h, c), (v, c))]
+        before = ck.evidential_heads_stacked_bf16.launches
+        out = ck.evidential_heads_stacked_bf16(xs, *ws)
+        out_bf16_x = ck.evidential_heads_stacked_bf16(xs.to(torch.bfloat16), *ws)
+        torch.cuda.synchronize()
+        assert ck.evidential_heads_stacked_bf16.launches == before + 2
+        assert torch.equal(out, out_bf16_x)
+        _assert_bf16_evidence_close(out, ck.evidential_heads_stacked_bf16_plain(xs, *ws))
+    stacked = [t.cuda() for t in _stacked_head_inputs(np.random.default_rng(3), 5, 3, 840, 200,
+                                                      128, 42)]
+    before = ck.evidential_heads_stacked_bf16.launches
+    with torch.no_grad():
+        got = torch.func.vmap(ck.evidential_heads_stacked_bf16)(*stacked)
+    torch.cuda.synchronize()
+    assert ck.evidential_heads_stacked_bf16.launches == before + 1
+    _assert_bf16_evidence_close(got, torch.func.vmap(ck.evidential_heads_stacked_bf16_plain)(
+        *stacked))
+    with pytest.raises(TypeError):
+        ck.evidential_heads_stacked(xs.to(torch.bfloat16), *ws)
 
 
 def _needs_cuda():

@@ -12,7 +12,7 @@ corpus of tests/test_torch_luma.py (network refused, one torch thread).
 * ``--segment-epochs 1`` over two epochs gives the rows of the whole fits
   (rtol 1e-6 / atol 1e-7).
 * ``--rows-file``: the block is skipped only when every seed is complete.
-* ``--dtype bfloat16`` and the mesh flags are still refused.
+* the mesh flags are still refused, with ``--dtype bfloat16`` too.
 The text features hash with Python's salted ``hash``, so everything here
 runs in one process.
 """
@@ -164,9 +164,11 @@ def test_rows_file_skips_the_block_only_when_every_seed_is_complete(vmap_run, lu
     assert calls == [[0, 1]]
 
 
-@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"], ["--data-parallel", "2"],
-                                   ["--model-parallel", "2"]])
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16", "--data-parallel", "2"],
+                                   ["--data-parallel", "2"], ["--model-parallel", "2"]])
 def test_bf16_and_the_mesh_stay_refused(flags, capsys):
+    """The mesh stays refused, beside --dtype bfloat16 too (which runs with
+    --vmap-seeds: tests/test_torch_bf16_runs.py)."""
     with pytest.raises(SystemExit):
         run_luma.parse_args(["--vmap-seeds", "--segment-epochs", "1", *flags])
     assert "not ported yet" in capsys.readouterr().err

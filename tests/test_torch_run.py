@@ -141,10 +141,12 @@ def test_cli_trains_a_quick_cell_on_the_cpu_and_writes_the_report(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "dssl", "--vmap-seeds"], ["--dtype", "bfloat16"],
+    ["--backbone", "dssl", "--vmap-seeds"], ["--dtype", "float16"],
     ["--intermediate-fusion", "lrtf", "nope"], ["--data-parallel", "2"],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
+    """Among them a compute type other than float32 and bfloat16 (bfloat16
+    runs: tests/test_torch_bf16_runs.py)."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
     with pytest.raises(SystemExit):
@@ -334,9 +336,11 @@ print(len(names))
 
 
 def test_only_bfloat16_and_the_mesh_are_not_ported():
+    """Only the mesh is left: --dtype bfloat16 runs since the bf16 slice."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
-    assert runner.NOT_PORTED == ("--dtype bfloat16", "--data-parallel/--model-parallel")
+    assert runner.NOT_PORTED == ("--data-parallel/--model-parallel",)
+    assert runner.parse_args(["--dtype", "bfloat16"]).dtype == "bfloat16"
     args = runner.parse_args(["--include-intermediate", "--intermediate-fusion", "lrtf", "mi3",
                               "--rows-file", "rows.json", "--profile", "--no-fused-dmvae"])
     assert args.intermediate_fusion == ["concat", "lrtf", "mi3"]

@@ -370,7 +370,7 @@ def test_evaluate_reproduces_the_sweeps_row(sweep, model, monkeypatch):
 @pytest.mark.parametrize("flags,message", [
     (["--vmap-seeds", "--probe-engine", "megakernel"], "sequential path only"),
     (["--vmap-seeds", "--backbone", "dssl"], "DMVAE backbone only"),
-    (["--dtype", "bfloat16"], "not ported yet"),
+    (["--dtype", "bfloat16", "--data-parallel", "2"], "not ported yet"),
     (["--data-parallel", "2"], "not ported yet"),
 ])
 def test_run_synthetic_refuses(flags, message, capsys):
