@@ -7,7 +7,8 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
 1. the card: name, count and ``nvidia-smi`` name and power limit;
 2. the build of both kernels from ``csrc/`` with nvcc (one process each,
    started together), its time and ptxas report (no stack frame and no
-   spills in any kernel);
+   spills in any kernel), and one summary line per kernel (registers,
+   static shared memory, stack frame, spills);
 3. every kernel against its plain PyTorch version on the card: the
    evidential head at the test and serving shapes and at every dataset's
    validation shapes (HandWritten at B=400, CUB, PIE, Scene; H=256),
@@ -29,7 +30,11 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    four B, phase 23's vmap rule); and the head kernel's bf16 build
    (``BF16_SHAPES``: HandWritten's (7|6, 400) at D = 200 and 240 and
    (7, 256), LUMA's (3|4, 840|160) and the stacked (15|20, 840) and (20,
-   4200)) against its plain version and
+   4200), CUB's (2, 120, 1024), PIE's (3, 136, 484) at C = 68, Scene's
+   (3, 897, 59) at C = 15, the synthetic (3, 2000, 16) at C = 3, and
+   ``--vmap-seeds``'s five seeds of HandWritten, the synthetic sweep and
+   Scene: the head shapes ``--dtype bfloat16`` reaches) against its plain
+   version and
    against float64 of the bf16-rounded operands, at the bf16 rule of
    tests/test_torch_bf16.py (``assert_bf16_evidence_close``), from a
    float32, a bf16 and a strided x (equal bits);
@@ -40,8 +45,11 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    stacked seeds; plain and library times too at the synthetic, CUB and
    Scene shapes, at LUMA's (4, 4200) and (3, 840) and at every stacked LUMA
    shape), and the bf16 build's at ``BF16_SHAPES`` beside a bf16
-   ``baddbmm`` chain and its bound at the bf16 tensor-core peak; the
-   profiler window of the probe epoch must
+   ``baddbmm`` chain and its bound at the bf16 tensor-core peak (each
+   library chain by CUDA events, which time the host's launches too, and
+   by its profiler device time summed over its kernels: the bf16 chain at
+   every shape, the f32 one at (7, 256) and ``CHAIN_SHAPES``); the profiler
+   window of the probe epoch must
    hold exactly its four kernels, S launches each per epoch (S = 16 on
    HandWritten, 62 on the synthetic sweep, 5 on CUB with its tail of 80),
    and nothing else but the wrapper's PyTorch operations;
@@ -370,6 +378,9 @@ MAIN_PATH_SHAPES = (SERVING_SHAPES + VALIDATION_SHAPES + STACKED_SHAPES + SYNTHE
 # times at these besides the device time: plain and library
 TIMED_SHAPES = (SYNTHETIC_SHAPES + SYNTHETIC_STACKED_SHAPES + CUB_SHAPES + SCENE_STACKED_SHAPES
                 + [(4, 4200, 200, 128, 42), (3, 840, 200, 128, 42)] + LUMA_STACKED_SHAPES)
+# and the library chain's device time at these (with the kernels line's
+# (7, 256) the f32 rows of PERF.md's kernel table)
+CHAIN_SHAPES = [(3, 840, 200, 128, 42), (15, 840, 200, 128, 42), (20, 4200, 200, 128, 42)]
 # (S, V, B, D, H, C) of the probe epoch: dmvae_cml on HandWritten (16 steps
 # of 100 rows), then on the synthetic sweep (62 steps of 128 rows, the tail
 # dropped; D=16 over DMVAE, 32 over DSSL)
@@ -378,6 +389,40 @@ EPOCH_SHAPES = [(16, 7, 100, 200, 128, 10), (62, 3, 128, 16, 128, 3), (62, 3, 12
 # 480 rows in four steps of 100 and a tail of 80, V = 3 (dmvae_cml,
 # dmvae_joint) and 2 (dmvae_dis), C = 10
 CUB_EPOCH_SHAPES = [(5, 3, 100, 200, 128, 10, 80), (5, 2, 100, 200, 128, 10, 80)]
+
+
+def ptxas_summary(text):
+    """One line per kernel of a ptxas -v report: its name (demangled where
+    c++filt is there), registers, shared memory, stack frame and spills."""
+    lines, name, frame = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = (f"{m.group(1)} bytes stack frame, {m.group(2)} + {m.group(3)} bytes spill "
+                     f"stores + loads")
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            lines.append(f"ptxas summary {demangle(name)}: {m.group(1)} registers, "
+                         f"{smem.group(1) if smem else 0} bytes static shared memory, {frame}")
+            name, frame = None, ""
+    return lines
+
+
+def demangle(name):
+    """A kernel's name and template arguments, without its parameters."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=30)
+        name = out.stdout.strip() or name
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if name.endswith(")"):
+        name = name[:name.rfind("(")]
+    return name.removeprefix("void ")
 
 
 def shape_key(v, b, d, h, c):
@@ -440,8 +485,12 @@ def phase_kernel_times(ck, card):
                 f"plain {plain_ms:.5f} ms, library {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
                 f"({bound_by}) [{card}]")
             if (v, b, d) == (7, 256, 200):
+                library_device_ms = device_ms(library_heads, args, n=30)
+                log(f"  library at V={v} B={b} D={d}: {fmt_ms(library_device_ms)} of device time "
+                    f"[{card}]")
                 main_row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                bound_ms=bound_ms, bound_by=bound_by)
+                                library_device_ms=library_device_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
     return main_row
 
 
@@ -469,14 +518,15 @@ def head_shape_tally():
         head_op.launch = real
 
 
-def head_device_ms(ck, shape, n=100, fn=None, kernel="evidential_heads_kernel"):
-    """Device-only time of the head kernel (``fn``, by default the f32
-    wrapper) at one shape from the profiler, or None when the profiler
-    reports no device time for ``kernel``."""
+def device_ms(fn, args, kernel=None, n=100):
+    """Device time per call of ``fn`` from the profiler: of the CUDA kernels
+    whose name holds ``kernel``, or summed over every kernel it launches
+    where ``kernel`` is None (the library chains, whose CUDA events also
+    time the host's launches of four to six kernels); None when the
+    profiler reports no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn = fn or ck.evidential_heads_stacked
-    args = head_inputs(*shape, seed=0)
     for _ in range(10):
         fn(*args)
     torch.cuda.synchronize()
@@ -484,19 +534,29 @@ def head_device_ms(ck, shape, n=100, fn=None, kernel="evidential_heads_kernel"):
         for _ in range(n):
             fn(*args)
         torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total_us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-            if total_us > 0 and ev.count:
-                return total_us / ev.count / 1e3
-    return None
+    total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    return total_us / n / 1e3 if total_us > 0 else None
+
+
+def fmt_ms(ms):
+    return f"{ms:.5f} ms" if ms is not None else "not measured"
 
 
 # the bf16 build's shapes (phases 3 and 4): HandWritten's probe heads, LUMA's
 # (3|4, 840|160) of phases 22 and 24, and the stacked (15|20, 840) and
-# (20, 4200) of the seed-batched engine (the last a full corpus's)
+# (20, 4200) of the seed-batched engine (the last a full corpus's); then the
+# other runners' widest heads under --dtype bfloat16: CUB's late fusion (D =
+# 1024), PIE's (D = 484, C = 68), Scene's (D = 59, C = 15) and the synthetic
+# sweep's (D = 16, C = 3); and --vmap-seeds's five seeds of HandWritten, the
+# synthetic sweep and Scene (several row tiles a block, one chunk a tile)
 BF16_SHAPES = (VALIDATION_SHAPES[:3] + [(7, 256, 200, 128, 10)] + LUMA_SHAPES
-               + [(15, 840, 200, 128, 42), (20, 840, 200, 128, 42), (20, 4200, 200, 128, 42)])
+               + [(15, 840, 200, 128, 42), (20, 840, 200, 128, 42), (20, 4200, 200, 128, 42)]
+               + [VALIDATION_SHAPES[i] for i in (3, 6, 8)] + SYNTHETIC_SHAPES[:1]
+               + STACKED_SHAPES + SYNTHETIC_STACKED_SHAPES
+               + [(len(SEEDS) * v, b, d, h, c) for v, b, d, h, c in VALIDATION_SHAPES[8:]])
 # the most launched bf16 shape of the run (phase 25's late fusion at the
 # widest view, 303 launches); main() holds the run's tally to it
 BF16_MAIN = (6, 400, 240, 128, 10)
@@ -599,26 +659,28 @@ def phase_bf16_kernel_checks(ck):
 def phase_bf16_kernel_times(ck, card):
     """The bf16 build at ``BF16_SHAPES``: profiler device time, CUDA events
     per call, the plain version's and the bf16 ``baddbmm`` chain's events,
-    and the bound. Returns the row at ``BF16_MAIN`` and {shape key: times}."""
+    the chain's device time summed over its kernels, and the bound. Returns
+    the row at ``BF16_MAIN`` and {shape key: times}."""
     timed, main_row = {}, None
     for shape in BF16_SHAPES:
         args = head_inputs(*shape, seed=1)
-        device_ms = head_device_ms(ck, shape, fn=ck.evidential_heads_stacked_bf16,
-                                   kernel="evidential_heads_bf16_kernel")
+        kernel_ms = device_ms(ck.evidential_heads_stacked_bf16, args,
+                              "evidential_heads_bf16_kernel")
         ms = event_ms(ck.evidential_heads_stacked_bf16, args)
         plain_ms = event_ms(ck.evidential_heads_stacked_bf16_plain, args)
         library_ms = event_ms(library_heads_bf16, args)
+        library_device_ms = device_ms(library_heads_bf16, args, n=30)
         bound_ms, bound_by = bf16_bound(*args)
-        row = dict(device_ms=device_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(device_ms=kernel_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, bound_ms=bound_ms, bound_by=bound_by)
         timed[shape_key(*shape)] = row
         if shape == BF16_MAIN:
             main_row = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")}
-        log(f"time evidential_head bf16 {shape_key(*shape)}: device "
-            + (f"{device_ms:.5f} ms" if device_ms is not None else "not measured")
-            + f", events {ms:.5f} ms, plain {plain_ms:.5f} ms, library (bf16 baddbmm) "
-              f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+                                            "library_ms", "device_ms", "library_device_ms")}
+        log(f"time evidential_head bf16 {shape_key(*shape)}: device {fmt_ms(kernel_ms)}, "
+            f"events {ms:.5f} ms, plain {plain_ms:.5f} ms, library (bf16 baddbmm chain) "
+            f"{library_ms:.5f} ms by events, {fmt_ms(library_device_ms)} of device time, "
+            f"bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
     return main_row, timed
 
 
@@ -626,12 +688,14 @@ def phase_device_time(ck, card):
     """The head kernel at every main-path shape: profiler device time, CUDA
     events per call (the wrapper's host work included, so events minus
     device time is the wrapper's cost when the host is the limit) and the
-    bound; at ``TIMED_SHAPES`` also the plain and library times. Returns
-    {shape key: device ms} and {timed shape key: times}."""
+    bound; at ``TIMED_SHAPES`` also the plain and library times (the
+    library chain by events, at ``CHAIN_SHAPES`` also by device time summed
+    over its kernels). Returns {shape key: device ms} and {timed shape key:
+    times}."""
     device, timed = {}, {}
     for shape in MAIN_PATH_SHAPES:
-        ms = head_device_ms(ck, shape)
         args = head_inputs(*shape, seed=1)
+        ms = device_ms(ck.evidential_heads_stacked, args, "evidential_heads_kernel")
         events = event_ms(ck.evidential_heads_stacked, args)
         bound_ms, bound_by = head_bound(*shape)
         device[shape_key(*shape)] = ms
@@ -639,14 +703,17 @@ def phase_device_time(ck, card):
         if shape in TIMED_SHAPES:
             plain_ms = event_ms(ck.evidential_heads_stacked_plain, args)
             library_ms = event_ms(library_heads, args)
+            library_device_ms = (device_ms(library_heads, args, n=30) if shape in CHAIN_SHAPES
+                                 else None)
             timed[shape_key(*shape)] = dict(device_ms=ms, ms=events, plain_ms=plain_ms,
-                                            library_ms=library_ms, bound_ms=bound_ms,
-                                            bound_by=bound_by)
-            extra = f", plain {plain_ms:.5f} ms, library {library_ms:.5f} ms"
-        log(f"device time evidential_head {shape_key(*shape)}: "
-            + (f"{ms:.5f} ms" if ms is not None else "not measured")
-            + f", events {events:.5f} ms per call{extra}, bound {bound_ms:.6f} ms ({bound_by}) "
-              f"[{card}]")
+                                            library_ms=library_ms,
+                                            library_device_ms=library_device_ms,
+                                            bound_ms=bound_ms, bound_by=bound_by)
+            extra = f", plain {plain_ms:.5f} ms, library {library_ms:.5f} ms by events"
+            if library_device_ms is not None:
+                extra += f", {fmt_ms(library_device_ms)} of device time"
+        log(f"device time evidential_head {shape_key(*shape)}: {fmt_ms(ms)}, events "
+            f"{events:.5f} ms per call{extra}, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
     return device, timed
 
 
@@ -2684,9 +2751,10 @@ def phase_luma_seed_batched(ck, pm, card, corpus, seq_fits):
 def head_times_only(card):
     """``--head-times``: build the head kernel of whichever package is first
     on the path and print its device and event times at every main-path
-    shape as one JSON line. Run from a copy of this script placed in an
-    unpacked checkout of another commit, it times that commit's kernel in
-    the same call (parent, change, change, parent)."""
+    shape, and its bf16 build's at ``BF16_SHAPES``, as one JSON line. Run
+    from a copy of this script placed in an unpacked checkout of another
+    commit, it times that commit's kernel in the same call (parent, change,
+    change, parent)."""
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
@@ -2699,11 +2767,24 @@ def head_times_only(card):
         assert_close(ck.evidential_heads_stacked(*args), ck.evidential_heads_stacked_plain(*args),
                      f"evidential_head {shape_key(*shape)}")
         bound_ms, bound_by = head_bound(*shape)
-        rows[shape_key(*shape)] = dict(device_ms=head_device_ms(ck, shape),
+        rows[shape_key(*shape)] = dict(device_ms=device_ms(ck.evidential_heads_stacked, args,
+                                                           "evidential_heads_kernel"),
                                        events_ms=event_ms(ck.evidential_heads_stacked, args),
                                        bound_ms=bound_ms, bound_by=bound_by)
+    bf16_rows = {}
+    for shape in BF16_SHAPES:
+        args = head_inputs(*shape, seed=0)
+        assert_bf16_evidence_close(ck.evidential_heads_stacked_bf16(*args),
+                                   ck.evidential_heads_stacked_bf16_plain(*args),
+                                   f"bf16 {shape_key(*shape)}")
+        bound_ms, bound_by = bf16_bound(*args)
+        bf16_rows[shape_key(*shape)] = dict(
+            device_ms=device_ms(ck.evidential_heads_stacked_bf16, args,
+                                "evidential_heads_bf16_kernel"),
+            events_ms=event_ms(ck.evidential_heads_stacked_bf16, args),
+            bound_ms=bound_ms, bound_by=bound_by)
     print(json.dumps({"package": str(Path(ck.__file__).resolve().parents[1]), "card": card,
-                      "head_times": rows}), flush=True)
+                      "head_times": rows, "bf16_head_times": bf16_rows}), flush=True)
     return 0
 
 
@@ -2859,6 +2940,8 @@ def main() -> int:
                             r"(\d+) bytes spill loads", info.log)
         if not frames or any(int(x) for frame in frames for x in frame):
             raise AssertionError(f"{name}: ptxas reports a stack frame or spills: {frames}")
+        for line in ptxas_summary(info.log):
+            log(f"  {line}")
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()

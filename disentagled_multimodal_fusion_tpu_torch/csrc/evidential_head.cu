@@ -654,123 +654,468 @@ cudaError_t launch(const float* x, long long sxv, long long sxb, const float* w1
 //   h = relu(bf16(bf16(x W1) + bf16(b1))),  z = bf16(bf16(h W2) + bf16(b2)),
 //   out = evidence(float(z))
 //
-// Weights and biases come in f32 (the parameters stay f32) and are rounded
-// here as they are read; x comes in f32 too and is rounded as it is staged
-// (the wrapper widens a bf16 x first, exactly).
-// Simple by design: f32 FMAs on the rounded values, no tensor cores. Grid
-// (row tiles of BF_BM, V) of 256 threads; each block stages K-chunks of x
-// and of the weights in shared memory and keeps its rows' relu(h) there as
-// bf16 (exact: h is rounded to bf16 anyway), so h never reaches device
-// memory. Thread t owns column t % 128 of a 128-column pass and rows
-// t / 128 + 2 i (16 accumulators); x and h are broadcast reads, the weight
-// tiles conflict-free. Every sum runs over k in order, so results do not
-// depend on x's strides. Bound at the main-path shapes: bytes (PERF.md).
-constexpr int BF_BM = 32;
-constexpr int BF_TN = 128;
-constexpr int BF_KC = 32;
-constexpr int BF_THREADS = 256;
-constexpr int BF_RPT = BF_BM * BF_TN / BF_THREADS;  // rows per thread
+// Weights and biases come in f32 (the parameters stay f32), x in f32 too
+// (the wrapper widens a bf16 x first, exactly); all are rounded here.
+//
+// Bound on an H100 (SXM, 700 W; 989 TFLOP/s bf16 on the tensor cores, 3.35
+// TB/s): bytes at every main-path shape. x in f32 is most of them: 67 MB,
+// 20 us of the 25 us bound at the largest, (20, 4200, 200); the products
+// at the tensor-core peak take a fifth of that.
+//
+// Design. Tensor cores, a ring of TMA copies fed by a warp of its own,
+// weights read once per block (PERF.md):
+// - Products: bf16 mma.sync.m16n8k16 with f32 sums, both layers. A bf16 x
+//   bf16 product is exact in f32, so only the order of the f32 sum differs
+//   from a sequential one (16-deep steps in k order; tests/
+//   test_torch_bf16_order.py emulates it). Each layer's sum is rounded to
+//   bf16 once, after its whole K loop; then the bias is added and rounded,
+//   as flax does. mma.sync and not wgmma: blocks of 32 rows need it, wgmma
+//   would want a bf16 copy of x in its shared-memory layout, and the
+//   products are not the limit.
+// - Copies: x and W1 come in f32, in K-chunks of 64 columns, through a ring
+//   of three stages with a "full" and an "empty" mbarrier each. A 17th warp
+//   only copies: lane 0 issues one TMA tensor copy per array and chunk as
+//   soon as the 16 warps that multiply have freed the stage, so no warp
+//   that multiplies waits while an issue holds its thread (per-thread
+//   16-byte cp.async, this kernel's first form, stalled every thread on
+//   each chunk). A box is wider than its chunk (x rows of 72, W1 rows of
+//   132 floats), so rows land padded and the fragment reads are free of
+//   bank conflicts; out-of-bounds rows and columns land as zeros. Where a
+//   tensor map is not legal for an array (Scene's D = 59, odd test widths),
+//   the copy warp's lanes copy it by 4-byte cp.async into the same layout,
+//   counted on the same mbarrier: the same arithmetic, so the same bits.
+// - Weights once per block: a block takes one head and a run of its row
+//   tiles (bx, bx + G, ...; V G <= the SMs, so one wave). Where the head's
+//   W1 fits beside the ring (H = 128 up to D = 256: 135 KB of f32) it stays
+//   resident: it comes with the first tile's chunks, is rounded to bf16 in
+//   place, and later tiles reuse it, so only x streams. Where it does not
+//   (CUB's D = 1024, PIE's 484), W1's chunks stream through the ring beside
+//   x's. W2 (transposed, bf16) and the rounded biases are set up once per
+//   block while the first chunks land.
+// - Operands: W1 is rounded to bf16 in place as its chunk lands and read
+//   by ldmatrix.trans; x stays f32 and is rounded as its fragments are
+//   built (two f32 -> one bf16x2), which needs no barrier, so the later
+//   tiles of a resident W1 meet twice per tile: before h is written (the
+//   row group's other warps may still read the last tile's h in layer 2)
+//   and before layer 2.
+// - Warps: 16 that multiply, WR row groups of 16 rows x 16 / WR column
+//   groups of WR n-tiles of 8 hidden units: a tile of 16 WR rows and a pass
+//   of 128 units (H > 128 takes more passes). relu(h) goes to shared memory
+//   as bf16 (exact: h is bf16 anyway), never to device memory. Layer 2 runs
+//   on the tensor cores over h (ldmatrix), C padded to a multiple of 8 with
+//   the padded columns never stored; then b2 and the evidence in f32,
+//   written once.
+// - Small grids: row tiles of 32 (WR = 2) or 64 rows (WR = 4), whichever
+//   leaves a block fewer rows: (3, 160) runs as 15 blocks of one 32-row
+//   tile, (20, 4200) as 120 blocks of 11 tiles of 64.
+// Every sum has one fixed order, so strided, bf16 and f32 x give the same
+// bits. Any V, B, D, H and C whose plan fits a block's shared memory with
+// W1 streamed (else the C entry point returns cudaErrorInvalidValue).
+constexpr int BF_KC = 64;               // K columns per chunk
+constexpr int BF_STAGES = 3;            // ring stages
+constexpr int BF_PASS = 128;            // hidden units per pass
+constexpr int BF_XS = BF_KC + 8;        // x's box and row stride in a stage (floats)
+constexpr int BF_WS = BF_PASS + 4;      // W1's box and row stride as it lands (floats)
+constexpr int BF_WB = BF_PASS + 8;      // W1's row stride once rounded to bf16 in place
+constexpr int BF_WARPS = 16;                   // the warps that multiply
+constexpr int BF_THREADS = BF_WARPS * WARP;
+constexpr int BF_BLOCK = BF_THREADS + WARP;    // and one warp that issues the copies
 
 __device__ __forceinline__ float bf16_round(float f) {
   return __bfloat162float(__float2bfloat16_rn(f));
 }
-
-// One pass of BF_TN output columns n0.. of A [BF_BM x K] . W [K x N]: the
-// A tile comes from `a_tile(r, k)` (rounded, 0 beyond the edges), W from
-// global f32 w[k * N + n], rounded to bf16 as it is staged.
-template <typename ATile>
-__device__ __forceinline__ void bf16_pass(float (&acc)[BF_RPT], ATile a_tile, float* as,
-                                          float* ws, const float* __restrict__ w, int K, int N,
-                                          int n0) {
-  const int t = threadIdx.x, j = t % BF_TN, r0 = t / BF_TN;
-#pragma unroll
-  for (int i = 0; i < BF_RPT; ++i) acc[i] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += BF_KC) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = t; i < BF_BM * BF_KC; i += BF_THREADS) {
-      const int r = i / BF_KC, k = i % BF_KC;
-      as[i] = k0 + k < K ? a_tile(r, k0 + k) : 0.0f;
-    }
-    for (int i = t; i < BF_KC * BF_TN; i += BF_THREADS) {
-      const int k = i / BF_TN, n = i % BF_TN;
-      ws[i] = (k0 + k < K && n0 + n < N)
-                  ? bf16_round(w[static_cast<long long>(k0 + k) * N + n0 + n])
-                  : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < BF_KC; ++k) {
-      const float wk = ws[k * BF_TN + j];
-#pragma unroll
-      for (int i = 0; i < BF_RPT; ++i) acc[i] = fmaf(as[(r0 + 2 * i) * BF_KC + k], wk, acc[i]);
-    }
-  }
+// two f32 rounded into one bf16x2 register, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+__device__ __forceinline__ unsigned ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+// d += a b over one 16 x 8 x 16 step: bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// four 8 x 8 bf16 matrices, one row address per lane (lanes 8 i to 8 i + 7
+// give matrix i's rows): the fragment of the row-major A operand, or with
+// .trans that of a k-major B operand
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// a barrier of the 16 warps that multiply (the copy warp keeps on copying)
+__device__ __forceinline__ void bf16_warps_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(BF_THREADS) : "memory");
+}
+// The evidence of a bf16 logit: exp(z) 1e13 / (exp(z) + 1e13) of z clipped
+// to +-10, computed as exp(z). The factor 1e13 / (exp(z) + 1e13) lies within
+// 2.3e-9 of 1 for z <= 10, below half an f32 ulp, so exp(z) is the function
+// to f32 rounding, without evidence()'s log1p and second exp.
+__device__ __forceinline__ float evidence_clipped_exp(float z) {
+  return expf(fminf(fmaxf(z, -10.0f), 10.0f));
 }
 
-__global__ void __launch_bounds__(BF_THREADS)
-    evidential_heads_bf16_kernel(const float* __restrict__ x, long long sxv, long long sxb,
-                                 const float* __restrict__ w1, const float* __restrict__ b1,
-                                 const float* __restrict__ w2, const float* __restrict__ b2,
-                                 float* __restrict__ out, int V, int B, int D, int H, int C) {
-  extern __shared__ float bf_smem[];
-  float* as = bf_smem;                  // [BF_BM][BF_KC]
-  float* ws = as + BF_BM * BF_KC;       // [BF_KC][BF_TN]
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(ws + BF_KC * BF_TN);  // [BF_BM][H]
-  const int v = blockIdx.y, b0 = blockIdx.x * BF_BM;
-  const int t = threadIdx.x, j = t % BF_TN, r0 = t / BF_TN;
+// A launch's padded widths and shared-memory regions, the same on the host
+// and in the kernel: W1 (resident: [passes][nk BF_KC][BF_WS]; streamed: a
+// slot [BF_KC][BF_WS] per stage) and the x ring [stages][bm][BF_XS] (f32),
+// h [bm][hs] and W2^T [cp][hs] (bf16), b1 and b2 (f32, rounded to bf16).
+// Every TMA destination is 128-byte aligned.
+struct Bf16Geom {
+  int dp, hp, cp, hs, nk, passes;
+  size_t w1, xr, hh, w2, b1;
+  __host__ __device__ Bf16Geom(int bm, int D, int H, int C, bool resident)
+      : dp((D + 15) / 16 * 16),
+        hp((H + 15) / 16 * 16),
+        cp((C + 7) / 8 * 8),
+        hs((H + 63) / 64 * 64 + 8),
+        nk((dp + BF_KC - 1) / BF_KC),
+        passes((H + BF_PASS - 1) / BF_PASS),
+        w1(static_cast<size_t>(resident ? passes * nk : BF_STAGES) * BF_KC * BF_WS),
+        xr(static_cast<size_t>(BF_STAGES) * bm * BF_XS),
+        hh(static_cast<size_t>(bm) * hs),
+        w2(static_cast<size_t>(cp) * hs),
+        b1((H + 3) / 4 * 4) {}
+  __host__ __device__ size_t bytes() const { return 4 * (w1 + xr + b1 + cp) + 2 * (hh + w2); }
+};
+
+// WR row groups of 16 rows x 16 / WR column groups of WR n-tiles
+template <int WR>
+__global__ void __launch_bounds__(BF_BLOCK, 1)
+    evidential_heads_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                                 const __grid_constant__ CUtensorMap map_w1, int tma_x,
+                                 int tma_w1, int x_view_inner, const float* __restrict__ x,
+                                 long long sxv, long long sxb, const float* __restrict__ w1,
+                                 const float* __restrict__ b1, const float* __restrict__ w2,
+                                 const float* __restrict__ b2, float* __restrict__ out, int V,
+                                 int B, int D, int H, int C, int resident) {
+  constexpr int BM = 16 * WR;
+  constexpr int WC = BF_WARPS / WR;  // column groups
+  constexpr int NT = WR;             // n-tiles of a warp
+  static_assert(WC * NT * 8 == BF_PASS && NT % 2 == 0, "the warps' n-tiles make a pass");
+  constexpr int WQ = BF_KC * BF_PASS / 4 / BF_THREADS;  // a chunk's W1, float4s per thread
+  static_assert(WQ * 4 * BF_THREADS == BF_KC * BF_PASS, "whole float4s per thread");
+  const Bf16Geom geo(BM, D, H, C, resident);
+  const int nk = geo.nk, hs = geo.hs;
+  extern __shared__ __align__(128) float bf_smem[];
+  // a stage has landed; the 16 warps are done with a stage
+  __shared__ __align__(8) unsigned long long full[BF_STAGES], empty[BF_STAGES];
+  float* w1s = bf_smem;
+  float* xs = w1s + geo.w1;
+  __nv_bfloat16* hsm = reinterpret_cast<__nv_bfloat16*>(xs + geo.xr);
+  __nv_bfloat16* w2t = hsm + geo.hh;
+  float* b1r = reinterpret_cast<float*>(w2t + geo.w2);
+  float* b2r = b1r + geo.b1;
+
+  const int v = blockIdx.y, bx = blockIdx.x, G = gridDim.x;
+  const int t = threadIdx.x, lane = t % WARP, warp = t / WARP;
+  const int g = lane / 4, tq = lane % 4;     // the fragments' row and column in a quad
+  const int wr = warp / WC, wc = warp % WC;  // the warp's row group and column group
+  const int ntiles = (B + BM - 1) / BM;
+  const int per_tile = geo.passes * nk;
+  const int J = (ntiles - bx + G - 1) / G * per_tile;  // the block's items
+  const bool cp_lanes = !(tma_x && tma_w1);            // 4-byte copies by the copy warp
   const float* xv = x + v * sxv;
-  float acc[BF_RPT];
+  const float* w1v = w1 + static_cast<long long>(v) * D * H;
 
-  // layer 1: relu(bf16(bf16(x W1) + bf16(b1))) into hs
-  const auto x_tile = [&](int r, int k) {
-    return b0 + r < B ? bf16_round(xv[static_cast<long long>(b0 + r) * sxb + k]) : 0.0f;
-  };
-  for (int n0 = 0; n0 < H; n0 += BF_TN) {
-    bf16_pass(acc, x_tile, as, ws, w1 + static_cast<long long>(v) * D * H, D, H, n0);
-    if (n0 + j < H) {
-      const float bias = bf16_round(b1[static_cast<long long>(v) * H + n0 + j]);
-#pragma unroll
-      for (int i = 0; i < BF_RPT; ++i) {
-        const float h = bf16_round(bf16_round(acc[i]) + bias);
-        hs[(r0 + 2 * i) * H + n0 + j] = __float2bfloat16_rn(fmaxf(h, 0.0f));
+  // item j: chunk c of pass p of the block's m-th row tile, in stage j %
+  // BF_STAGES: x's box, and W1's unless it is resident and already there.
+  // Lane 0 of the copy warp issues the TMA copies; with a 4-byte array every
+  // lane copies its share and arrives once its copies land.
+  auto issue = [&](int j) {
+    const int m = j / per_tile, p = j % per_tile / nk, c = j % nk;
+    const int s = j % BF_STAGES;
+    const int b0 = (bx + m * G) * BM, k0 = c * BF_KC, n0 = p * BF_PASS;
+    const bool with_w1 = !resident || j < per_tile;
+    float* xd = xs + s * BM * BF_XS;
+    float* wd = w1s + static_cast<size_t>(resident ? p * nk + c : s) * BF_KC * BF_WS;
+    if (lane == 0) {
+      const unsigned bytes =
+          4u * ((tma_x ? BM * BF_XS : 0) + (with_w1 && tma_w1 ? BF_KC * BF_WS : 0));
+      if (bytes) {
+        mbar_expect(&full[s], bytes);
+        if (tma_x) {
+          if (x_view_inner)
+            tma_load_3d(xd, &map_x, k0, v, b0, &full[s]);
+          else
+            tma_load_3d(xd, &map_x, k0, b0, v, &full[s]);
+        }
+        if (with_w1 && tma_w1) tma_load_3d(wd, &map_w1, n0, k0, v, &full[s]);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
+    if (!cp_lanes) return;
+    if (!tma_x) {
+      const int rows = min(BM, B - b0);
+      const float* xsrc = xv + b0 * sxb + k0;
+      for (int q = lane; q < BM * BF_XS; q += WARP) {
+        const int r = q / BF_XS, kk = q % BF_XS;
+        const bool ok = r < rows && k0 + kk < D;
+        cp_async4(xd + q, ok ? xsrc + r * sxb + kk : x, ok ? 4 : 0);
+      }
+    }
+    if (with_w1 && !tma_w1) {
+      const float* wsrc = w1v + static_cast<long long>(k0) * H + n0;
+      for (int q = lane; q < BF_KC * BF_WS; q += WARP) {
+        const int kr = q / BF_WS, nn = q % BF_WS;
+        const bool ok = k0 + kr < D && n0 + nn < H;
+        cp_async4(wd + q, ok ? wsrc + static_cast<long long>(kr) * H + nn : w1, ok ? 4 : 0);
+      }
+    }
+    mbar_arrive_cp_async(&full[s]);
+  };
+
+  if (t == 0) {
+    for (int s = 0; s < BF_STAGES; ++s) {
+      mbar_init(&full[s], 1 + (cp_lanes ? WARP : 0));
+      mbar_init(&empty[s], BF_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (tma_x)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&map_x))
+                   : "memory");
+    if (tma_w1)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&map_w1))
+                   : "memory");
   }
-  // layer 2 and the evidence (hs is complete once the first chunk's
-  // barrier inside bf16_pass has passed)
-  const auto h_tile = [&](int r, int k) { return __bfloat162float(hs[r * H + k]); };
-  for (int n0 = 0; n0 < C; n0 += BF_TN) {
-    bf16_pass(acc, h_tile, as, ws, w2 + static_cast<long long>(v) * H * C, H, C, n0);
-    if (n0 + j < C) {
-      const float bias = bf16_round(b2[static_cast<long long>(v) * C + n0 + j]);
+  __syncthreads();  // the barriers are initialised
+
+  if (warp == BF_WARPS) {
+    // the copy warp: every item as soon as its stage is free
+    for (int j = 0; j < J; ++j) {
+      if (j >= BF_STAGES)
+        mbar_wait(&empty[j % BF_STAGES], static_cast<unsigned>((j / BF_STAGES - 1) & 1));
+      issue(j);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // the 16 warps: while the first chunks land, W2 transposed to
+  // [class][unit] in bf16 (read in its own order, coalesced; the first
+  // W2R values per thread through registers, so their loads are in flight
+  // together), zero where padded, and the rounded biases
+  constexpr int W2R = 12;
+  const float* w2v = w2 + static_cast<long long>(v) * H * C;
+  float w2r[W2R];
 #pragma unroll
-      for (int i = 0; i < BF_RPT; ++i) {
-        const int r = r0 + 2 * i;
-        if (b0 + r < B) {
-          const float z = bf16_round(bf16_round(acc[i]) + bias);
-          out[(static_cast<long long>(b0 + r) * V + v) * C + n0 + j] = evidence(z);
-        }
+  for (int i = 0; i < W2R; ++i) {
+    const int e = t + i * BF_THREADS;
+    w2r[i] = e < H * C ? w2v[e] : 0.0f;
+  }
+  const float b1t = t < H ? b1[static_cast<long long>(v) * H + t] : 0.0f;
+  const float b2t = t < C ? b2[static_cast<long long>(v) * C + t] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < W2R; ++i) {
+    const int e = t + i * BF_THREADS;
+    if (e < H * C) w2t[e % C * hs + e / C] = __float2bfloat16_rn(w2r[i]);
+  }
+  for (int e = t + W2R * BF_THREADS; e < H * C; e += BF_THREADS)
+    w2t[e % C * hs + e / C] = __float2bfloat16_rn(w2v[e]);
+  for (int i = t; i < geo.cp * geo.hp; i += BF_THREADS) {
+    const int n = i / geo.hp, k = i % geo.hp;
+    if (n >= C || k >= H) w2t[n * hs + k] = __float2bfloat16_rn(0.0f);
+  }
+  if (t < H) b1r[t] = bf16_round(b1t);
+  for (int i = t + BF_THREADS; i < H; i += BF_THREADS)
+    b1r[i] = bf16_round(b1[static_cast<long long>(v) * H + i]);
+  if (t < geo.cp) b2r[t] = bf16_round(b2t);
+  for (int i = t + BF_THREADS; i < geo.cp; i += BF_THREADS)
+    b2r[i] = i < C ? bf16_round(b2[static_cast<long long>(v) * C + i]) : 0.0f;
+
+  const int row0 = wr * 16;  // the warp's first row of a tile
+  float acc[NT][4];
+  for (int j = 0; j < J; ++j) {
+    mbar_wait(&full[j % BF_STAGES], static_cast<unsigned>(j / BF_STAGES & 1));
+
+    const int m = j / per_tile, p = j % per_tile / nk, c = j % nk;
+    const int ksteps = min(BF_KC, geo.dp - c * BF_KC) / 16;
+    const int n0 = p * BF_PASS + wc * NT * 8;  // the warp's first hidden unit
+    if (c == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+    }
+    // layer 1 over the chunk. Its W1, where it came with the item (every item
+    // when W1 streams, the first tile's when it is resident), is rounded to
+    // bf16 in place first, [BF_KC][BF_WS] f32 -> [BF_KC][BF_WB] bf16: every
+    // thread reads its f32 values, the 16 warps meet, then they land as
+    // bf16 over them. x stays f32 in its stage and is rounded as the A
+    // fragments are built, so the later tiles of a resident W1 run layer 1
+    // with no barrier.
+    const float* xst = xs + j % BF_STAGES * BM * BF_XS;
+    float* slot = w1s + static_cast<size_t>(resident ? p * nk + c : j % BF_STAGES) * BF_KC * BF_WS;
+    __nv_bfloat16* slotb = reinterpret_cast<__nv_bfloat16*>(slot);
+    if (!resident || j < per_tile) {
+      float4 f[WQ];
+#pragma unroll
+      for (int i = 0; i < WQ; ++i) {
+        const int q = t + i * BF_THREADS;
+        f[i] = *reinterpret_cast<const float4*>(slot + q / (BF_PASS / 4) * BF_WS +
+                                                q % (BF_PASS / 4) * 4);
+      }
+      bf16_warps_sync();  // every f32 value is read before a bf16 one lands over it
+#pragma unroll
+      for (int i = 0; i < WQ; ++i) {
+        const int q = t + i * BF_THREADS;
+        *reinterpret_cast<uint2*>(slotb + q / (BF_PASS / 4) * BF_WB + q % (BF_PASS / 4) * 4) =
+            make_uint2(pack_bf16(f[i].x, f[i].y), pack_bf16(f[i].z, f[i].w));
+      }
+      // these writes come before a later TMA copy into the slot
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bf16_warps_sync();  // the bf16 chunk is complete
+    }
+    // the chunk's 16-deep steps in k order: A from the f32 stage (two f32 ->
+    // one bf16x2), B two n-tiles at a time by ldmatrix.trans (lane l gives
+    // row l % 8 of matrix l / 8). The n-tiles past H multiply zeros (W1's
+    // columns there land as zeros) and their h is never kept.
+    const float* xa0 = xst + (row0 + g) * BF_XS + 2 * tq;
+    const __nv_bfloat16* wb0 =
+        slotb + (lane % 8 + lane / 8 % 2 * 8) * BF_WB + wc * NT * 8 + lane / 16 * 8;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const float* xa = xa0 + ks * 16;
+      const float2 q0 = *reinterpret_cast<const float2*>(xa);
+      const float2 q1 = *reinterpret_cast<const float2*>(xa + 8 * BF_XS);
+      const float2 q2 = *reinterpret_cast<const float2*>(xa + 8);
+      const float2 q3 = *reinterpret_cast<const float2*>(xa + 8 * BF_XS + 8);
+      const unsigned a[4] = {pack_bf16(q0.x, q0.y), pack_bf16(q1.x, q1.y),
+                             pack_bf16(q2.x, q2.y), pack_bf16(q3.x, q3.y)};
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        unsigned b[4];
+        ldsm_x4_trans(b, wb0 + ks * 16 * BF_WB + nt * 8);
+        mma_bf16(acc[nt], a, b[0], b[1]);
+        mma_bf16(acc[nt + 1], a, b[2], b[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % BF_STAGES]);  // the warp is done with the stage
+    if (c != nk - 1) continue;
+
+    // a later tile of a resident W1 has met no barrier since the last
+    // tile's: its h is free once every warp is past that tile's layer 2
+    if (resident && m > 0 && p == 0) bf16_warps_sync();
+    // the pass's h = relu(bf16(bf16(x W1) + b1)) into shared memory, zero
+    // past H up to hp
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = n0 + nt * 8 + 2 * tq;
+      if (n >= geo.hp) continue;
+      const float c0 = n < H ? b1r[n] : 0.0f, c1 = n + 1 < H ? b1r[n + 1] : 0.0f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float e0 = acc[nt][2 * half], e1 = acc[nt][2 * half + 1];
+        const float h0 = n < H ? fmaxf(bf16_round(bf16_round(e0) + c0), 0.0f) : 0.0f;
+        const float h1 = n + 1 < H ? fmaxf(bf16_round(bf16_round(e1) + c1), 0.0f) : 0.0f;
+        *reinterpret_cast<unsigned*>(hsm + (row0 + g + 8 * half) * hs + n) = pack_bf16(h0, h1);
+      }
+    }
+    if (p != geo.passes - 1) continue;
+    bf16_warps_sync();  // the tile's h is complete
+
+    // layer 2 over the warp's 16 rows of h: column group wc takes n-tiles
+    // wc, wc + WC, ... of the padded classes; then b2 and the evidence,
+    // stored once
+    const int b0 = (bx + m * G) * BM, rows = min(BM, B - b0);
+    const __nv_bfloat16* ha = hsm + (row0 + lane % 8 + lane / 8 % 2 * 8) * hs + lane / 16 * 8;
+    for (int nt = wc; nt < geo.cp / 8; nt += WC) {
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const __nv_bfloat16* wb = w2t + (nt * 8 + g) * hs + 2 * tq;
+#pragma unroll 4
+      for (int ks = 0; ks < geo.hp / 16; ++ks) {
+        unsigned a[4];
+        ldsm_x4(a, ha + ks * 16);
+        mma_bf16(z, a, ld_u32(wb + ks * 16), ld_u32(wb + ks * 16 + 8));
+      }
+      const int cc = nt * 8 + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + g + 8 * half;
+        if (r >= rows) continue;
+        float* o = out + (static_cast<long long>(b0 + r) * V + v) * C + cc;
+        if (cc < C) o[0] = evidence_clipped_exp(bf16_round(bf16_round(z[2 * half]) + b2r[cc]));
+        if (cc + 1 < C)
+          o[1] = evidence_clipped_exp(bf16_round(bf16_round(z[2 * half + 1]) + b2r[cc + 1]));
       }
     }
   }
 }
 
+// once per variant: the kernel's dynamic shared memory raised to all the
+// block may take beside the static part
+template <int WR>
+const Variant& bf16_variant() {
+  static const Variant var = [] {
+    Variant r;
+    cudaFuncAttributes attr;
+    r.err = device().err;
+    if (r.err == cudaSuccess)
+      r.err = cudaFuncGetAttributes(&attr, evidential_heads_bf16_kernel<WR>);
+    if (r.err == cudaSuccess) {
+      r.max_dynamic = static_cast<size_t>(device().smem_optin) - attr.sharedSizeBytes;
+      r.err = cudaFuncSetAttribute(evidential_heads_bf16_kernel<WR>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(r.max_dynamic));
+    }
+    return r;
+  }();
+  return var;
+}
+
+// blocks per head at row tiles of `bm` rows: the head's tiles over at most
+// SMs / V blocks, so that the grid is one wave
+int bf16_blocks_per_head(int bm, int V, int B) {
+  const int tiles = (B + bm - 1) / bm;
+  return min(tiles, max(1, device().sms / V));
+}
+
+template <int WR>
 cudaError_t launch_bf16(const float* x, long long sxv, long long sxb, const float* w1,
                         const float* b1, const float* w2, const float* b2, float* out, int V,
                         int B, int D, int H, int C, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BF_BM * BF_KC + BF_KC * BF_TN) +
-                      sizeof(__nv_bfloat16) * static_cast<size_t>(BF_BM) * H;
-  const Device& dev = device();
-  if (smem > static_cast<size_t>(dev.smem_optin)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(evidential_heads_bf16_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((B + BF_BM - 1) / BF_BM, V);
-  evidential_heads_bf16_kernel<<<grid, BF_THREADS, smem, stream>>>(
-      x, sxv, sxb, w1, b1, w2, b2, out, V, B, D, H, C);
+  constexpr int BM = 16 * WR;
+  const Variant& var = bf16_variant<WR>();
+  if (var.err != cudaSuccess) return var.err;
+  const bool resident = Bf16Geom(BM, D, H, C, true).bytes() <= var.max_dynamic;
+  const size_t smem = Bf16Geom(BM, D, H, C, resident).bytes();
+  if (smem > var.max_dynamic) return cudaErrorInvalidValue;
+
+  // a tensor map for each array that TMA may take (boxes of a chunk's x
+  // rows, 72 columns, and W1's 64 rows of 132 units); the other comes by
+  // 4-byte cp.async
+  CUtensorMap map_x, map_w1;
+  memset(&map_x, 0, sizeof(map_x));
+  memset(&map_w1, 0, sizeof(map_w1));
+  const cuuint64_t dw[3] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(D),
+                            static_cast<cuuint64_t>(V)};
+  const cuuint32_t bw[3] = {BF_WS, BF_KC, 1};
+  const bool tma_w1 = encode(&map_w1, w1, dw, H, static_cast<long long>(D) * H, bw);
+  const long long sxv_eff = V == 1 ? sxb * B : sxv;
+  const int x_view_inner = sxv_eff < sxb ? 1 : 0;
+  const cuuint64_t dv[3] = {static_cast<cuuint64_t>(D),
+                            static_cast<cuuint64_t>(x_view_inner ? V : B),
+                            static_cast<cuuint64_t>(x_view_inner ? B : V)};
+  const cuuint32_t bv[3] = {BF_XS, x_view_inner ? 1u : static_cast<cuuint32_t>(BM),
+                            x_view_inner ? static_cast<cuuint32_t>(BM) : 1u};
+  const bool tma_x = x_view_inner ? encode(&map_x, x, dv, sxv_eff, sxb, bv)
+                                  : encode(&map_x, x, dv, sxb, sxv_eff, bv);
+
+  const dim3 grid(bf16_blocks_per_head(BM, V, B), V);
+  evidential_heads_bf16_kernel<WR><<<grid, BF_BLOCK, smem, stream>>>(
+      map_x, map_w1, tma_x ? 1 : 0, tma_w1 ? 1 : 0, x_view_inner, x, sxv, sxb, w1, b1, w2, b2,
+      out, V, B, D, H, C, resident ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -811,7 +1156,7 @@ int dmf_evidential_heads(const void* x, long long sxv, long long sxb, const void
 
 // The bf16 compute mode (see the kernel above), with the arguments of
 // dmf_evidential_heads: x, the weights, biases and out f32 in the same
-// layouts (x is rounded to bf16 as it is staged).
+// layouts (x is rounded to bf16 as its fragments are built).
 int dmf_evidential_heads_bf16(const void* x, long long sxv, long long sxb, const void* w1,
                               const void* b1, const void* w2, const void* b2, void* out,
                               int V, int B, int D, int H, int C, void* stream) {
@@ -825,8 +1170,16 @@ int dmf_evidential_heads_bf16(const void* x, long long sxv, long long sxb, const
   const auto* w2f = static_cast<const float*>(w2);
   const auto* b2f = static_cast<const float*>(b2);
   auto* of = static_cast<float*>(out);
-  const cudaError_t e = launch_bf16(static_cast<const float*>(x), sxv, sxb, w1f, b1f, w2f, b2f,
-                                    of, V, B, D, H, C, s);
+  const auto* xf = static_cast<const float*>(x);
+  // row tiles of 32 or 64, whichever leaves a block fewer rows (64 on a tie)
+  const auto block_rows = [&](int bm) {
+    const int tiles = (B + bm - 1) / bm, per_head = bf16_blocks_per_head(bm, V, B);
+    return (tiles + per_head - 1) / per_head * bm;
+  };
+  const cudaError_t e =
+      block_rows(32) < block_rows(64)
+          ? launch_bf16<2>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s)
+          : launch_bf16<4>(xf, sxv, sxb, w1f, b1f, w2f, b2f, of, V, B, D, H, C, s);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -18,7 +18,8 @@ than by bytes (~2.26 MB, 0.68 us at 3.35 TB/s); at B=1 the weights make it
 bound by bytes. Its design keeps relu(h) on chip so the hidden activations
 never reach device memory (see the source for the rest). The bf16 build is
 bound by bytes at every main-path shape (989 TFLOP/s on the tensor cores);
-it keeps relu(h) on chip too, but runs f32 FMAs, not the tensor cores.
+it multiplies on the tensor cores (bf16 ``mma.sync``, f32 sums) from a ring
+of TMA copies fed by a warp of its own, and keeps relu(h) on chip too.
 
 Both go through the operator ``dmf::evidential_heads`` (``ops/head_op.py``),
 so a ``torch.export`` of a served model holds the kernel's call. Neither

@@ -8,7 +8,14 @@
   random cotangent. Both sides run float32 on the CPU: rtol 1e-5 / atol 1e-6,
   except where a contraction's order differs (the products over d0 * d1 of
   matrix3D, the outer products of tensor fusion, the transformers' three
-  layers of softmax and LayerNorm): rtol 1e-4 / atol 1e-5 there.
+  layers of softmax and LayerNorm): rtol 1e-4 / atol 1e-5 there. lft's
+  parameter gradients are held norm-wise instead, each within 1e-4 of its
+  tensor's largest |ref| (chip_smoke.py phase 18's rule; the key biases'
+  gradients, zero in exact arithmetic, against their weights'): an entry
+  far below its tensor's scale carries the rounding of sums over the
+  feed-forward width (2048 terms), 1.6e-5 apart at 0.049 in a gradient
+  that reaches 24.2, while in float64 the two packages agree to 8e-15 there
+  and to 2.5e-15 of every tensor's largest entry.
 * ``build_fusion`` / ``fusion_dim``: the same fused width, and the same
   refusal with the same text, for every registry name at the view widths of
   HandWritten, CUB, PIE and Scene.
@@ -96,16 +103,26 @@ CASES = [
 ]
 
 
-def _grads_match(port_grads, ref_grads, names, tol):
+def _grads_match(port_grads, ref_grads, names, tol, normwise=False):
     ref_state = flax_to_state_dict(jax.device_get(ref_grads))
     assert set(ref_state) == set(names)
     for name, g in zip(names, port_grads):
-        np.testing.assert_allclose(g.numpy(), ref_state[name].numpy(), err_msg=name, **tol)
+        ref = ref_state[name].numpy()
+        if normwise:
+            # softmax is shift-invariant: the key bias's gradient is zero but
+            # for rounding, so its error is held against the key weight's scale
+            scale_of = name[:-len("bias")] + "weight" if name.endswith("attn.key.bias") else name
+            scale = float(np.abs(ref_state[scale_of].numpy()).max())
+            err = float(np.abs(g.numpy() - ref).max())
+            assert err <= tol["rtol"] * scale, (name, err, scale)
+        else:
+            np.testing.assert_allclose(g.numpy(), ref, err_msg=name, **tol)
 
 
-def _check(jmod, tmod, inputs, tol, seed=0):
+def _check(jmod, tmod, inputs, tol, seed=0, normwise_grads=False):
     """Forward, input gradients and parameter gradients of ``jmod`` (on its
-    own init) and ``tmod`` (on the same parameters) under one cotangent."""
+    own init) and ``tmod`` (on the same parameters) under one cotangent; the
+    parameter gradients norm-wise with ``normwise_grads``."""
     jin = jax.tree.map(jnp.asarray, inputs)
     params = jax.jit(jmod.init)(jax.random.PRNGKey(seed), jin).get("params", {})
     load_flax_params(tmod, jax.device_get(params))
@@ -125,7 +142,7 @@ def _check(jmod, tmod, inputs, tol, seed=0):
                                 leaves + list(tmod.parameters()))
     for g, r in zip(grads[:len(leaves)], jax.tree.leaves(ref_xgrad)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **tol)
-    _grads_match(grads[len(leaves):], ref_pgrad, names, tol)
+    _grads_match(grads[len(leaves):], ref_pgrad, names, tol, normwise_grads)
 
 
 @pytest.mark.parametrize("kind,dims,tol", CASES, ids=[c[0] for c in CASES])
@@ -134,7 +151,7 @@ def test_fusion_forward_and_gradients_match_jax(kind, dims, tol):
     widths = dims[::-1] if kind == "mi2_matrix" else dims  # flip: the views come swapped
     views = [rng.standard_normal((6, d)).astype(np.float32) for d in widths]
     jmod, tmod = _pair(kind, dims, torch.Generator().manual_seed(0))
-    _check(jmod, tmod, views, tol)
+    _check(jmod, tmod, views, tol, normwise_grads=kind == "lft")
 
 
 def test_early_fusion_transformer_matches_jax():

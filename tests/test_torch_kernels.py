@@ -186,13 +186,23 @@ def _assert_bf16_evidence_close(got, ref):
 @pytest.mark.gpu
 def test_cuda_bf16_head_kernel_matches_plain():
     """The bf16 build against its plain version on the card: from a float32
-    x (one launch each), from a bf16 x (the same bits), and under
-    torch.func.vmap (one launch at S x V heads); the f32 build refuses a
-    bf16 x."""
+    x (one launch each), from a bf16 x and from a strided x (the same bits),
+    and under torch.func.vmap (one launch at S x V heads); the f32 build
+    refuses a bf16 x. The shapes take the kernel's tile edges: B one past a
+    32- or 64-row tile and short of one, D = 16, 59 (4-byte copies), 300
+    and 1024 (W1 streamed), H = 33 and 40 (n-tiles of padding) and 256 (two
+    passes), C = 3, 15, 42 and 68, V = 1; and blocks of several row tiles
+    with W1 resident and one or two chunks per tile (the seed-batched
+    synthetic and Scene heads, up to 16 tiles a block), where a tile's h
+    is written while the last tile's may still be read."""
     _needs_cuda()
     rng = np.random.default_rng(11)
     shapes = [(7, 256, 200, 128, 10), (3, 840, 200, 128, 42), (4, 160, 200, 128, 42),
-              (20, 840, 200, 128, 42), (1, 13, 47, 33, 68), (2, 50, 300, 256, 15)]
+              (20, 840, 200, 128, 42), (1, 13, 47, 33, 68), (2, 50, 300, 256, 15),
+              (3, 2000, 16, 128, 3), (3, 97, 59, 128, 15), (2, 120, 1024, 128, 10),
+              (3, 136, 484, 128, 68), (5, 33, 200, 128, 42), (1, 65, 16, 40, 3),
+              (6, 63, 240, 128, 10), (15, 2000, 16, 128, 3), (10, 2000, 32, 128, 3),
+              (15, 897, 59, 128, 15), (66, 2000, 16, 128, 3), (20, 1000, 16, 256, 3)]
     for v, b, d, h, c in shapes:
         xs = torch.from_numpy(rng.standard_normal((v, b, d)).astype(np.float32)).cuda()
         ws = [torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).cuda()
@@ -200,9 +210,11 @@ def test_cuda_bf16_head_kernel_matches_plain():
         before = ck.evidential_heads_stacked_bf16.launches
         out = ck.evidential_heads_stacked_bf16(xs, *ws)
         out_bf16_x = ck.evidential_heads_stacked_bf16(xs.to(torch.bfloat16), *ws)
+        strided = xs.transpose(0, 1).contiguous().transpose(0, 1)
+        out_strided = ck.evidential_heads_stacked_bf16(strided, *ws)
         torch.cuda.synchronize()
-        assert ck.evidential_heads_stacked_bf16.launches == before + 2
-        assert torch.equal(out, out_bf16_x)
+        assert ck.evidential_heads_stacked_bf16.launches == before + 3
+        assert torch.equal(out, out_bf16_x) and torch.equal(out, out_strided), (v, b, d, h, c)
         _assert_bf16_evidence_close(out, ck.evidential_heads_stacked_bf16_plain(xs, *ws))
     stacked = [t.cuda() for t in _stacked_head_inputs(np.random.default_rng(3), 5, 3, 840, 200,
                                                       128, 42)]

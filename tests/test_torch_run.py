@@ -260,8 +260,11 @@ def test_one_program_rows_equal_vmapped_rows_bit_for_bit(seed_batched_rows):
 
 def test_seed_batched_cell_equals_its_per_seed_sequential_replay(seed_batched_rows):
     """Each seed of the --vmap-seeds cell, replayed by the sequential
-    trainer from the same fold-index generators, gives the same rows
-    (rtol 1e-6)."""
+    trainer from the same fold-index generators, gives the same rows at
+    rtol 2e-5 (atol 1e-6): PERF.md section 2's tolerance for batched against
+    single products, whose float32 sums round apart (seed 0's cml_fusion
+    per-class evidence 2.914917 against 2.914922, 1.8e-6 apart; with every
+    tensor in float64 the two engines give equal rows)."""
     from disentagled_multimodal_fusion_tpu_torch.core.tasks import dmvae_objective, embed_dataset
     from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
@@ -296,7 +299,7 @@ def test_seed_batched_cell_equals_its_per_seed_sequential_replay(seed_batched_ro
                         else tanalysis.evaluate_subjective_model)
             replay = evaluate(task, data[kind][1])
             _assert_same_tree(_strip(seed_batched_rows["run_condition_vmapped"][seed][name]),
-                              replay, f"seed {seed} {name}")
+                              replay, f"seed {seed} {name}", rtol=2e-5)
 
 
 def test_cell_seed_matches_jax():
