@@ -207,9 +207,40 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     replays the four
     artifacts under the profiler: outputs equal to the direct call on the
     card (rtol 1e-5 / atol 1e-6, ``pred`` equal), the head kernel once per
-    call, no module of the package loaded (``phase_export``).
+    call, no module of the package loaded (``phase_export``);
+27. the mesh on the one card (``phase_mesh``): (a) legs A-C at
+    HandWritten's full width (FusedDMVAE 512/200, heads 200 -> 128 -> 10)
+    as subprocess ranks of this script (``--mesh-rank``), at world size 1
+    over NCCL and 2 over gloo with both ranks on cuda:0: a two-epoch DMVAE
+    fit and a three-epoch dmvae_cml probe fit through the step loop with
+    validation and evaluation (``train(mesh=)``), ``train_many`` over four
+    probe seeds split over the ranks, and ``ServingEngine(divisor=n_dp)`` at
+    bucket 256; every rank's results equal bit for bit, each held against
+    the same legs without a mesh in this process (losses rtol 2e-5 / atol
+    2e-6, the DMVAE's and train_many's parameters rtol 5e-3 / atol 5e-5, the
+    probe's within 1e-2 of their norm and its validation loss at rtol 5e-4,
+    accuracies to 1e-6, served outputs at phase 5's tolerances), and the
+    head kernel launched on each rank exactly at its rows' shapes ((7, 400 /
+    n_dp) four times, (4 / n_dp x 7, 400) twice, (7, 256 / n_dp) once); (b)
+    ``runners/run.py --data-parallel 2 --device cuda:0`` (the runner picks
+    gloo, since both ranks name the one card) on HandWritten Normal seed 0
+    ``--quick`` against the same command in one process: every row finite,
+    the DMVAE backbone's last train loss within 1e-4 as printed and its
+    checkpoint within 1e-3 of each tensor's norm, the three late fusions'
+    fused accuracies within one of the 400 test rows
+    (``RUN_DP_LATE_GAP``) and, beside those, the three probes' within 0.03
+    (``RUN_DP_ACC_GAP``), both runs' host time per epoch logged; (c)
+    ``runners/sweep_parallel.py --procs 2 --worker-env
+    CUDA_VISIBLE_DEVICES=0`` over HandWritten and CUB ``--quick``: its
+    merged rows equal one process's at rtol 1e-6 and each worker's log
+    names the card. (c)'s workers run beside (a)'s ranks; (b), whose host
+    times are read, runs alone.
 
-Each phase logs its time.
+Each phase logs its time. Phases 3-7 run first, alone; then phases 11-13
+and 26, 14-17 and 21, 18-20, and 22-24 run as four groups, each in a child
+process of this script (``--group``), beside phases 8-10 and 25 in this
+one; phase 27 runs last, alone. Each child counts its own launches, each
+count set to 0 before a path and read after it, and sends them back.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -1204,7 +1235,7 @@ SEED_BATCHED_CUT = {"dmvae.num_epochs": 50, "probes.model_epochs": 100}
 DSSL_CUT = {"dmvae.num_epochs": 25, "latefusion.num_epochs": 10}
 
 
-def phase_seed_batched(ck, card, seq_wall):
+def phase_seed_batched(ck, card):
     """The seed-batched path: runners/run.py --vmap-seeds on HandWritten
     Normal, seeds 0-4, at the depth of the config in force
     (``SEED_BATCHED_CUT`` in the full run). Returns the head kernel's
@@ -1247,10 +1278,8 @@ def phase_seed_batched(ck, card, seq_wall):
         raise AssertionError(f"evidential_head launched {launches} times, by shape "
                              f"{dict(shapes)}, expected {expected}")
     log(f"seed-batched: HandWritten Normal seeds {list(SEEDS)} at {dmvae_epochs} DMVAE and "
-        f"{probe_epochs} head epochs in {wall:.1f} s, {wall / len(SEEDS):.1f} s per seed; the "
-        f"sequential seed-0 cell of the training phase (full depth, probe fits through the "
-        f"epoch kernel) took {seq_wall:.1f} s; evidential_head "
-        f"launched {launches} times (by shape {dict(shapes)}) [{card}]")
+        f"{probe_epochs} head epochs in {wall:.1f} s, {wall / len(SEEDS):.1f} s per seed; "
+        f"evidential_head launched {launches} times (by shape {dict(shapes)}) [{card}]")
     return launches, dict(shapes), rows, wall
 
 
@@ -2908,6 +2937,609 @@ def luma_state_trials(card, trials):
     return 0
 
 
+# ------------------------------------------------------------------ phase 27: the mesh
+MESH_TIMEOUT_S = 600
+MESH_SEEDS = 4  # leg B: train_many over four seeds, two a rank at world size 2
+MESH_LOSS_TOL = dict(rtol=2e-5, atol=2e-6)  # phase 12's
+MESH_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(argv, world, env=None, cwd=None):
+    """``world`` processes of ``argv`` with torch's launcher environment
+    (one rendezvous port), each rank's output piped."""
+    port = free_port()
+    base = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), **(env or {}))
+    return [subprocess.Popen(argv, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                             cwd=cwd or str(Path(__file__).resolve().parent),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def wait_all(procs, label, timeout=MESH_TIMEOUT_S):
+    """Each process's output once all exited 0; kills them all on a failure
+    or the timeout."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: process {r} exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def mesh_data(device):
+    """HandWritten at full width: the views (2000 rows), the labels, and the
+    fixed split of 1600 train and 400 test rows the legs use."""
+    from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
+
+    views, labels = DATASET_REGISTRY["HandWritten"]().arrays()
+    xs = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in views)
+    return xs, torch.from_numpy(labels).to(device)
+
+
+def mesh_legs(mesh, device="cuda"):
+    """Legs A-C of phase 27 on ``mesh`` (None: one process without a mesh),
+    at HandWritten's full width (FusedDMVAE 512/200, heads 200 -> 128 -> 10):
+    A, a two-epoch DMVAE fit, and a three-epoch dmvae_cml probe fit through
+    the step loop with validation and its evaluation; B, train_many over
+    four probe seeds; C, ServingEngine at bucket 256. The probes and the
+    served model take the embeddings of the backbone as drawn, so that no
+    leg's inputs depend on another leg's fit. Returns numpy arrays by name."""
+    from disentagled_multimodal_fusion_tpu_torch.core import tasks
+    from disentagled_multimodal_fusion_tpu_torch.core.serve import ServingEngine, build_inference_fn
+    from disentagled_multimodal_fusion_tpu_torch.core.train import (
+        Randomness,
+        stack_params,
+        train,
+        train_many,
+    )
+    from disentagled_multimodal_fusion_tpu_torch.eval.analysis import (
+        evaluate_subjective_model_with_shared,
+    )
+
+    out = {}
+    xs, y = mesh_data(device)
+    dims = [x.shape[1] for x in xs]
+
+    def backbone():
+        return tasks.build_dmvae_task(output_dim=dims, hidden_dim=512, embed_dim=200,
+                                      fused_modalities=True, seed=0, device=device)
+
+    fitted = backbone()
+    loss_fn, opt = tasks.dmvae_objective(fitted, lr=1e-4, num_epochs=2)
+    res = train(model=fitted, loss_fn=loss_fn, data={"xs": tuple(x[:1600] for x in xs)},
+                n_train=1600, optimizer=opt, epochs=2, batch_size=100,
+                randomness=Randomness(1, device), mesh=mesh)
+    out["dmvae.train_loss"] = res.train_loss
+    out.update({f"dmvae.{k}": v.detach().cpu().numpy() for k, v in fitted.named_parameters()})
+    del fitted
+
+    drawn = backbone()
+    zc, zp = tasks.embed_dataset(drawn, xs)
+    data = {"zc": zc[:1600], "zp": zp[:1600], "y": y[:1600]}
+    val = {"zc": zc[1600:], "zp": zp[1600:], "y": y[1600:]}
+    probe = dict(num_modalities=6, num_classes=10, input_dim=200, hidden_dim=(128,), lr=3e-3,
+                 dropout=0.1, annealing_start=50, num_epochs=3, device=device)
+    task = tasks.build_probe_task(seed=2, **probe)
+    res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=1600,
+                optimizer=task.optimizer, epochs=3, batch_size=100,
+                randomness=Randomness(3, device), val_fn=task.val_fn, val_data=val, mesh=mesh)
+    info = evaluate_subjective_model_with_shared(task, val, mesh)
+    out.update({"probe.train_loss": res.train_loss, "probe.val_loss": res.val_loss,
+                "probe.val_acc": res.val_acc,
+                "probe.fused_acc": np.array([info["fused"]["accuracy"]])})
+    out.update({f"probe.{k}": v.detach().cpu().numpy() for k, v in task.model.named_parameters()})
+
+    fits = [tasks.build_probe_task(seed=10 + s, **probe) for s in range(MESH_SEEDS)]
+    many = train_many(model=fits[0].model, params=stack_params([t.model for t in fits]),
+                      loss_fn=fits[0].loss_fn, data=data, n_train=1600,
+                      optimizer=fits[0].optimizer, epochs=2, batch_size=100,
+                      randomness=[Randomness(20 + s, device) for s in range(MESH_SEEDS)],
+                      val_fn=fits[0].val_fn, val_data=val, data_broadcast=True, mesh=mesh)
+    out.update({"many.train_loss": many.train_loss.cpu().numpy(),
+                "many.val_loss": many.val_loss.cpu().numpy(),
+                "many.val_acc": many.val_acc.cpu().numpy()})
+    out.update({f"many.{k}": v.cpu().numpy() for k, v in many.params.items()})
+
+    n_dp = 1 if mesh is None else mesh.shape["data"]
+    served = tasks.build_probe_task(seed=4, **probe)
+    engine = ServingEngine(build_inference_fn(served, backbone=drawn, mesh=mesh), (256,),
+                           divisor=n_dp)
+    result = engine(tuple(x[1600:1850].cpu().numpy() for x in xs))
+    out.update({f"serve.{k}": v for k, v in result.items()})
+    return out
+
+
+def mesh_rank(out_dir, backend, device="cuda:0"):
+    """One rank of phase 27 (``chip_smoke.py --mesh-rank OUT_DIR BACKEND
+    [DEVICE]``, with the launcher's environment): legs A-C on the mesh over
+    every rank, on cuda:0, the head kernel's launches counted by shape;
+    writes ``rank{r}.npz`` and ``rank{r}.json`` to OUT_DIR."""
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+    from disentagled_multimodal_fusion_tpu_torch.parallel import distributed as pdist
+    from disentagled_multimodal_fusion_tpu_torch.parallel.mesh import make_mesh
+
+    configure()
+    pdist.initialize(backend=backend, device=device, timeout=MESH_TIMEOUT_S)
+    mesh = make_mesh()
+    with head_shape_tally() as shapes:
+        ck.evidential_heads_stacked.launches = 0
+        out = mesh_legs(mesh, device)
+        launches = ck.evidential_heads_stacked.launches
+    out_dir = Path(out_dir)
+    np.savez(out_dir / f"rank{mesh.rank}.npz", **out)
+    (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(
+        {"launches": launches, "shapes": dict(shapes), "backend": backend,
+         "world": pdist.world_size()}))
+    return 0
+
+
+def mesh_expected_shapes(n_dp):
+    """Leg A's validation (3 epochs) and evaluation at (7, 400 / n_dp), leg
+    B's vmapped validation (2 epochs) at (4 / n_dp x 7, 400), leg C's one
+    request at (7, 256 / n_dp)."""
+    return {shape_key(7, 400 // n_dp, 200, 128, 10): 4,
+            shape_key(MESH_SEEDS // n_dp * 7, 400, 200, 128, 10): 2,
+            shape_key(7, 256 // n_dp, 200, 128, 10): 1}
+
+
+# leg A's probe parameters, norm-wise: a step's gradient summed over two ranks
+# rounds apart from one rank's, and Adam's normalisation turns that into steps
+# of the learning rate where a gradient is near zero (in float64 the two-rank
+# probe fit equals the one-process fit to 2e-15, the CPU; PERF.md section 2)
+MESH_PROBE_NORM_TOL = 1e-2
+# leg A's probe validation loss, computed from those parameters (PERF.md
+# section 2: 5.1e-5 apart at world size 2)
+MESH_PROBE_VAL_RTOL = 5e-4
+# (b): the run's late fusions, fitted on the raw views, within one of
+# HandWritten's 400 test rows of one process (readings 0.0000 in three
+# calls); the DMVAE backbone's last train loss as printed (four decimals,
+# about 1.12) within 1e-4, and each of its weight tensors within 1e-3 of its
+# norm (Adam turns the split sums' rounding into lr-sized steps on inputs
+# whose gradient is near zero: 30 entries of encoder.w1 up to 2.5e-4 apart
+# on the card, PERF.md section 2, so not elementwise); and the three probes' fused
+# accuracies within 0.03, held beside those:
+# the probes train two epochs on embeddings of that backbone, whose last
+# float32 digits the split sums set apart, and their accuracies of 0.78-0.85
+# after two epochs turn that into a few rows (readings -0.0125, -0.0025,
+# +0.0225, the same in three calls; one process equals itself bit for bit;
+# PERF.md section 2)
+RUN_DP_LATE_GAP = 1 / 400
+RUN_DP_LOSS_GAP = 1e-4
+RUN_DP_BACKBONE_NORM_TOL = 1e-3
+RUN_DP_ACC_GAP = 0.03
+LATE_FUSIONS = ("dbf_fusion", "cml_fusion", "avg_fusion")
+
+
+def compare_mesh_legs(got, ref, label):
+    """A rank's legs against the run without a mesh: losses rtol 2e-5 /
+    atol 2e-6 and the DMVAE's and train_many's parameters rtol 5e-3 / atol
+    5e-5 (phase 12's); the probe's parameters within 1e-2 of each tensor's
+    Frobenius norm (``MESH_PROBE_NORM_TOL``); validation and fused
+    accuracies to 1e-6 (a sum of the ranks' weighted means); served outputs
+    at phase 5's tolerances with ``pred`` equal but for ties. Returns the
+    largest elementwise gap and the largest norm-wise one."""
+    worst, worst_norm = 0.0, 0.0
+    t = torch.from_numpy
+    for key, want in ref.items():
+        if key.startswith("serve."):
+            continue
+        have = got[key]
+        if key.endswith(("val_acc", "fused_acc")):
+            assert_close(t(np.asarray(have)), t(np.asarray(want)), f"{label} {key}", rtol=0,
+                         atol=1e-6)
+        elif key == "probe.val_loss":
+            assert_close(t(np.asarray(have)), t(np.asarray(want)), f"{label} {key}",
+                         rtol=MESH_PROBE_VAL_RTOL, atol=0)
+        elif key.endswith(("train_loss", "val_loss")):
+            assert_close(t(np.asarray(have)), t(np.asarray(want)), f"{label} {key}",
+                         **MESH_LOSS_TOL)
+        elif key.startswith("probe."):
+            gap = float(np.linalg.norm(have - want) / np.linalg.norm(want))
+            if not gap <= MESH_PROBE_NORM_TOL:
+                raise AssertionError(f"{label} {key}: {gap:.3e} of its norm apart")
+            worst_norm = max(worst_norm, gap)
+        else:
+            worst = max(worst, assert_close(t(have), t(want), f"{label} {key}",
+                                            **MESH_PARAM_TOL)[0])
+    assert_outputs_match({k[6:]: got[k] for k in got if k.startswith("serve.")},
+                         {k[6:]: ref[k] for k in ref if k.startswith("serve.")}, f"{label} serve")
+    return worst, worst_norm
+
+
+def last_train_loss(text):
+    """The backbone's last train loss a runner printed."""
+    found = re.search(r"dmvae fit[^\n]*last train loss ([0-9.]+)", text)
+    if found is None:
+        raise AssertionError("no last train loss of the dmvae fit in the runner's output")
+    return float(found.group(1))
+
+
+def ms_per_epoch(text, what):
+    """The ms/epoch a runner printed for ``what`` ('dmvae fit' or a head)."""
+    found = re.search(rf"{re.escape(what)}[^\n]*?([0-9.]+) ms/epoch", text)
+    if found is None:
+        raise AssertionError(f"no ms/epoch for {what!r} in the runner's output")
+    return float(found.group(1))
+
+
+def start_mesh_legs(scratch):
+    """Phase 27 (a)'s ranks: legs A-C as subprocesses at world size 1 over
+    NCCL and 2 over gloo (both ranks on cuda:0), started at once."""
+    here = Path(__file__).resolve()
+    runs = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        out_dir = scratch / f"legs{world}"
+        out_dir.mkdir()
+        runs[world] = (out_dir, backend, spawn_ranks(
+            [sys.executable, str(here), "--mesh-rank", str(out_dir), backend], world))
+    return runs
+
+
+def check_mesh_legs(card, runs, ref):
+    """Phase 27 (a): every rank of ``runs`` equal bit for bit, each held
+    against ``ref``, the legs without a mesh. Returns the head kernel's
+    launches over the ranks and its shapes a rank, by world size."""
+    launches, shapes = {}, {}
+    for world, (out_dir, backend, procs) in runs.items():
+        wait_all(procs, f"mesh legs at world size {world}")
+        ranks = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+        for r, rank in enumerate(ranks[1:], 1):
+            for key, value in ranks[0].items():
+                if not np.array_equal(rank[key], value):
+                    raise AssertionError(f"mesh world {world}: rank {r} differs from rank 0 at "
+                                         f"{key}")
+        worst, worst_norm = compare_mesh_legs(ranks[0], ref, f"mesh world {world} ({backend})")
+        tallies = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+        want = mesh_expected_shapes(world)
+        for r, tally in enumerate(tallies):
+            if tally["shapes"] != want or tally["launches"] != sum(want.values()):
+                raise AssertionError(f"mesh world {world} rank {r}: head kernel launched "
+                                     f"{tally['launches']} times at {tally['shapes']}, "
+                                     f"expected {want}")
+        launches[world] = sum(t["launches"] for t in tallies)
+        shapes[world] = want
+        log(f"mesh: legs A-C at world size {world} over {backend}: every rank equal bit for "
+            f"bit, held to the run without a mesh (losses rtol 2e-5 / atol 2e-6; DMVAE and "
+            f"train_many params max abs err {worst:.3e}; probe params {worst_norm:.3e} of "
+            f"their norm; served outputs at phase 5's tolerances); head kernel "
+            f"{tallies[0]['launches']} launches a rank at {want} [{card}]")
+    return launches, shapes
+
+
+def backbone_weights(root):
+    """The HandWritten Normal seed-0 DMVAE checkpoint a run wrote under
+    ``root``."""
+    from disentagled_multimodal_fusion_tpu_torch.core.checkpoint import checkpoint_file
+    from disentagled_multimodal_fusion_tpu_torch.runners.common import backbone_checkpoint
+
+    path = checkpoint_file(str(Path(root) / backbone_checkpoint("HandWritten", 0, "normal")))
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def mesh_runner_phase(card, scratch):
+    """Phase 27 (b): runners/run.py on HandWritten Normal seed 0 --quick,
+    in this process without a mesh, then as two gloo ranks on cuda:0 with
+    --data-parallel 2: every row finite, the DMVAE backbone's last train
+    loss within ``RUN_DP_LOSS_GAP`` and its weights within
+    ``RUN_DP_BACKBONE_NORM_TOL`` of each tensor's norm, each late fusion's
+    fused accuracy within one test row (``RUN_DP_LATE_GAP``) and each
+    probe's within ``RUN_DP_ACC_GAP``, and both runs' host time per epoch
+    logged. Nothing else runs meanwhile. Returns the one-process rows."""
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    cell = ["--seeds", "0", "--datasets", "HandWritten", "--conditions", "Normal", "--quick"]
+    one_out = io.StringIO()
+    with artifact_root("mesh_one_") as one_root, contextlib.redirect_stdout(one_out):
+        one_rows = runner.main(cell + ["--skip-report"])
+        one_bb = backbone_weights(one_root)
+    dp_root = scratch / "dp"
+    dp_root.mkdir()
+    procs = spawn_ranks(
+        [sys.executable, "-m", "disentagled_multimodal_fusion_tpu_torch.runners.run", *cell,
+         "--data-parallel", "2", "--device", "cuda:0", "--rows-file", str(dp_root / "rows.json")],
+        2, env={"DMF_ARTIFACT_ROOT": str(dp_root)})
+    t0 = time.perf_counter()
+    dp_out = wait_all(procs, "run.py --data-parallel 2")
+    dp_wall = time.perf_counter() - t0
+    if "(gloo)" not in dp_out[0]:
+        raise AssertionError("run.py --data-parallel 2 with both ranks on cuda:0 did not pick "
+                             "gloo")
+    dp_rows = json.loads((dp_root / "rows.json").read_text())["0"]["Normal"]["HandWritten"]
+    one = one_rows[0]["Normal"]["HandWritten"]
+    gaps = {name: dp_rows[name]["fused"]["accuracy"] - info["fused"]["accuracy"]
+            for name, info in one.items()}
+    log("mesh: run.py --data-parallel 2 (gloo, both ranks on cuda:0), HandWritten Normal seed 0 "
+        "--quick: fused accuracies " + ", ".join(
+            f"{n} {dp_rows[n]['fused']['accuracy']:.4f} ({gaps[n]:+.4f})" for n in one)
+        + f" against one process; {dp_wall:.1f} s for both ranks [{card}]")
+    dp_bb = backbone_weights(dp_root)
+    if set(dp_bb) != set(one_bb):
+        raise AssertionError("run.py --data-parallel 2: the DMVAE checkpoint's keys differ")
+    worst, worst_norm = 0.0, 0.0
+    for k, want in one_bb.items():
+        diff = dp_bb[k].double() - want.double()
+        gap = float(diff.norm() / want.double().norm().clamp_min(1e-30))
+        if not gap <= RUN_DP_BACKBONE_NORM_TOL:
+            raise AssertionError(f"run.py --data-parallel 2: DMVAE {k} {gap:.3e} of its norm "
+                                 f"from one process's")
+        worst, worst_norm = max(worst, float(diff.abs().max())), max(worst_norm, gap)
+    losses = (last_train_loss(one_out.getvalue()), last_train_loss(dp_out[0]))
+    log(f"mesh: run.py --data-parallel 2: DMVAE backbone last train loss {losses[1]:.4f} "
+        f"against one process's {losses[0]:.4f}; its weights {worst_norm:.3e} of their norm "
+        f"from one process's (max abs err {worst:.3e}) [{card}]")
+    if abs(losses[1] - losses[0]) > RUN_DP_LOSS_GAP + 1e-9:
+        raise AssertionError("run.py --data-parallel 2: the DMVAE's last train loss differs")
+    for what in ("dmvae fit", "dmvae_cml", "cml_fusion"):
+        log(f"mesh: host time per epoch of {what}: one process "
+            f"{ms_per_epoch(one_out.getvalue(), what):.3f} ms, --data-parallel 2 rank 0 "
+            f"{ms_per_epoch(dp_out[0], what):.3f} ms (16 steps an epoch) [{card}]")
+    for name in one:
+        if not all(np.isfinite(v) for v in _numbers(dp_rows[name])):
+            raise AssertionError(f"run.py --data-parallel 2: {name} has a value not finite")
+        limit = RUN_DP_LATE_GAP if name in LATE_FUSIONS else RUN_DP_ACC_GAP
+        if abs(gaps[name]) > limit + 1e-9:
+            raise AssertionError(f"run.py --data-parallel 2: {name} fused accuracy "
+                                 f"{gaps[name]:+.4f} from one process's (limit {limit:.4f})")
+    return one_rows
+
+
+def start_mesh_sweep(scratch):
+    """Phase 27 (c)'s sweep: runners/sweep_parallel.py --procs 2 with both
+    workers on the card over HandWritten and CUB --quick."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "disentagled_multimodal_fusion_tpu_torch.runners.sweep_parallel",
+         "--procs", "2", "--worker-env", "CUDA_VISIBLE_DEVICES=0", "--datasets", "HandWritten",
+         "CUB", "--seeds", "0", "--conditions", "Normal", "--quick"],
+        env=dict(os.environ, DMF_ARTIFACT_ROOT=str(scratch / "sweep")),
+        cwd=str(Path(__file__).resolve().parent),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def check_mesh_sweep(card, scratch, out, want):
+    """Phase 27 (c): the sweep's merged rows equal one process's (``want``,
+    by dataset) at rtol 1e-6, and each worker's log names the card."""
+    from disentagled_multimodal_fusion_tpu_torch.runners.sweep_parallel import merge_rows
+
+    sweep_root = scratch / "sweep"
+    merged = merge_rows([sweep_root / "logs" / f"sweep_rows_w{r}.json" for r in range(2)])
+    worst = 0.0
+    for ds, models in want.items():
+        for name, info in models.items():
+            a = np.asarray(_numbers(merged[0]["Normal"][ds][name]), np.float64)
+            b = np.asarray(_numbers(info), np.float64)
+            if a.shape != b.shape or not np.isclose(a, b, rtol=1e-6, atol=0,
+                                                    equal_nan=True).all():
+                raise AssertionError(f"sweep_parallel: {ds} {name} differs from one process")
+            worst = max(worst, float(np.max(np.abs(a - b)[np.isfinite(b)], initial=0.0)))
+    for r in range(2):
+        if torch.cuda.get_device_name(0) not in (
+                sweep_root / "logs" / f"sweep_worker_{r}.log").read_text():
+            raise AssertionError(f"sweep worker {r}'s log does not name the card")
+    if "parallel sweep (2 workers, 2 datasets) done" not in out:
+        raise AssertionError("sweep_parallel did not report its sweep done")
+    log(f"mesh: sweep_parallel --procs 2 --worker-env CUDA_VISIBLE_DEVICES=0 (HandWritten, CUB "
+        f"--quick): merged rows equal one process's at rtol 1e-6 (max abs diff {worst:.3e}), "
+        f"each worker's log names the card [{card}]")
+
+
+def phase_mesh(card):
+    """Phase 27, the mesh on the one card: (a) legs A-C, (b) run.py
+    --data-parallel 2, (c) sweep_parallel.py --procs 2. (a)'s ranks and
+    (c)'s workers run at once, while this process runs (a)'s legs and (c)'s
+    CUB cell without a mesh; (b), whose host times are read, runs alone
+    after them, and its one-process HandWritten rows are (c)'s too. Returns
+    the head kernel's launches over the ranks' legs and their shapes a rank,
+    by world size."""
+    import shutil
+    import tempfile
+
+    from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
+
+    scratch = Path(tempfile.mkdtemp(prefix="mesh_",
+                                    dir=Path(__file__).resolve().parent / "chip_scratch"))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        runs = start_mesh_legs(scratch)
+        procs = [p for _, _, ranks in runs.values() for p in ranks]
+        sweep = start_mesh_sweep(scratch)
+        procs.append(sweep)
+        ref = mesh_legs(None)
+        log(f"mesh: legs A-C without a mesh in {time.perf_counter() - t0:.1f} s [{card}]")
+        with artifact_root("mesh_cub_"), contextlib.redirect_stdout(io.StringIO()):
+            cub = runner.main(["--seeds", "0", "--datasets", "CUB", "--conditions", "Normal",
+                               "--quick", "--skip-report"])
+        launches, shapes = check_mesh_legs(card, runs, ref)
+        sweep_out = wait_all([sweep], "sweep_parallel --procs 2")[0]
+        log(f"mesh: (a) and (c)'s sweep done in {time.perf_counter() - t0:.1f} s [{card}]")
+        one_rows = mesh_runner_phase(card, scratch)
+        check_mesh_sweep(card, scratch, sweep_out, {
+            "HandWritten": one_rows[0]["Normal"]["HandWritten"], "CUB": cub[0]["Normal"]["CUB"]})
+        return launches, shapes
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _numbers(row):
+    """A row's numbers in key order, without its wall times and path."""
+    out = []
+    for k, v in sorted(row.items()):
+        if k in ("fit_seconds", "backbone_fit_seconds", "vmf_syncs_per_epoch", "path"):
+            continue
+        if isinstance(v, dict):
+            out += _numbers(v)
+        elif isinstance(v, list):
+            for x in v:
+                out += _numbers(x) if isinstance(x, dict) else list(np.ravel(x))
+        else:
+            out.append(float("nan") if v is None else float(v))
+    return out
+
+
+# ------------------------------------------------------------------ groups
+# phases 11-24 and 26 run in four child processes of this script (``--group
+# NAME OUT``), beside phases 8-10 and 25 in this one: each path issues its
+# steps from one host thread and leaves the card mostly idle, so the paths
+# overlap on the host's cores. Phases 3-7 (kernel times, serving latency)
+# run before them and phase 27 (host times read) after them, alone. Each
+# child counts its own kernel launches, set to 0 before each path and read
+# after it, as in one process, and sends them back.
+GROUPS = {"seed_batched": "11, 12, 13, 26", "synthetic": "14-17, 21", "cub": "18-20",
+          "luma": "22-24"}
+GROUP_THREADS = 2  # torch's CPU threads a child: four children and this process share 8 cores
+GROUP_TIMEOUT_S = 900
+
+
+def run_group(name, ck, pm, card, timed):
+    """The phases of group ``name`` in this process; returns what the
+    kernels line needs of them."""
+    if name == "seed_batched":
+        with artifact_root("seed_batched_"), cut_config(SEED_BATCHED_CUT):
+            with kept_checkpoints() as kept:
+                launches, shapes, rows, wall = timed("phase 11 seed-batched",
+                                                     phase_seed_batched, ck, card)
+            timed("phase 12 seed-batched engines", phase_seed_batched_engines, card)
+            timed("phase 13 restore", phase_restore, card, kept, rows)
+            # on phase 13's checkpoints, before its artifact root goes
+            export_launches = timed("phase 26 export", phase_export, ck, card)
+        return {"launches": launches, "shapes": shapes, "wall": wall,
+                "export_launches": export_launches}
+    if name == "synthetic":
+        with artifact_root("synthetic_dmvae_"):
+            syn = timed("phase 14 synthetic", phase_synthetic, ck, pm, card, "dmvae")
+            # the probes' checkpoints share their names, so DSSL has its own root
+            with artifact_root("synthetic_dssl_"), cut_config(DSSL_CUT, "synthetic_config.yaml"):
+                dssl = timed("phase 15 synthetic DSSL", phase_synthetic, ck, pm, card, "dssl")
+            with artifact_root("synthetic_vmap_"):
+                sb_launches, sb_shapes = timed("phase 16 synthetic seed-batched",
+                                               phase_synthetic_seed_batched, ck, card)
+            timed("phase 17 synthetic restore", phase_synthetic_restore, card, syn[0])
+        prof_heads, prof_shapes = timed("phase 21 profile", phase_seed_batched_profile, ck, card)
+        return {"head_launches": syn[2] + dssl[2] + sb_launches,
+                "epoch_launches": syn[1] + dssl[1],
+                "shapes": dict(collections.Counter(syn[3]) + collections.Counter(dssl[3])
+                               + collections.Counter(sb_shapes)),
+                "prof_heads": prof_heads, "prof_shapes": prof_shapes}
+    if name == "cub":
+        timed("phase 18 fusions", phase_fusions, card)
+        _, im_epochs, im_heads, im_shapes, fused_bb_ms = timed(
+            "phase 19 intermediate", phase_intermediate, ck, pm, card)
+        uf_epochs, uf_heads, uf_shapes, _ = timed("phase 20 unfused DMVAE",
+                                                  phase_unfused_dmvae, ck, pm, card, fused_bb_ms)
+        return {"im_epochs": im_epochs, "im_heads": im_heads, "uf_epochs": uf_epochs,
+                "uf_heads": uf_heads,
+                "shapes": dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))}
+    if name == "luma":
+        with artifact_root("luma_") as root:
+            corpus = luma_corpus(root)
+            heads, shapes, fits = timed("phase 22 LUMA", phase_luma, ck, pm, card, root, corpus)
+            with artifact_root("luma_vmap_"):
+                sb_heads, sb_shapes = timed("phase 23 LUMA seed-batched",
+                                            phase_luma_seed_batched, ck, pm, card, corpus, fits)
+            bf16_heads, bf16_shapes = timed("phase 24 LUMA bf16", phase_luma_bf16, ck, pm, card,
+                                            corpus, fits)
+        return {"heads": heads, "shapes": shapes, "sb_heads": sb_heads, "sb_shapes": sb_shapes,
+                "bf16_heads": bf16_heads, "bf16_shapes": bf16_shapes}
+    raise ValueError(f"no group {name!r}")
+
+
+def group_child(name, out):
+    """``chip_smoke.py --group NAME OUT``: group ``name``'s phases, their
+    results pickled to OUT."""
+    import pickle
+
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+    from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
+
+    configure()
+    torch.set_num_threads(GROUP_THREADS)
+    card = card_line()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"{label} in {time.perf_counter() - t0:.1f} s [{card}]")
+        return result
+
+    results = run_group(name, ck, pm, card, timed)
+    with open(out, "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def start_groups():
+    """Start every group's child, each writing its output to a log in a
+    scratch directory: {name: (process, scratch)}."""
+    import tempfile
+
+    here = Path(__file__).resolve()
+    (here.parent / "chip_scratch").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="groups_", dir=here.parent / "chip_scratch"))
+    procs = {}
+    for name in GROUPS:
+        with open(scratch / f"{name}.log", "w") as out:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(here), "--group", name, str(scratch / f"{name}.pkl")],
+                cwd=str(here.parent), stdout=out, stderr=subprocess.STDOUT), scratch)
+    return procs
+
+
+def join_groups(procs):
+    """Each group's results once its child exited 0, its output printed
+    here; raises on a failed child or one past ``GROUP_TIMEOUT_S``."""
+    import pickle
+
+    deadline = time.monotonic() + GROUP_TIMEOUT_S
+    results = {}
+    for name, (proc, scratch) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            log(f"---- group {name} (phases {GROUPS[name]}), its own process:")
+            print((scratch / f"{name}.log").read_text(), end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"group {name} (phases {GROUPS[name]}) exited "
+                                 f"{proc.returncode}")
+        with open(scratch / f"{name}.pkl", "rb") as f:
+            results[name] = pickle.load(f)
+    return results
+
+
+def stop_groups(procs):
+    """Kill every child still running and remove the groups' scratch."""
+    import shutil
+
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for _, scratch in procs.values():
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2918,6 +3550,10 @@ def main() -> int:
         return engine_times_only(card_line())
     if sys.argv[1:2] == ["--luma-state-trials"]:
         return luma_state_trials(card_line(), int(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--group"]:
+        return group_child(*sys.argv[2:4])
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
     from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
@@ -2964,50 +3600,34 @@ def main() -> int:
     serve_launches, serve_shapes = timed("phase 5 serving", phase_serving, ck, card)
     timed("phase 5 request profile", phase_request_profile, card)
     timed("phases 6-7 daemon and HTTP", phase_daemon_and_http, card)
-    epoch_launches, train_head_launches, train_shapes, seq_wall, f32_accs = timed(
-        "phase 8 training", phase_training, ck, pm, card)
-    timed("phase 9 engines", phase_engines, card)
-    timed("phase 10 vmapped heads", phase_vmapped_heads, ck, card)
-    with artifact_root("seed_batched_"), cut_config(SEED_BATCHED_CUT):
-        with kept_checkpoints() as kept:
-            sb_launches, sb_shapes, sb_rows, _ = timed("phase 11 seed-batched",
-                                                       phase_seed_batched, ck, card, seq_wall)
-        timed("phase 12 seed-batched engines", phase_seed_batched_engines, card)
-        timed("phase 13 restore", phase_restore, card, kept, sb_rows)
-        # on phase 13's checkpoints, before its artifact root goes
-        export_launches = timed("phase 26 export", phase_export, ck, card)
-    with artifact_root("synthetic_dmvae_"):
-        syn = timed("phase 14 synthetic", phase_synthetic, ck, pm, card, "dmvae")
-        # the probes' checkpoints share their names, so DSSL has its own root
-        with artifact_root("synthetic_dssl_"), cut_config(DSSL_CUT, "synthetic_config.yaml"):
-            dssl = timed("phase 15 synthetic DSSL", phase_synthetic, ck, pm, card, "dssl")
-        with artifact_root("synthetic_vmap_"):
-            syn_sb_launches, syn_sb_shapes = timed("phase 16 synthetic seed-batched",
-                                                   phase_synthetic_seed_batched, ck, card)
-        timed("phase 17 synthetic restore", phase_synthetic_restore, card, syn[0])
-    syn_head_launches = syn[2] + dssl[2] + syn_sb_launches
-    syn_epoch_launches = syn[1] + dssl[1]
-    syn_shapes = dict(collections.Counter(syn[3]) + collections.Counter(dssl[3])
-                      + collections.Counter(syn_sb_shapes))
-    timed("phase 18 fusions", phase_fusions, card)
-    _, im_epochs, im_heads, im_shapes, fused_bb_ms = timed(
-        "phase 19 intermediate", phase_intermediate, ck, pm, card)
-    uf_epochs, uf_heads, uf_shapes, _ = timed("phase 20 unfused DMVAE", phase_unfused_dmvae,
-                                              ck, pm, card, fused_bb_ms)
-    prof_heads, prof_shapes = timed("phase 21 profile", phase_seed_batched_profile, ck, card)
-    cub_shapes = dict(collections.Counter(im_shapes) + collections.Counter(uf_shapes))
-    with artifact_root("luma_") as root:
-        corpus = luma_corpus(root)
-        luma_heads, luma_shapes, luma_fits = timed("phase 22 LUMA", phase_luma, ck, pm, card,
-                                                   root, corpus)
-        with artifact_root("luma_vmap_"):
-            luma_sb_heads, luma_sb_shapes = timed("phase 23 LUMA seed-batched",
-                                                  phase_luma_seed_batched, ck, pm, card,
-                                                  corpus, luma_fits)
-        luma_bf16_heads, luma_bf16_shapes = timed("phase 24 LUMA bf16", phase_luma_bf16, ck,
-                                                  pm, card, corpus, luma_fits)
-    hw_bf16_heads, hw_bf16_shapes = timed("phase 25 HandWritten bf16", phase_training_bf16, ck,
-                                          pm, card, f32_accs)
+    groups = start_groups()
+    try:
+        epoch_launches, train_head_launches, train_shapes, seq_wall, f32_accs = timed(
+            "phase 8 training", phase_training, ck, pm, card)
+        timed("phase 9 engines", phase_engines, card)
+        timed("phase 10 vmapped heads", phase_vmapped_heads, ck, card)
+        hw_bf16_heads, hw_bf16_shapes = timed("phase 25 HandWritten bf16", phase_training_bf16,
+                                              ck, pm, card, f32_accs)
+        t_join = time.perf_counter()
+        g = join_groups(groups)
+        log(f"groups (phases 11-24, 26) joined {time.perf_counter() - t_join:.1f} s after "
+            f"phase 25 [{card}]")
+    finally:
+        stop_groups(groups)
+    sb_launches, sb_shapes, export_launches = (g["seed_batched"][k] for k in (
+        "launches", "shapes", "export_launches"))
+    log(f"seed-batched: {g['seed_batched']['wall'] / len(SEEDS):.1f} s per seed (phase 11); "
+        f"the sequential seed-0 cell of phase 8 (full depth, probe fits through the epoch "
+        f"kernel) took {seq_wall:.1f} s, each beside the other phases [{card}]")
+    syn_head_launches, syn_epoch_launches, syn_shapes, prof_heads, prof_shapes = (
+        g["synthetic"][k] for k in ("head_launches", "epoch_launches", "shapes", "prof_heads",
+                                    "prof_shapes"))
+    im_epochs, im_heads, uf_epochs, uf_heads, cub_shapes = (g["cub"][k] for k in (
+        "im_epochs", "im_heads", "uf_epochs", "uf_heads", "shapes"))
+    luma_heads, luma_shapes, luma_sb_heads, luma_sb_shapes, luma_bf16_heads, luma_bf16_shapes = (
+        g["luma"][k] for k in ("heads", "shapes", "sb_heads", "sb_shapes", "bf16_heads",
+                               "bf16_shapes"))
+    mesh_launches, mesh_shapes = timed("phase 27 mesh", phase_mesh, card)
 
     bf16_tally = collections.Counter(hw_bf16_shapes)
     for shapes in luma_bf16_shapes.values():
@@ -3023,12 +3643,13 @@ def main() -> int:
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
                      + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads
-                     + export_launches),
+                     + export_launches + sum(mesh_launches.values())),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
                              "scene_profile": prof_heads, "luma": luma_heads,
                              "luma_seed_batched": luma_sb_heads, "export": export_launches,
+                             "mesh_world1": mesh_launches[1], "mesh_world2": mesh_launches[2],
                              "luma_bf16": 0, "handwritten_bf16": 0},
         "max_abs_err": max_abs_err,
         **timing,
@@ -3037,7 +3658,9 @@ def main() -> int:
         "launches_by_shape": {"serving": serve_shapes, "training": train_shapes,
                               "seed_batched": sb_shapes, "synthetic": syn_shapes,
                               "cub": cub_shapes, "scene_profile": prof_shapes,
-                              "luma": luma_shapes, "luma_seed_batched": luma_sb_shapes},
+                              "luma": luma_shapes, "luma_seed_batched": luma_sb_shapes,
+                              "mesh_per_rank_world1": mesh_shapes[1],
+                              "mesh_per_rank_world2": mesh_shapes[2]},
     }, {
         "name": "evidential_head_bf16",
         "route": "cuda",
@@ -3046,7 +3669,7 @@ def main() -> int:
         "launches": sum(luma_bf16_heads.values()) + hw_bf16_heads,
         "launches_by_path": {"luma_bf16": luma_bf16_heads["sequential"],
                              "luma_seed_batched_bf16": luma_bf16_heads["seed-batched"],
-                             "handwritten_bf16": hw_bf16_heads},
+                             "handwritten_bf16": hw_bf16_heads, "mesh": 0},
         "max_abs_err": bf16_abs_err,
         **bf16_timing,
         "times_by_shape": bf16_times_by_shape,
@@ -3062,7 +3685,7 @@ def main() -> int:
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
                              "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
                              "luma": 0, "luma_seed_batched": 0, "luma_bf16": 0,
-                             "handwritten_bf16": 0},
+                             "handwritten_bf16": 0, "mesh": 0},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

@@ -12,6 +12,9 @@ Ported: serving (``runners/serve.py``, the daemon, the HTTP front and
 ``torch.export`` artifacts), the three sweep runners (``runners/run.py``,
 ``run_synthetic.py``, ``run_luma.py``) with their engines, ``--dtype
 bfloat16`` and ``evaluate.py``, and both TPU kernels as CUDA kernels
-(``csrc/evidential_head.cu`` with its bf16 build, ``csrc/probe_epoch.cu``).
-The mesh (``--data-parallel`` / ``--model-parallel``) is not ported yet.
+(``csrc/evidential_head.cu`` with its bf16 build, ``csrc/probe_epoch.cu``),
+the mesh's ``data`` axis over ``torch.distributed`` ranks (``parallel/``,
+``--data-parallel`` in the three sweep runners) and
+``runners/sweep_parallel.py``. The mesh's ``model`` axis
+(``--model-parallel``) is not ported yet.
 """

@@ -31,8 +31,14 @@ def checkpoint_file(path: str) -> Path:
 
 
 def save_checkpoint(path: str, module: torch.nn.Module, hparams: Optional[dict] = None) -> str:
-    """Save ``module``'s parameters under ``path``; returns the file's path."""
+    """Save ``module``'s parameters under ``path``; returns the file's path.
+    Under a process group only rank 0 writes (the ranks hold the same
+    weights; two writers of one file can tear it)."""
+    from ..parallel.distributed import is_writer
+
     target = checkpoint_file(path)
+    if not is_writer():
+        return str(target)
     target.parent.mkdir(parents=True, exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, target)
     if hparams is not None:

@@ -20,9 +20,15 @@ from .artifacts import artifact_path
 
 
 def log_training_csv(model_name: str, result, save_dir: str = "logs") -> str:
+    """The fit's per-epoch histories at ``<save_dir>/<model_name>/metrics.csv``
+    (written by rank 0 alone under a process group); returns its path."""
+    from ..parallel.distributed import is_writer
+
     out = artifact_path(save_dir) / model_name
-    out.mkdir(parents=True, exist_ok=True)
     path = out / "metrics.csv"
+    if not is_writer():
+        return str(path)
+    out.mkdir(parents=True, exist_ok=True)
     columns = [np.asarray(result.train_loss), np.asarray(result.val_loss),
                np.asarray(result.val_acc)]
     with open(path, "w", newline="") as f:
@@ -37,8 +43,10 @@ def log_training_csv(model_name: str, result, save_dir: str = "logs") -> str:
 def trace(name: str = "trace", log_dir: str = "logs/traces", enabled: bool = True):
     """Profile the block; the trace is written, and its directory printed,
     when the block ends, also when it raises. Yields the trace's path (None
-    when not ``enabled``)."""
-    if not enabled:
+    when not ``enabled``). Under a process group rank 0 alone traces."""
+    from ..parallel.distributed import is_writer
+
+    if not enabled or not is_writer():
         yield None
         return
     import torch

@@ -29,7 +29,7 @@ constant schedule.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -65,13 +65,15 @@ class ProbeMegakernelDesc(NamedTuple):
 
 
 def supports_probe_megakernel(desc: Optional[ProbeMegakernelDesc],
-                              optimizer: OptimizerConfig) -> bool:
+                              optimizer: OptimizerConfig, *, mesh: Any = None) -> bool:
     """True when the kernel program is a drop-in for this fit: an AdamW
     probe whose heads the kernel takes (at most ``MAX_VIEWS`` heads of at
-    most ``MAX_HIDDEN`` hidden units). Any other fit runs the step loop on
-    the same randomness stream."""
+    most ``MAX_HIDDEN`` hidden units), on one device (no ``mesh``, as in
+    the JAX package). Any other fit runs the step loop on the same
+    randomness stream."""
     return (
         desc is not None
+        and mesh is None
         and optimizer.name == "adamw"
         and optimizer.schedule in ("cosine", "plateau", "constant")
         and desc.num_modalities + (1 if desc.has_shared else 0) <= MAX_VIEWS

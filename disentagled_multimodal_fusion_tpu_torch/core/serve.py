@@ -23,7 +23,15 @@ and load an artifact with the same torch version: the format is not
 promised across versions (2.13 and 2.11, the two the port runs on). The
 JAX package's ``platforms`` (a cross-export) has no counterpart: a CUDA
 artifact is made on the card.
-The mesh-sharded branch of the JAX package is not ported yet.
+
+The mesh's ``data`` axis (JAX lines 103-172, 198-210): ``build_inference_fn(
+mesh=)`` runs every rank of the mesh on the same request, each on its rows
+of it, then gathers the outputs so that every rank returns the whole
+batch; ``ServingEngine(divisor=n_dp)`` rounds every bucket up to a multiple
+of the ``data`` axis so that each rank gets an equal part. Its ``module``
+is the single-device program, so ``export_inference`` of a mesh-built
+function exports that, as the JAX package unwraps ``jit_fn``. The HTTP
+front and the daemon stay single-process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -97,7 +105,7 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float32)
 
 
-def build_inference_fn(task, *, backbone=None):
+def build_inference_fn(task, *, backbone=None, mesh=None):
     """``fn(xs) -> dict`` from raw views to predictions and uncertainties.
 
     task
@@ -114,6 +122,13 @@ def build_inference_fn(task, *, backbone=None):
     ``epistemic`` (B,) = K/S and ``aleatoric`` (B,). The function runs
     ``fn.module``, an :class:`InferenceModule`, under inference mode;
     :func:`export_inference` exports that module.
+
+    mesh
+        A ``parallel.mesh.Mesh``: every rank calls ``fn`` with the same
+        request, runs the module on its rows (``B / n_dp``; B must divide by
+        the ``data`` axis, which ``ServingEngine(divisor=)`` ensures) and
+        gathers the outputs of all rows in one collective. The weights are
+        each rank's own copy, the same on every rank.
     """
     module = InferenceModule(task, backbone)
     device = next(task.model.parameters()).device
@@ -123,7 +138,26 @@ def build_inference_fn(task, *, backbone=None):
         return module(tuple(_as_tensor(x, device) for x in xs))
 
     infer.module = module
-    return infer
+    if mesh is None:
+        return infer
+
+    from ..parallel.distributed import gather_instances
+    from ..parallel.mesh import rows_of
+
+    n_dp = mesh.shape["data"]
+
+    def infer_rows(xs: Sequence):
+        rows = len(xs[0])
+        if rows % n_dp:
+            raise ValueError(f"a batch of {rows} rows does not divide over the mesh's 'data' "
+                             f"axis ({n_dp}); pass divisor={n_dp} to ServingEngine")
+        sl = rows_of(rows, mesh)
+        out = infer(tuple(x[sl] for x in xs))
+        with torch.inference_mode():
+            return gather_instances(out, rows, sl)
+
+    infer_rows.module = module
+    return infer_rows
 
 
 class ServingEngine:
@@ -134,11 +168,18 @@ class ServingEngine:
     at the next multiple of it. Returns numpy arrays.
     """
 
-    def __init__(self, infer_fn, buckets: Sequence[int] = DEFAULT_BUCKETS):
+    def __init__(self, infer_fn, buckets: Sequence[int] = DEFAULT_BUCKETS, divisor: int = 1):
+        """``divisor``: round every bucket up to a multiple of it; set it to
+        the mesh's ``data`` axis when the inference fn splits rows over a
+        mesh, so each rank gets an equal part."""
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive: {buckets}")
+        if divisor <= 0:
+            raise ValueError(f"divisor must be positive: {divisor}")
         self.infer_fn = infer_fn
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.divisor = int(divisor)
+        self.buckets = tuple(
+            sorted(set(-(-int(b) // self.divisor) * self.divisor for b in buckets)))
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:

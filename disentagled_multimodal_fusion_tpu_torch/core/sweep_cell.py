@@ -19,6 +19,11 @@ runs the same :func:`fit_job` per head and fetches after each, so the two
 engines give the same rows bit for bit. Capturing the steps as CUDA graphs,
 the nearest analogue of the single XLA program, is later work
 (``ROADMAP.md``).
+
+``mesh`` (JAX lines 93-98, 177-187): the seed axis is split over the mesh's
+``data`` axis, each rank running its S / n_dp seeds' fits and evaluations
+with no collective inside them (the head kernel at (S / n_dp) x V heads),
+and one gather gives every rank the results of all S seeds.
 """
 
 from __future__ import annotations
@@ -47,9 +52,20 @@ class CellJob(NamedTuple):
 
 
 def fit_job(job: CellJob, data, n_train: int, batch_size: int,
-            drop_last: bool = False) -> Dict[str, Any]:
+            drop_last: bool = False, mesh: Any = None) -> Dict[str, Any]:
     """Fit the job's S heads at once on ``data = (train, test)`` and evaluate
-    them on the test split; every value stays on the device."""
+    them on the test split; every value stays on the device. Under a
+    ``mesh`` each rank fits and evaluates its seeds, then all S are
+    gathered."""
+    if mesh is not None:
+        from ..parallel.distributed import gather_instances
+        from ..parallel.mesh import instances_of, shard_instances
+
+        s_count = len(job.tasks)
+        sl = instances_of(s_count, mesh, "fit_job(mesh=...)", "seed count")
+        local = fit_job(_seed_block(job, sl), shard_instances(data, mesh, s_count), n_train,
+                        batch_size, drop_last)
+        return _unstack_metrics(gather_instances(_stack_metrics(local), s_count, sl), s_count)
     train_data, test_data = data
     task = job.tasks[0]
     res = train_many(
@@ -65,6 +81,27 @@ def fit_job(job: CellJob, data, n_train: int, batch_size: int,
     )
     return {"metrics": metrics, "params": res.params, "train_loss": res.train_loss,
             "val_loss": res.val_loss, "val_acc": res.val_acc, "final_lr": res.final_lr}
+
+
+def _seed_block(job: CellJob, sl: slice) -> CellJob:
+    """The job cut to the seeds ``sl``."""
+    return job._replace(tasks=job.tasks[sl], randomness=job.randomness[sl])
+
+
+def _stack_metrics(result: Dict[str, Any]) -> Dict[str, Any]:
+    """A :func:`fit_job` result with its per-seed ``metrics`` stacked on a
+    leading seed axis (for a gather), and back with :func:`_unstack_metrics`."""
+    from torch.utils._pytree import tree_map
+
+    return {**result, "metrics": tree_map(lambda *xs: torch.stack(xs), *result["metrics"])}
+
+
+def _unstack_metrics(result: Dict[str, Any], s_count: int) -> Dict[str, Any]:
+    from torch.utils._pytree import tree_map
+
+    stacked = result["metrics"]
+    return {**result, "metrics": tuple(tree_map(lambda x, s=s: x[s], stacked)
+                                       for s in range(s_count))}
 
 
 def job_rows(job: CellJob, fetched: Dict[str, Any], seeds: Sequence[int]) -> Dict[int, dict]:
@@ -100,10 +137,29 @@ def run_cell(
     y_te: torch.Tensor,
     n_train: int,
     batch_size: int,
+    mesh: Any = None,
 ) -> Dict[str, Any]:
     """Run the whole cell for all seeds; every array input carries the S axis
     first. Returns, on the device, {"backbone_params", "backbone_train_loss",
-    "jobs": {name: fit_job result}}."""
+    "jobs": {name: fit_job result}}. Under a ``mesh`` each rank runs the
+    whole cell for its seeds, and one gather at its end gives every rank
+    all S."""
+    if mesh is not None:
+        from ..parallel.distributed import gather_instances
+        from ..parallel.mesh import instances_of, shard_instances
+
+        s_count = len(bb_randomness)
+        sl = instances_of(s_count, mesh, "one-program cell (mesh=...)", "seed count")
+        local = run_cell(
+            backbone=backbone, bb_params=shard_instances(bb_params, mesh, s_count),
+            bb_loss_fn=bb_loss_fn, bb_optimizer=bb_optimizer, bb_epochs=bb_epochs,
+            bb_randomness=bb_randomness[sl], jobs=[_seed_block(j, sl) for j in jobs],
+            xs_tr=shard_instances(xs_tr, mesh, s_count), xs_te=shard_instances(xs_te, mesh, s_count),
+            y_tr=y_tr[sl], y_te=y_te[sl], n_train=n_train, batch_size=batch_size)
+        local["jobs"] = {k: _stack_metrics(v) for k, v in local["jobs"].items()}
+        full = gather_instances(local, s_count, sl)
+        full["jobs"] = {k: _unstack_metrics(v, s_count) for k, v in full["jobs"].items()}
+        return full
     bb = train_many(model=backbone, params=bb_params, loss_fn=bb_loss_fn, data={"xs": xs_tr},
                     n_train=n_train, optimizer=bb_optimizer, epochs=bb_epochs,
                     batch_size=batch_size, randomness=bb_randomness)

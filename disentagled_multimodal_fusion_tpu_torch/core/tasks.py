@@ -72,7 +72,7 @@ from ..ops.dirichlet import avg_trusted_loss, single_evidential_loss
 from ..ops.evidence import AGGREGATIONS
 from .megakernel import ProbeMegakernelDesc
 from .setup import resolve_device
-from .train import Objective, OptimizerConfig, functional
+from .train import Objective, OptimizerConfig, functional, slice_draws
 
 
 class EvidentialTask(NamedTuple):
@@ -215,9 +215,17 @@ def dmvae_objective(model, *, lr: float = 1e-4, num_epochs: int = 50):
         enc, own = _split_encoder_masks(model, draws[3:])
         return model(batch["xs"], draws[:3], mask, own or None, enc or None)
 
+    def rows(draws, lo, hi):
+        # the decoder's keep-masks do not hold the rows on their first axis
+        n_enc = sum(len(shapes) for shapes in model.enc_drop_shapes(1))
+        head = 3 + n_enc
+        own = list(draws[head:])
+        return (slice_draws(draws[:head], lo, hi)
+                + tuple(model.drop_rows(own, lo, hi) if own else ()))
+
     opt = OptimizerConfig(name="adam", lr=lr, schedule="cosine", cosine_t_max=num_epochs,
                           eta_min=0.0)
-    return Objective(draw, loss_from_draws), opt
+    return Objective(draw, loss_from_draws, rows=rows), opt
 
 
 # ------------------------------------------------------------------ SSL

@@ -43,8 +43,20 @@ on the device.
   moments, step count, plateau state and generator state (the model holds
   its parameters and statistics), equal to the uninterrupted fit; so does
   the epoch-kernel program, from the same :class:`TrainState`.
-
-Left out (``ROADMAP.md``): the mesh.
+* The mesh's ``data`` axis (JAX lines 279-327 and 369-400; ``parallel/``):
+  ``train(mesh=)`` splits every step's rows over the ranks, each holding
+  the dataset whole and drawing the global batch's randomness from a
+  generator of the same seed; each rank runs the loss on its rows (an
+  :class:`Objective` cuts its draws to them) inside
+  ``parallel.distributed.row_split``, so BatchNorm's moments, SupCon's
+  negatives and the orthogonality penalty are the global batch's, and the
+  gradients of the losses, each scaled by its rank's share of the rows,
+  are summed over the ranks: the gradient of the global batch's loss. Every
+  rank applies the same Adam step, so the parameters stay equal on all of
+  them; validation runs on each rank's rows and its means are summed the
+  same way. ``train_many(mesh=)`` splits the S instances instead, with no
+  collective inside the fit, and gathers the results so that every rank
+  returns all S. The ``model`` axis is not ported yet.
 """
 
 from __future__ import annotations
@@ -146,6 +158,16 @@ class Randomness:
         self.generator.set_state(state)
 
 
+def slice_draws(draws, lo: int, hi: int):
+    """The draws of rows [lo, hi) of a step: every tensor's leading axis
+    sliced (None stays None)."""
+    if draws is None:
+        return None
+    if isinstance(draws, torch.Tensor):
+        return draws[lo:hi]
+    return type(draws)(slice_draws(d, lo, hi) for d in draws)
+
+
 class Objective:
     """A loss whose random draws are split from its arithmetic.
 
@@ -160,12 +182,17 @@ class Objective:
     taken before this one (the JAX package's ``StepInfo.step``):
     ``loss(batch, mask, epoch, draws, step)``. Called as ``(batch, mask,
     epoch, randomness)`` it draws one step, then computes (at step 0).
+    ``rows(draws, lo, hi)`` cuts a step's draws to its rows [lo, hi) for a
+    data-parallel step (by default :func:`slice_draws`, every draw's leading
+    axis; ``rows=`` replaces it for draws laid out otherwise).
     """
 
     def __init__(self, draw: Optional[Callable], loss: Callable, *,
-                 draw_epoch: Optional[Callable] = None, with_step: bool = False):
+                 draw_epoch: Optional[Callable] = None, with_step: bool = False,
+                 rows: Optional[Callable] = None):
         self.draw, self.loss, self.with_step = draw, loss, with_step
         self._draw_epoch = draw_epoch
+        self.rows = rows or slice_draws
 
     def draw_epoch(self, randomness, sizes: Sequence[int]) -> list:
         """Every step's draws of an epoch whose steps take ``sizes`` rows."""
@@ -288,14 +315,74 @@ def capture_state(moments, count: int, plateau, randomness) -> TrainState:
     return TrainState(tuple(moments), count, tuple(plateau), rng)
 
 
-def validate(cfg: OptimizerConfig, val_fn, val_data, epoch: int, plateau, device):
-    """(val_loss, val_acc, plateau') after an epoch; nan without val_fn."""
+def num_rows(data) -> int:
+    """The row count of ``data`` (a dict of tensors or tuples of tensors,
+    rows first)."""
+    leaf = next(iter(data.values()))
+    return (leaf[0] if isinstance(leaf, (tuple, list)) else leaf).shape[0]
+
+
+def _validate_rows(mesh, val_fn, val_data, epoch: int, device):
+    """(val_loss, val_acc) of the whole of ``val_data``, each rank running
+    ``val_fn`` on its rows: both are means over the rows, so the ranks' means
+    weighted by their shares of the rows sum to the global ones."""
+    from ..parallel.distributed import all_reduce
+    from ..parallel.mesh import rows_of, shard_batch
+
+    n = num_rows(val_data)
+    sl = rows_of(n, mesh)
+    part = torch.zeros(2, dtype=torch.float32, device=device)
+    if sl.stop > sl.start:
+        val_loss, val_acc = val_fn(shard_batch(val_data, mesh), epoch)
+        part = torch.stack([val_loss.float(), val_acc.float()]) * ((sl.stop - sl.start) / n)
+    val_loss, val_acc = all_reduce(part)
+    return val_loss, val_acc
+
+
+def validate(cfg: OptimizerConfig, val_fn, val_data, epoch: int, plateau, device, mesh=None):
+    """(val_loss, val_acc, plateau') after an epoch; nan without val_fn.
+    Under a ``mesh`` each rank validates its rows (:func:`_validate_rows`)."""
     if val_fn is None:
         nan = torch.full((), math.nan, dtype=torch.float32, device=device)
         return nan, nan, plateau
     with torch.no_grad():
-        val_loss, val_acc = val_fn(val_data, epoch)
+        if mesh is None:
+            val_loss, val_acc = val_fn(val_data, epoch)
+        else:
+            val_loss, val_acc = _validate_rows(mesh, val_fn, val_data, epoch, device)
     return val_loss.float(), val_acc.float(), _plateau_update(cfg, plateau, val_loss)
+
+
+def _rows_step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int):
+    """One data-parallel step: this rank's part of the global batch ``idx``
+    (and of its ``draws``) through the loss, inside the step's row split.
+    Returns (the global batch's loss, its gradients), equal on every rank:
+    each rank's loss, a mean over its rows, is scaled by its share of the
+    rows, and one sum over the ranks adds the gradients and the losses."""
+    from ..parallel.distributed import RowSplit, all_reduce, row_split
+    from ..parallel.mesh import split_rows
+
+    rows = idx.shape[0]
+    split = RowSplit(split_rows(rows, mesh.shape["data"]), mesh.data_index)
+    lo, hi = split.lo, split.hi
+    batch = gather_rows(data, idx[lo:hi])
+    mask = torch.ones(hi - lo, dtype=torch.float32, device=idx.device)
+    with row_split(split):
+        loss, _ = loss_fn.compute(batch, mask, epoch, loss_fn.rows(draws, lo, hi), count)
+        share = loss * ((hi - lo) / rows)
+        grads = torch.autograd.grad(share, params)
+    if hi == lo:
+        # no rows: the backward above still joined every collective of the
+        # forward; this rank adds nothing to the loss or to any gradient
+        share = torch.zeros_like(share)
+        grads = [torch.zeros_like(p) for p in params]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]
+                                + [share.detach().float().reshape(1)]))
+    out, at = [], 0
+    for p in params:
+        out.append(flat[at:at + p.numel()].view_as(p))
+        at += p.numel()
+    return flat[-1], out
 
 
 def train(
@@ -315,6 +402,7 @@ def train(
     shuffle: bool = True,
     start_epoch: int = 0,
     resume: Optional[TrainState] = None,
+    mesh: Any = None,
 ) -> TrainResult:
     """Fit ``model``'s parameters in place over epochs [start_epoch,
     start_epoch + epochs).
@@ -339,13 +427,20 @@ def train(
     state and the generator); the two calls' histories together equal one
     uninterrupted fit's. The global step a ``with_step`` objective sees is
     Adam's step count, which ``resume`` carries.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank of it calls ``train``
+    with the same arguments (``data`` whole, ``randomness`` from the same
+    seed) and splits each step's rows over its ``data`` axis
+    (:func:`_rows_step`; the module docstring). The histories, the plateau
+    state and the parameters are the global batch's, equal on every rank.
+    The epoch kernel is declined under a mesh, as in the JAX package.
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
     if megakernel is not None:
         from .megakernel import make_probe_megakernel_program, supports_probe_megakernel
 
-        if supports_probe_megakernel(megakernel, optimizer):
+        if supports_probe_megakernel(megakernel, optimizer, mesh=mesh):
             program = make_probe_megakernel_program(
                 desc=megakernel, n_train=n_train, optimizer=optimizer, epochs=epochs,
                 batch_size=batch_size, val_fn=val_fn, drop_last=drop_last, shuffle=shuffle,
@@ -366,15 +461,20 @@ def train(
         lr = lr_for_epoch(optimizer, epoch, plateau[0])
         losses = []
         for idx, step_draws in zip(epoch_batches(perm, batch_size, drop_last), draws):
-            batch = gather_rows(data, idx)
-            mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
-            loss, _ = loss_fn.compute(batch, mask, epoch, step_draws, count)
-            grads = torch.autograd.grad(loss, params)
+            if mesh is None:
+                batch = gather_rows(data, idx)
+                mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
+                loss, _ = loss_fn.compute(batch, mask, epoch, step_draws, count)
+                grads = torch.autograd.grad(loss, params)
+            else:
+                loss, grads = _rows_step(mesh, loss_fn, params, data, idx, step_draws, epoch,
+                                         count)
             count += 1
             adam_update(params, moments, grads, *bias_corrections(count), lr, weight_decay)
             losses.append(loss.detach().float())
         train_loss = torch.sum(torch.stack(losses) * weights) / weights.sum()
-        val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device)
+        val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device,
+                                              mesh)
         history.append((train_loss, val_loss, val_acc))
     return _finish(history, capture_state(moments, count, plateau, randomness))
 
@@ -505,6 +605,7 @@ def train_many(
     drop_last: bool = False,
     shuffle: bool = True,
     model_state: Optional[Dict[str, torch.Tensor]] = None,
+    mesh: Any = None,
 ) -> ManyResult:
     """Fit S instances of ``model`` at once; instance s equals :func:`train`
     of ``model`` with ``params[.][s]`` and ``randomness[s]``.
@@ -534,9 +635,23 @@ def train_many(
     ``segment_epochs`` runs the epochs in segments of that length, each
     resumed exactly from the last one's optimizer, plateau, generator and
     model states (:class:`ManyState`).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` whose ranks all call ``train_many``
+    with the same arguments. Its ``data`` axis splits the S instances (S
+    must divide by it): each rank fits its S / n_dp instances with no
+    collective inside the fit, then one gather gives every rank all S
+    results, and every ``randomness[s]`` the state its own fit left.
+    Broadcast data stays whole on every rank.
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
+    if mesh is not None:
+        return _train_many_on_mesh(
+            mesh, model=model, params=params, loss_fn=loss_fn, data=data, n_train=n_train,
+            optimizer=optimizer, epochs=epochs, batch_size=batch_size, randomness=randomness,
+            val_fn=val_fn, val_data=val_data, data_broadcast=data_broadcast,
+            segment_epochs=segment_epochs, drop_last=drop_last, shuffle=shuffle,
+            model_state=model_state)
     fit = (model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn, val_data,
            data_broadcast, drop_last, shuffle)
     model_state = dict(model_state or {})
@@ -551,6 +666,39 @@ def train_many(
     cat = lambda k: torch.cat([getattr(r, k) for r in parts], dim=1)  # noqa: E731
     return parts[-1]._replace(train_loss=cat("train_loss"), val_loss=cat("val_loss"),
                               val_acc=cat("val_acc"))
+
+
+def _train_many_on_mesh(mesh, *, params, randomness, data, val_data, data_broadcast,
+                        model_state, **fit) -> ManyResult:
+    """:func:`train_many` of this rank's instances, gathered to all S."""
+    from ..parallel.distributed import gather_instances
+    from ..parallel.mesh import instances_of, shard_instances
+
+    s_count = len(randomness)
+    sl = instances_of(s_count, mesh)
+
+    def mine(tree):
+        return tree if data_broadcast or tree is None else shard_instances(tree, mesh, s_count)
+
+    local = train_many(params=shard_instances(params, mesh, s_count), randomness=randomness[sl],
+                       data=mine(data), val_data=mine(val_data), data_broadcast=data_broadcast,
+                       model_state=shard_instances(model_state or {}, mesh, s_count), **fit)
+    st = local.state
+    full = gather_instances({
+        "params": local.params, "train_loss": local.train_loss, "val_loss": local.val_loss,
+        "val_acc": local.val_acc, "final_lr": local.final_lr, "moments": st.moments,
+        "plateau": st.plateau, "model_state": st.model_state,
+        # a test's replayed randomness has no state
+        "rng": None if any(r is None for r in st.rng) else torch.stack(st.rng),
+    }, s_count, sl)
+    rng = (None,) * s_count
+    if full["rng"] is not None:
+        rng = tuple(state.clone() for state in full["rng"].cpu().unbind(0))
+        for r, state in zip(randomness, rng):
+            r.restore(state)
+    state = ManyState(full["moments"], st.count, full["plateau"], rng, full["model_state"])
+    return ManyResult(full["params"], full["train_loss"], full["val_loss"], full["val_acc"],
+                      full["final_lr"], state)
 
 
 def _train_many_segment(model, loss_fn, data, n_train, optimizer, batch_size, randomness, val_fn,

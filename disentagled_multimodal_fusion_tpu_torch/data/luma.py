@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import warnings
 import zlib
 from pathlib import Path
@@ -424,7 +425,12 @@ class LUMADataset:
         image = self._featurize_images()
         y = np.asarray([s["label"] for s in self.samples], np.int64)
         if self.cache:
-            np.savez_compressed(cache_file, audio=audio, text=text, image=image, y=y)
+            # through a file of this process's own and a rename: ranks that
+            # featurize one corpus at once never read a file half written
+            tmp = cache_file.with_name(f"{cache_file.name}.{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, audio=audio, text=text, image=image, y=y)
+            os.replace(tmp, cache_file)
         return (audio, text, image), y
 
 

@@ -240,24 +240,33 @@ def evaluate_evidences(evidences, fused, target, num_classes: int,
 
 
 @torch.no_grad()
-def task_evidences(task, data) -> torch.Tensor:
+def task_evidences(task, data, mesh=None) -> torch.Tensor:
     """The task's eval-mode evidence (B, V, C) on ``data``. A model with
     BatchNorm (the LUMA encoders) normalises by its running statistics,
     the ones its training carried in its buffers (or a checkpoint
-    restored)."""
-    return task.evidences_fn(data)
+    restored). Under a ``mesh`` (``parallel.mesh.Mesh``) each rank runs
+    its rows of ``data`` and the evidence of all rows is gathered to every
+    rank."""
+    if mesh is None:
+        return task.evidences_fn(data)
+    from ..core.train import num_rows
+    from ..parallel.distributed import gather_rows
+    from ..parallel.mesh import rows_of, shard_batch
+
+    n = num_rows(data)
+    return gather_rows(task.evidences_fn(shard_batch(data, mesh)), n, rows_of(n, mesh).start)
 
 
-def evaluate_subjective_model(task, data) -> Dict[str, Any]:
-    """Per-view layout evaluator."""
-    evidences = task_evidences(task, data)
+def evaluate_subjective_model(task, data, mesh=None) -> Dict[str, Any]:
+    """Per-view layout evaluator (``mesh``: as :func:`task_evidences`)."""
+    evidences = task_evidences(task, data, mesh)
     return evaluate_evidences(evidences, task.aggregation(evidences), data["y"],
                               task.num_classes, False)
 
 
-def evaluate_subjective_model_with_shared(task, data) -> Dict[str, Any]:
-    """[shared, views...] layout evaluator."""
-    evidences = task_evidences(task, data)
+def evaluate_subjective_model_with_shared(task, data, mesh=None) -> Dict[str, Any]:
+    """[shared, views...] layout evaluator (``mesh``: as :func:`task_evidences`)."""
+    evidences = task_evidences(task, data, mesh)
     if evidences.shape[1] < 2:
         raise ValueError("Expected at least one shared and one specific view (V >= 2).")
     return evaluate_evidences(evidences, task.aggregation(evidences), data["y"],

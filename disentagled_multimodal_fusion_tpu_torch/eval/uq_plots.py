@@ -73,7 +73,12 @@ def write_uq_plots(rows, outdir, fmt: str = "svg") -> List[str]:
     """rows[seed][cond][ds][model] = sample_info (write_sweep_report's
     nested layout). Writes ``{cond}_{ds}_uq.svg`` per cell; returns the
     written paths. Silently returns [] when matplotlib is unavailable or
-    no row carries the round-5 UQ-depth entries."""
+    no row carries the round-5 UQ-depth entries, and on every rank but the
+    writing one under a process group."""
+    from ..parallel.distributed import is_writer
+
+    if not is_writer():
+        return []
     try:
         import matplotlib
 

@@ -102,5 +102,5 @@ class IntermediateFusion(Encoded):
         # fusion runs in it, the head then in its compute type
         dtype = self.head.mlp.layers[0].weight.dtype
         feats = encode_views(self.feat_encs, [x.to(dtype) for x in xs], enc_masks)
-        fused = self.fusion([x.reshape(x.shape[0], -1) for x in feats])
-        return self.head(fused.reshape(fused.shape[0], -1), drop_masks)
+        fused = self.fusion([x.flatten(1) for x in feats])
+        return self.head(fused.flatten(1), drop_masks)

@@ -27,6 +27,7 @@ float32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -52,7 +53,7 @@ def _masked_mse(pred: torch.Tensor, target: torch.Tensor,
     if mask is None:
         return torch.mean(se)
     m = mask.to(se.dtype).reshape(-1, *([1] * (se.dim() - 1)))
-    denom = torch.clamp(torch.sum(mask), min=1.0) * (se.numel() / se.shape[0])
+    denom = torch.clamp(torch.sum(mask), min=1.0) * float(math.prod(se.shape[1:]))
     return torch.sum(se * m) / denom
 
 
@@ -99,6 +100,14 @@ class DMVAE(Encoded):
             return []
         n, h = len(self.x_dims), self.hidden_dim
         return [(rows, h)] * (2 * n) + [(n * rows, h)] * (2 * n)
+
+    def drop_rows(self, masks, lo: int, hi: int):
+        """The keep-masks of :meth:`drop_shapes` at the batch's rows [lo, hi)
+        (each decoder's mask holds N blocks of the batch's rows)."""
+        n = len(self.x_dims)
+        return ([m[lo:hi] for m in masks[:2 * n]]
+                + [m.reshape(n, -1, m.shape[-1])[:, lo:hi].reshape(-1, m.shape[-1])
+                   for m in masks[2 * n:]])
 
     def get_embedding(self, xs, return_poe: bool = True):
         """(shared embedding, [private embedding per modality]), in eval mode."""

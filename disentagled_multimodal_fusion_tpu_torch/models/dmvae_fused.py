@@ -166,6 +166,10 @@ class FusedDMVAE(Encoded):
         n, h = len(self.x_dims), self.hidden_dim
         return [(rows, n, h)] * 2 + [(n, rows, n, h)] * 2
 
+    def drop_rows(self, masks, lo: int, hi: int):
+        """The keep-masks of :meth:`drop_shapes` at the batch's rows [lo, hi)."""
+        return [m[lo:hi] for m in masks[:2]] + [m[:, lo:hi] for m in masks[2:]]
+
     def forward(self, xs, noise, mask=None, drop_masks=None, enc_masks=None):
         """Training ELBO of N views (B, S_i) -> (loss, logs).
 

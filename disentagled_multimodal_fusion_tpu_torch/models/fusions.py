@@ -108,7 +108,7 @@ def _ones_column(m: torch.Tensor) -> torch.Tensor:
 def concat(modalities) -> torch.Tensor:
     """Flatten each modality past dim 0 and concat on dim 1
     (common_fusions.py:11-27)."""
-    return torch.cat([m.reshape(m.shape[0], -1) for m in modalities], dim=1)
+    return torch.cat([m.flatten(1) for m in modalities], dim=1)
 
 
 def concat_early(modalities) -> torch.Tensor:
@@ -118,7 +118,7 @@ def concat_early(modalities) -> torch.Tensor:
 
 def stack(modalities) -> torch.Tensor:
     """Flatten then stack on a new trailing dim (common_fusions.py:48-64)."""
-    return torch.stack([m.reshape(m.shape[0], -1) for m in modalities], dim=2)
+    return torch.stack([m.flatten(1) for m in modalities], dim=2)
 
 
 def tensor_fusion(modalities) -> torch.Tensor:
@@ -130,7 +130,7 @@ def tensor_fusion(modalities) -> torch.Tensor:
     m = _ones_column(modalities[0])
     for mod in modalities[1:]:
         fused = torch.einsum("...i,...j->...ij", m, _ones_column(mod))
-        m = fused.reshape(*nonfeature, -1)
+        m = fused.flatten(-2)
     return m
 
 
@@ -204,7 +204,7 @@ class MultiplicativeInteractions2Modal(nn.Module):
         if self.flip:
             m1, m2 = m2, m1
         if self.flatten:
-            m1, m2 = m1.reshape(m1.shape[0], -1), m2.reshape(m2.shape[0], -1)
+            m1, m2 = m1.flatten(1), m2.flatten(1)
         if self.clip is not None:
             m1, m2 = (torch.clamp(m, self.clip[0], self.clip[1]) for m in (m1, m2))
         d0, d1 = self.input_dims
@@ -270,7 +270,7 @@ class LowRankTensorFusion(nn.Module):
         fused = 1.0
         for i, (modality, d) in enumerate(zip(modalities, self.input_dims)):
             factor = getattr(self, f"factor_{i}").reshape(self.rank, d + 1, self.output_dim)
-            m = modality.reshape(batch, -1) if self.flatten else modality
+            m = modality.flatten(1) if self.flatten else modality
             fused = fused * torch.einsum("bi,rio->rbo", _ones_column(m), factor)
         out = torch.einsum("or,rbd->bd", self.fusion_weights, fused) + self.fusion_bias
         return out.reshape(-1, self.output_dim)
@@ -304,7 +304,7 @@ class NLgate(nn.Module):
         vin = self._proj(2, k).reshape(-1, self.tf_dim, self.c_dim)
         attn = torch.softmax(qin @ kin, dim=2)
         out = qin + attn @ vin
-        return out.reshape(out.shape[0], -1)
+        return out.flatten(1)
 
 
 class LayerNorm(nn.Module):
@@ -398,7 +398,7 @@ class LateFusionTransformer(nn.Module):
                                     for _ in range(3))
 
     def forward(self, x):
-        h = self.dense[0](x.reshape(x.shape[0], -1, 1))
+        h = self.dense[0](x.flatten(1)[..., None])
         for layer in self.layers:
             h = layer(h)
         return h[:, -1]

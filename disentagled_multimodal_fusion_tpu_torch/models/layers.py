@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.evidence import evidence_activation
+from ..parallel.distributed import all_reduce, current_row_split
 
 
 def norm_dtype(dtype) -> Optional[torch.dtype]:
@@ -171,13 +172,26 @@ def batch_norm(x, weight, bias, mean, var, train: bool, momentum: float = 0.99,
     the running ones move to ``momentum * old + (1 - momentum) * batch``
     (biased variance); in evaluation the running ones normalise and are
     returned unchanged. A bf16 x is normalised in f32 (the statistics too)
-    and the output rounded back to bf16 once, as flax does."""
+    and the output rounded back to bf16 once, as flax does.
+
+    Inside a data-parallel step (``parallel.distributed.row_split``) x holds
+    this rank's rows and the batch statistics are the global batch's, as
+    GSPMD computes the mean over a sharded axis: the sums of x and x^2 and
+    the count are summed over the ranks (with their gradients), and the
+    variance keeps flax's form E[x^2] - E[x]^2."""
     out_dtype, x = x.dtype, x.float()
     axes = [a for a in range(x.dim()) if a != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
     if train:
-        mu = torch.mean(x, dim=axes)
-        var_b = torch.clamp(torch.mean(x * x, dim=axes) - mu * mu, min=0.0)
+        if current_row_split() is None:
+            mu, ex2 = torch.mean(x, dim=axes), torch.mean(x * x, dim=axes)
+        else:
+            c = x.shape[1]
+            count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+            sums = all_reduce(torch.cat([torch.sum(x, dim=axes), torch.sum(x * x, dim=axes),
+                                         count]), differentiable=True)
+            mu, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var_b = torch.clamp(ex2 - mu * mu, min=0.0)
         new = (momentum * mean + (1.0 - momentum) * mu.detach(),
                momentum * var + (1.0 - momentum) * var_b.detach())
     else:
@@ -295,7 +309,7 @@ class ImageEncoder(_Encoder):
         b = x.shape[0]
         x = x.reshape(b, 3, 32, 32).to(self.layers[0].weight.dtype)
         x = self.blocks(x, drop_masks, self.keep)
-        x = x.permute(0, 2, 3, 1).reshape(b, -1)  # flax's NHWC flatten
+        x = x.permute(0, 2, 3, 1).flatten(1)  # flax's NHWC flatten
         return self._dense(x, self.layers, drop_masks, 3)
 
 

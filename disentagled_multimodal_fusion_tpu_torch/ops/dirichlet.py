@@ -29,7 +29,7 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         return torch.mean(x)
     mask = mask.to(x.dtype)
     m = mask.reshape((mask.shape[0],) + (1,) * (x.dim() - 1))
-    denom = torch.sum(mask) * (x.numel() / x.shape[0])
+    denom = torch.sum(mask) * float(math.prod(x.shape[1:]))
     return torch.sum(x * m) / torch.clamp(denom, min=1.0)
 
 

@@ -5,7 +5,8 @@ the ``C()`` dot-path getter, where a missing key falls back to the
 code-level default; the process-stable ``cell_seed``; the multi-sheet
 report, written without pandas through the port's copy of
 ``utils/xlsx.py`` with a CSV mirror of every sheet; ``--force-vmap-seeds``;
-and the sweep's generator seeds and checkpoint names.
+the mesh flags (``add_mesh_args``, ``build_runner_mesh``); and the sweep's
+generator seeds and checkpoint names.
 """
 
 from __future__ import annotations
@@ -106,8 +107,13 @@ def main_columns(table: Table, id_cols) -> Table:
 
 
 def write_report(tables: Dict[str, Table], excel_path: str) -> None:
-    """The multi-sheet .xlsx report plus one CSV per sheet beside it."""
+    """The multi-sheet .xlsx report plus one CSV per sheet beside it, by the
+    writing rank alone under a mesh."""
+    from ..parallel.distributed import is_writer
     from ..utils.xlsx import write_xlsx
+
+    if not is_writer():
+        return
 
     path = artifact_path(excel_path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -120,6 +126,65 @@ def write_report(tables: Dict[str, Table], excel_path: str) -> None:
             writer.writerow(table.columns)
             writer.writerows([("" if v is None else v) for v in r] for r in table.rows)
         print(f"wrote {out}")
+
+
+def add_mesh_args(parser) -> None:
+    """--data-parallel / --model-parallel (JAX ``runners/common.py:56-69``)."""
+    parser.add_argument(
+        "--data-parallel", type=int, default=1, metavar="N",
+        help="split the work over N ranks along the mesh 'data' axis (dataset rows for "
+             "single fits, the seed axis for --vmap-seeds); launch one process per rank, "
+             "e.g. torchrun --nproc-per-node N -m <runner> --data-parallel N")
+    parser.add_argument(
+        "--model-parallel", type=int, default=1, metavar="N",
+        help="tensor-parallel hidden-dim cut over N devices (mesh 'model' axis; not ported "
+             "yet)")
+
+
+def build_runner_mesh(data_parallel: int = 1, model_parallel: int = 1, device=None):
+    """(mesh, device) for the runner flags; the mesh is None when no
+    parallelism is asked for and no process group is launched.
+
+    Joins the process group first when the launcher's environment is there
+    (``parallel.distributed.initialize``, a no-op for one process). The mesh
+    must cover the group: --data-parallel x --model-parallel equals the world
+    size, else ``SystemExit`` names how to launch the ranks. A rank's device
+    is ``device`` when named, else the card ``cuda:{LOCAL_RANK}``; the ranks
+    talk over NCCL where each has a card of its own, else over gloo (the CPU,
+    or ranks that share a card: ``parallel.distributed.default_backend``).
+    """
+    from ..core.setup import resolve_device
+    from ..parallel.distributed import global_mesh, initialize, rank_device, world_size
+
+    multi = initialize(device=device)
+    n = data_parallel * model_parallel
+    if n <= 1 and not multi:
+        dev = resolve_device(device)
+        print(f"device: {device_name(dev)}", flush=True)
+        return None, dev
+    if n != world_size():
+        raise SystemExit(
+            f"--data-parallel x --model-parallel = {n} devices requested, but this process "
+            f"group has {world_size()} rank(s); launch one process per device, e.g. torchrun "
+            f"--nproc-per-node {n} -m <runner> --data-parallel {n} (each rank joins from RANK, "
+            f"WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT)")
+    mesh = global_mesh(model_parallel)
+    dev = resolve_device(rank_device(device))
+    import torch.distributed as dist
+
+    print(f"mesh: {mesh.shape} over {n} rank(s) ({dist.get_backend()}), this rank "
+          f"{mesh.rank} on {device_name(dev)}", flush=True)
+    return mesh, dev
+
+
+def device_name(device) -> str:
+    """``cuda:0 (NVIDIA H100 80GB HBM3)``, or ``cpu``."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device)
+    return f"{device} ({torch.cuda.get_device_name(device)})"
 
 
 def add_force_vmap_flag(parser) -> None:

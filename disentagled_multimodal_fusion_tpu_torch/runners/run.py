@@ -64,6 +64,19 @@ Engines:
 ``--probe-engine megakernel`` runs the sequential engine only (the epoch
 kernel has no seed-batched program), as in the JAX package; so does
 ``--backbone dssl``.
+
+``--data-parallel N`` (JAX lines 801, 833-837) runs the sweep as N ranks of
+a process group, one per card (``torchrun --nproc-per-node N``; with
+``--device cpu``, or ranks that share a card, they talk over gloo), each
+running the whole runner:
+every fit of the sequential engine splits each step's rows over the ranks
+(``core.train.train(mesh=)``) and each evaluation its test rows; the
+seed-batched engines split the seeds (their count must divide by N). The
+results are the same on every rank, and rank 0 alone writes the
+checkpoints, logs, rows file and report. ``--probe-engine megakernel`` is
+refused with it, as in the JAX package (the epoch kernel is one device's
+program). ``--model-parallel`` (the mesh's ``model`` axis) is not ported
+yet.
 ``--force-vmap-seeds`` is accepted for the JAX CLI's sake: the port never
 falls back from ``--vmap-seeds`` to the sequential engine.
 
@@ -134,7 +147,6 @@ import numpy as np
 import torch
 
 from ..core.logging import trace
-from ..core.setup import resolve_device
 
 CONDITIONS = (("Normal", False, False), ("Conflict", True, False), ("Noise", False, True))
 
@@ -298,12 +310,14 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
 
 
 def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: int,
-                 seeds: tuple, device, tag: str, drop_last: bool, fused_dmvae: bool = True):
+                 seeds: tuple, device, tag: str, drop_last: bool, fused_dmvae: bool = True,
+                 mesh=None):
     """Build and fit the cell's backbone, DMVAE (fused unless
     ``fused_dmvae`` is off) or DisentangledSSL (weights from generator seed
     ``seeds[0]``, fit draws from ``seeds[1]``), and print its fit time (and
     the vMF sampler's host syncs per epoch); returns (model, the probes'
-    input widths over it, {backbone_fit_seconds, vmf_syncs_per_epoch})."""
+    input widths over it, {backbone_fit_seconds, vmf_syncs_per_epoch}).
+    ``mesh`` splits each step's rows over its ranks."""
     from ..core.tasks import build_disentangledssl_task, dmvae_objective
     from ..core.train import Randomness, train
 
@@ -327,7 +341,7 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
                 optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
-                randomness=randomness, drop_last=drop_last)
+                randomness=randomness, drop_last=drop_last, mesh=mesh)
     fit_s = time.perf_counter() - t_fit
     syncs = randomness.vmf_syncs / st.dmvae_epochs
     print(f"  {tag} {backbone} fit: {fit_s:.2f} s, {1e3 * fit_s / st.dmvae_epochs:.3f} ms/epoch"
@@ -338,9 +352,10 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
 
 def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
                   noise=False, probe_engine="step", backbone="dmvae", fused_dmvae=True,
-                  intermediate_fusions=(), dtype=None):
+                  intermediate_fusions=(), dtype=None, mesh=None):
     """Train and evaluate the six models of one cell, and the intermediate
-    fusions asked for, into ``rows_out``."""
+    fusions asked for, into ``rows_out``; ``mesh`` splits every fit's and
+    evaluation's rows over its ranks."""
     from ..core.checkpoint import save_checkpoint
     from ..core.logging import log_training_csv
     from ..core.sweep_cell import head_data
@@ -371,7 +386,7 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
     model, widths, _ = fit_backbone(
         C=C, st=st, backbone=backbone, dims=dims, xs_tr=xs_tr, n_train=n_train,
         seeds=(slot(0), slot(1)), device=device, tag=f"[{dataset_name}/{cond}/seed{seed}]",
-        drop_last=backbone == "dssl", fused_dmvae=fused_dmvae)
+        drop_last=backbone == "dssl", fused_dmvae=fused_dmvae, mesh=mesh)
     save_checkpoint(backbone_checkpoint(dataset_name, seed, cond, backbone), model,
                     {"dataset": dataset_name, "seed": seed, "cond": cond})
     data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_te),
@@ -397,12 +412,12 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
             model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
             optimizer=task.optimizer, epochs=st.probe_epochs, batch_size=st.batch_size,
             randomness=Randomness(fit_seed, device), val_fn=task.val_fn, val_data=te_data,
-            megakernel=task.megakernel if probe_engine == "megakernel" else None,
+            megakernel=task.megakernel if probe_engine == "megakernel" else None, mesh=mesh,
         )
         fit_s = time.perf_counter() - t_fit
         evaluate = (evaluate_subjective_model_with_shared if shared_layout
                     else evaluate_subjective_model)
-        info = evaluate(task, te_data)
+        info = evaluate(task, te_data, mesh)
         model_name = head_name(name, dataset_name, seed, cond)
         log_training_csv(model_name, res_m)
         info["path"] = save_checkpoint(f"checkpoints/{model_name}", task.model,
@@ -523,11 +538,12 @@ def _write_job(job, fetched, seeds, dataset_name, cond, rows_by_seed, **extra):
 
 
 def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
-                          noise=False, fused_dmvae=True, intermediate_fusions=(), dtype=None):
+                          noise=False, fused_dmvae=True, intermediate_fusions=(), dtype=None,
+                          mesh=None):
     """All seeds of one cell at once, each fit a ``train_many`` over the
     stacked seeds, its results fetched and written when it ends. Every head
     row carries ``fit_seconds`` (its seed-batched fit, evaluation and fetch)
-    and ``backbone_fit_seconds``."""
+    and ``backbone_fit_seconds``. ``mesh`` splits the seeds over its ranks."""
     from ..core.sweep_cell import fit_job, head_data
     from ..core.tasks import embed_many
     from ..core.train import stack_params, train_many
@@ -544,7 +560,7 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
     res = train_many(model=cell.backbones[0], params=stack_params(cell.backbones),
                      loss_fn=cell.bb_loss_fn, data={"xs": xs_tr}, n_train=cell.n_train,
                      optimizer=cell.bb_optimizer, epochs=st.dmvae_epochs,
-                     batch_size=st.batch_size, randomness=cell.bb_randomness)
+                     batch_size=st.batch_size, randomness=cell.bb_randomness, mesh=mesh)
     last = res.train_loss[:, -1].tolist()
     bb_s = time.perf_counter() - t_fit
     print(f"  {tag} dmvae fit x{s_count} seeds: {bb_s:.2f} s, "
@@ -555,7 +571,7 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
                      embed_many(cell.backbones[0], res.params, xs_te), xs_tr, xs_te, y_tr, y_te)
     for job in cell.jobs:
         t_fit = time.perf_counter()
-        fetched = fetch(fit_job(job, data[job.kind], cell.n_train, st.batch_size))
+        fetched = fetch(fit_job(job, data[job.kind], cell.n_train, st.batch_size, mesh=mesh))
         fit_s = time.perf_counter() - t_fit
         accs = _write_job(job, fetched, seeds, dataset_name, cell.cond, rows_by_seed,
                           fit_seconds=fit_s, backbone_fit_seconds=bb_s)
@@ -567,7 +583,7 @@ def run_condition_vmapped(*, C, seeds, dataset_name, conflict, quick, device, ro
 
 def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, rows_by_seed,
                          noise=False, fused_dmvae=True, intermediate_fusions=(),
-                         defer_artifacts=False, dtype=None):
+                         defer_artifacts=False, dtype=None, mesh=None):
     """The whole cell, all seeds, in one ``core.sweep_cell.run_cell`` call
     with one fetch at its end; the same fits as :func:`run_condition_vmapped`.
 
@@ -591,7 +607,7 @@ def run_condition_onejit(*, C, seeds, dataset_name, conflict, quick, device, row
         backbone=cell.backbones[0], bb_params=stack_params(cell.backbones),
         bb_loss_fn=cell.bb_loss_fn, bb_optimizer=cell.bb_optimizer, bb_epochs=st.dmvae_epochs,
         bb_randomness=cell.bb_randomness, jobs=cell.jobs, xs_tr=xs_tr, xs_te=xs_te, y_tr=y_tr,
-        y_te=y_te, n_train=cell.n_train, batch_size=st.batch_size,
+        y_te=y_te, n_train=cell.n_train, batch_size=st.batch_size, mesh=mesh,
     )
     ready = None
     if device.type == "cuda":
@@ -662,12 +678,12 @@ def write_sweep_report(rows, excel_path):
 
 
 # options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--data-parallel/--model-parallel",)
+NOT_PORTED = ("--model-parallel",)
 
 
 def parse_args(argv=None):
     from ..models.fusions import INTERMEDIATE_FUSIONS
-    from .common import add_force_vmap_flag
+    from .common import add_force_vmap_flag, add_mesh_args
 
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -714,8 +730,7 @@ def parse_args(argv=None):
                         help="the products' compute type (parameters, optimizer state and "
                              "losses stay float32); bfloat16 runs the backbone's and the "
                              "heads' products in bf16")
-    parser.add_argument("--data-parallel", type=int, default=1)
-    parser.add_argument("--model-parallel", type=int, default=1)
+    add_mesh_args(parser)
     add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
     if args.probe_engine == "megakernel" and (args.vmap_seeds or args.one_program_cells):
@@ -732,19 +747,21 @@ def parse_args(argv=None):
     if args.include_intermediate and "concat" not in fusions:
         fusions.insert(0, "concat")
     args.intermediate_fusion = fusions
-    used = [flag for flag, on in zip(NOT_PORTED, (
-        args.data_parallel > 1 or args.model_parallel > 1,)) if on]
+    used = [flag for flag, on in zip(NOT_PORTED, (args.model_parallel > 1,)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
+    if args.probe_engine == "megakernel" and args.data_parallel > 1:
+        parser.error("--probe-engine megakernel is single-device (probe fits are KB-scale; mesh "
+                     "parallelism applies to the fits of the step loop)")
     return args
 
 
 def main(argv=None):
     """Run the sweep; returns rows[seed][condition][dataset][model]."""
-    from .common import load_config, make_getter
+    from .common import build_runner_mesh, load_config, make_getter
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = build_runner_mesh(args.data_parallel, args.model_parallel, args.device)
     C = make_getter(load_config())
     seeds = args.seeds if args.seeds is not None else C("experiment.seeds", [0, 1, 2, 3, 4])
     normal_ds = args.datasets or C("experiment.normal_datasets",
@@ -763,7 +780,7 @@ def main(argv=None):
     # a sweep that raises still writes its trace
     with trace("uq_sweep", enabled=args.profile):
         if args.vmap_seeds or args.one_program_cells:
-            _run_seed_batched(args, C, seeds, cells, device, rows, rows_file)
+            _run_seed_batched(args, C, seeds, cells, device, rows, rows_file, mesh)
         else:
             for seed in seeds:
                 for cond_name, ds_name, is_conflict, is_noise in cells:
@@ -778,7 +795,7 @@ def main(argv=None):
                                   rows_out=by_ds[ds_name], probe_engine=args.probe_engine,
                                   backbone=args.backbone, fused_dmvae=not args.no_fused_dmvae,
                                   intermediate_fusions=args.intermediate_fusion,
-                                  dtype=args.dtype)
+                                  dtype=args.dtype, mesh=mesh)
                     rows_file.save(rows)
     if not args.skip_report:
         report = Path(C("logging.datasets_excel_path", "logs/dataset_analysis.xlsx"))
@@ -815,14 +832,20 @@ class RowsFile:
         return rows
 
     def save(self, rows) -> None:
+        """Write the file (rank 0 alone under a process group; the others wait
+        for it, so that every rank of a rerun finds the same cells)."""
+        from ..parallel.distributed import barrier, is_writer
+
         if self.path is None:
             return
-        tmp = self.path.with_suffix(".tmp")
-        tmp.write_text(json.dumps(rows))
-        tmp.replace(self.path)
+        if is_writer():
+            tmp = self.path.with_suffix(".tmp")
+            tmp.write_text(json.dumps(rows))
+            tmp.replace(self.path)
+        barrier()
 
 
-def _run_seed_batched(args, C, seeds, cells, device, rows, rows_file):
+def _run_seed_batched(args, C, seeds, cells, device, rows, rows_file, mesh=None):
     """The cells through ``--vmap-seeds`` or ``--one-program-cells``. A
     one-program cell's artifacts are written on a thread while the next
     cell runs; at most one such thread is outstanding, and it is joined
@@ -853,7 +876,8 @@ def _run_seed_batched(args, C, seeds, cells, device, rows, rows_file):
             kw = dict(C=C, seeds=seeds, dataset_name=ds_name, conflict=is_conflict,
                       noise=is_noise, quick=args.quick, device=device, rows_by_seed=rows_by_seed,
                       fused_dmvae=not args.no_fused_dmvae,
-                      intermediate_fusions=args.intermediate_fusion, dtype=args.dtype)
+                      intermediate_fusions=args.intermediate_fusion, dtype=args.dtype,
+                      mesh=mesh)
             if not args.one_program_cells:
                 run_condition_vmapped(**kw)
                 record(cond_name, ds_name, rows_by_seed)

@@ -75,8 +75,16 @@ them (its lines 222-229 give them no dtype); parameters, Adam's state, the
 losses and the BatchNorm statistics stay float32, so the checkpoints keep
 their format.
 
-The port runs on the CUDA card unless ``--device cpu``. Not ported yet
-(``ROADMAP.md``): the mesh flags.
+``--data-parallel N`` (JAX line 106) runs the protocol as N ranks of a
+process group (``runners/run.py``'s docstring): rank 0 featurizes the
+corpus and sends the arrays to every rank (:func:`luma_features`), every
+sequential fit splits each step's rows over the ranks (the
+encoders' BatchNorm moments are the global batch's), every evaluation its
+test and OOD rows, ``--vmap-seeds`` splits the seeds (their count must
+divide by N), and rank 0 writes the files. ``--model-parallel`` is not
+ported yet.
+
+The port runs on the CUDA card unless ``--device cpu``.
 
 Example:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_luma \\
@@ -92,10 +100,8 @@ import time
 import numpy as np
 import torch
 
-from ..core.setup import resolve_device
-
 # options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--data-parallel/--model-parallel",)
+NOT_PORTED = ("--model-parallel",)
 ENC_OUT = 200  # the Audio/Text/Image encoders' output width
 # the seed-batched engine's intermediate jobs: job j >= 6 takes its weights
 # from intermediate_seed(seed, VMAP_INIT + j - 6) and its fit from
@@ -184,17 +190,43 @@ def head_checkpoint(name: str, seed: int) -> str:
     return f"checkpoints/{name}_fusion_dsLUMA_seed{seed}"
 
 
+def luma_features(data_path, audio_cfg, text_cfg, image_cfg, replicate_image_bug=False,
+                  use_ood=False, ood_eval=False):
+    """The featurized corpus: (xs_tr, y_tr, xs_te, y_te, num_classes, dims,
+    ood), ``ood`` the held-out OOD test rows (xs, y) with ``ood_eval``, else
+    None. Under a process group rank 0 alone featurizes (or reads the cache)
+    and broadcasts the arrays, so every rank holds the same global dataset:
+    without a BERT vocabulary the text ids are ``hash(word)``, which Python
+    salts per process."""
+    from ..data.luma import get_luma_arrays, get_luma_ood_arrays
+    from ..parallel.distributed import from_rank0
+
+    def featurize():
+        xs_tr, y_tr, xs_te, y_te, num_classes, _, dims = get_luma_arrays(
+            data_path, audio_cfg, text_cfg, image_cfg, replicate_image_bug=replicate_image_bug,
+            use_ood=use_ood)
+        ood = None
+        if ood_eval:
+            xs_ood, y_ood, _ = get_luma_ood_arrays(data_path, audio_cfg, text_cfg, image_cfg,
+                                                   replicate_image_bug=replicate_image_bug)
+            ood = (xs_ood, y_ood)
+        return xs_tr, y_tr, xs_te, y_te, num_classes, dims, ood
+
+    return from_rank0(featurize)
+
+
 def to_device(arrays, device):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
-def ood_info(task, id_data, ood_data, num_classes: int):
-    """OOD-vs-ID AUROCs from the fused evidence of each split."""
+def ood_info(task, id_data, ood_data, num_classes: int, mesh=None):
+    """OOD-vs-ID AUROCs from the fused evidence of each split (``mesh``
+    splits each split's rows over its ranks)."""
     from ..eval.analysis import task_evidences
     from ..eval.ood import evaluate_ood
 
-    ev_id = task.aggregation(task_evidences(task, id_data))
-    ev_ood = task.aggregation(task_evidences(task, ood_data))
+    ev_id = task.aggregation(task_evidences(task, id_data, mesh))
+    ev_ood = task.aggregation(task_evidences(task, ood_data, mesh))
     return evaluate_ood(ev_id, ev_ood, num_classes)
 
 
@@ -226,21 +258,21 @@ def ood_labels(data):
 
 
 def finish_job(*, name: str, fusion, task, result, seed: int, te_data, ood_data,
-               num_classes: int, fit_s: float, probe_epochs: int) -> dict:
+               num_classes: int, fit_s: float, probe_epochs: int, mesh=None) -> dict:
     """A fitted model's row: its evaluation (``dmvae_dis`` and the
     intermediate fusions in the per-view layout, the others with the shared
     layout), OOD AUROCs when ``ood_data`` is given, its training log and its
-    checkpoint."""
+    checkpoint. ``mesh`` splits the evaluations' rows over its ranks."""
     from ..core.checkpoint import save_checkpoint
     from ..core.logging import log_training_csv
     from ..eval.analysis import evaluate_subjective_model, evaluate_subjective_model_with_shared
 
     if name == "dmvae_dis" or fusion is not None:
-        info = evaluate_subjective_model(task, te_data)
+        info = evaluate_subjective_model(task, te_data, mesh)
     else:
-        info = evaluate_subjective_model_with_shared(task, te_data)
+        info = evaluate_subjective_model_with_shared(task, te_data, mesh)
     if ood_data is not None:
-        info["ood"] = ood_info(task, te_data, ood_data, num_classes)
+        info["ood"] = ood_info(task, te_data, ood_data, num_classes, mesh)
     log_training_csv(f"{name}_fusion_dsLUMA_seed{seed}", result)
     info["path"] = save_checkpoint(head_checkpoint(name, seed), task.model,
                                    {"model": name, "dataset": "LUMA", "seed": seed})
@@ -251,10 +283,12 @@ def finish_job(*, name: str, fusion, task, result, seed: int, te_data, ood_data,
 
 
 def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs: int,
-             probe_epochs: int, device, fused_dmvae: bool, rows_out: dict, dtype=None):
+             probe_epochs: int, device, fused_dmvae: bool, rows_out: dict, dtype=None,
+             mesh=None):
     """Fit and evaluate one seed's models into ``rows_out``. ``data``:
     {'xs_tr', 'y_tr', 'xs_te', 'y_te', 'xs_ood' (or None)}; ``jobs``:
-    [(name, seed -> task, fusion or None)] in the protocol's order."""
+    [(name, seed -> task, fusion or None)] in the protocol's order. ``mesh``
+    splits every fit's and evaluation's rows over its ranks."""
     from ..core.checkpoint import save_checkpoint
     from ..core.tasks import dmvae_objective
     from ..core.train import Randomness, train
@@ -272,7 +306,8 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
     loss_fn, opt = dmvae_objective(model, lr=C("dmvae.lr", 1e-4), num_epochs=dmvae_epochs)
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train, optimizer=opt,
-                epochs=dmvae_epochs, batch_size=batch_size, randomness=Randomness(slot(1), device))
+                epochs=dmvae_epochs, batch_size=batch_size, randomness=Randomness(slot(1), device),
+                mesh=mesh)
     fit_s = time.perf_counter() - t_fit
     save_checkpoint(backbone_checkpoint(seed), model, {"dataset": "LUMA", "seed": seed})
     print(f"[seed {seed}] DMVAE trained: {fit_s:.2f} s, {1e3 * fit_s / dmvae_epochs:.3f} ms/epoch, "
@@ -296,20 +331,22 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
         res_m = train(model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
                       optimizer=task.optimizer, epochs=probe_epochs, batch_size=batch_size,
                       randomness=Randomness(fit_seed, device), val_fn=task.val_fn,
-                      val_data=te_data)
+                      val_data=te_data, mesh=mesh)
         rows_out[name] = finish_job(
             name=name, fusion=fusion, task=task, result=res_m, seed=seed, te_data=te_data,
             ood_data=late_ood if views else probe_ood, num_classes=num_classes,
-            fit_s=time.perf_counter() - t_fit, probe_epochs=probe_epochs)
+            fit_s=time.perf_counter() - t_fit, probe_epochs=probe_epochs, mesh=mesh)
     print(f"[seed {seed}] done in {time.time() - t0:.1f}s", flush=True)
 
 
 def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_epochs: int,
                       probe_epochs: int, device, fused_dmvae: bool, segment_epochs, rows: dict,
-                      dtype=None):
+                      dtype=None, mesh=None):
     """Fit and evaluate every seed's models into ``rows[seed]['Normal']
     ['LUMA']``, each model of all seeds in one ``train_many`` (module
-    docstring); ``rows[seed]`` already holds each seed's skip rows."""
+    docstring); ``rows[seed]`` already holds each seed's skip rows. ``mesh``
+    splits each ``train_many``'s seeds and each evaluation's rows over its
+    ranks."""
     from ..core.checkpoint import save_checkpoint
     from ..core.tasks import dmvae_objective
     from ..core.train import (
@@ -336,7 +373,7 @@ def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_ep
                          batch_size=batch_size, randomness=[Randomness(f, device)
                                                             for f in fit_seeds],
                          val_fn=val_fn, val_data=te_data, data_broadcast=broadcast,
-                         segment_epochs=segment_epochs)
+                         segment_epochs=segment_epochs, mesh=mesh)
         load_params(models, res.params, res.state.model_state)
         hist = torch.stack([res.train_loss, res.val_loss, res.val_acc]).cpu().numpy()
         lrs = res.final_lr.cpu().numpy()
@@ -383,7 +420,7 @@ def run_seeds_batched(*, C, seeds, data, specs, jobs, num_classes: int, dmvae_ep
             rows[s]["Normal"]["LUMA"][name] = finish_job(
                 name=name, fusion=fusion, task=task, result=results[i], seed=s,
                 te_data=te_data if views else embedded[i][1], ood_data=ood,
-                num_classes=num_classes, fit_s=fit_s, probe_epochs=probe_epochs)
+                num_classes=num_classes, fit_s=fit_s, probe_epochs=probe_epochs, mesh=mesh)
         accs = [rows[s]["Normal"]["LUMA"][name]["fused"]["accuracy"] for s in seeds]
         print(f"{name} x{s_count}: fused_acc {np.mean(accs):.4f} +/- {np.std(accs):.4f}, fit "
               f"{fit_s:.2f} s, {1e3 * fit_s / probe_epochs:.3f} ms/epoch", flush=True)
@@ -396,6 +433,7 @@ def write_reports(rows, seeds):
     OOD AUROCs, ``logs/luma_ood.json``. Returns the OOD summary ({} without)."""
     from ..core.artifacts import artifact_path
     from ..eval.analysis import build_metrics_rows_datasets
+    from ..parallel.distributed import is_writer
     from .common import Table, group_mean, main_columns, write_report
 
     rows = {s: {cond: {ds: {m: v for m, v in models.items() if "skipped" not in v}
@@ -419,9 +457,10 @@ def write_reports(rows, seeds):
         return {}
     summary = {name: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
                for name, rs in ood_rows.items()}
-    path = artifact_path("logs/luma_ood.json")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps({"mean": summary, "per_seed": ood_rows}, indent=1))
+    if is_writer():
+        path = artifact_path("logs/luma_ood.json")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"mean": summary, "per_seed": ood_rows}, indent=1))
     for name, s in summary.items():
         print(f"OOD {name}: " + " ".join(f"{k}={v:.3f}" for k, v in s.items()), flush=True)
     print("OOD AUROC written to logs/luma_ood.json", flush=True)
@@ -430,7 +469,7 @@ def write_reports(rows, seeds):
 
 def parse_args(argv=None):
     from ..models.fusions import INTERMEDIATE_FUSIONS
-    from .common import add_force_vmap_flag
+    from .common import add_force_vmap_flag, add_mesh_args
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -473,12 +512,10 @@ def parse_args(argv=None):
                         help="the products' compute type (parameters, optimizer state, losses "
                              "and BatchNorm statistics stay float32); bfloat16 runs the DMVAE's "
                              "and the heads' products in bf16")
-    parser.add_argument("--data-parallel", type=int, default=1)
-    parser.add_argument("--model-parallel", type=int, default=1)
+    add_mesh_args(parser)
     add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
-    used = [flag for flag, on in zip(NOT_PORTED, (
-        args.data_parallel > 1 or args.model_parallel > 1,)) if on]
+    used = [flag for flag, on in zip(NOT_PORTED, (args.model_parallel > 1,)) if on]
     if used:
         parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     if args.use_ood and args.ood_eval:
@@ -496,13 +533,12 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Run the protocol; returns rows[seed]['Normal']['LUMA'][model]."""
-    from ..data.luma import get_luma_ood_arrays, get_luma_arrays
     from ..models.fusions import fusion_dim
-    from .common import load_config, make_getter
+    from .common import build_runner_mesh, load_config, make_getter
     from .run import RowsFile, intermediate_job_name
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = build_runner_mesh(args.data_parallel, args.model_parallel, args.device)
     C = make_getter(load_config("luma_config.yaml"))
     seeds = args.seeds if args.seeds is not None else C("experiment.seeds", [0, 1, 2, 3, 4])
     data_path = args.data_path or C("data.luma_path", "data/luma_compiled")
@@ -513,14 +549,12 @@ def main(argv=None):
     specs = encoder_specs(audio_cfg, text_cfg)
 
     t_feat = time.perf_counter()
-    xs_tr, y_tr, xs_te, y_te, num_classes, _, dims = get_luma_arrays(
-        data_path, audio_cfg, text_cfg, image_cfg, replicate_image_bug=args.replicate_image_bug,
-        use_ood=args.use_ood)
+    xs_tr, y_tr, xs_te, y_te, num_classes, dims, ood = luma_features(
+        data_path, audio_cfg, text_cfg, image_cfg, args.replicate_image_bug, args.use_ood,
+        args.ood_eval)
     xs_ood = None
-    if args.ood_eval:
-        xs_ood_np, y_ood_np, _ = get_luma_ood_arrays(
-            data_path, audio_cfg, text_cfg, image_cfg,
-            replicate_image_bug=args.replicate_image_bug)
+    if ood is not None:
+        xs_ood_np, y_ood_np = ood
         if len(y_ood_np) == 0:
             print("--ood-eval: corpus declares no held-out OOD classes; skipping OOD scoring",
                   flush=True)
@@ -572,7 +606,8 @@ def main(argv=None):
                               num_classes=num_classes, dmvae_epochs=dmvae_epochs,
                               probe_epochs=probe_epochs, device=device,
                               fused_dmvae=not args.no_fused_dmvae,
-                              segment_epochs=args.segment_epochs, rows=rows, dtype=args.dtype)
+                              segment_epochs=args.segment_epochs, rows=rows, dtype=args.dtype,
+                              mesh=mesh)
             rows_file.save(rows)
     sequential = [] if args.vmap_seeds and len(seeds) > 1 else seeds
     for seed in sequential:
@@ -583,7 +618,7 @@ def main(argv=None):
         run_seed(C=C, seed=seed, data=data, specs=specs, jobs=jobs, num_classes=num_classes,
                  dmvae_epochs=dmvae_epochs, probe_epochs=probe_epochs, device=device,
                  fused_dmvae=not args.no_fused_dmvae, rows_out=rows[seed]["Normal"]["LUMA"],
-                 dtype=args.dtype)
+                 dtype=args.dtype, mesh=mesh)
         rows_file.save(rows)
     write_reports(rows, seeds)
     print(f"LUMA protocol done in {time.time() - t_start:.1f}s", flush=True)

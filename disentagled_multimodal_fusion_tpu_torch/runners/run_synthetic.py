@@ -52,8 +52,13 @@ their low 32 bits never meet a sequential slot.
 checkpoint names). ``--dtype bfloat16`` (JAX lines 74-79) runs the DMVAE
 backbone, the probe and late fusion with the bf16 compute type; the
 DisentangledSSL backbone stays float32, as the JAX help text says (lines
-47-51). Refused as not ported yet: the mesh flags. ``--force-vmap-seeds``
-is accepted and changes nothing.
+47-51). ``--data-parallel N`` (JAX line 64) runs the sweep as N ranks of a
+process group (``runners/run.py``'s docstring): each fit's rows, the DSSL
+backbone's SupCon negatives and orthogonality penalty included, are split
+over the ranks, ``--vmap-seeds`` splits the seeds, and rank 0 writes the
+files; ``--probe-engine megakernel`` then trains the probe through the step
+loop, as in the JAX package. ``--model-parallel`` is not ported yet.
+``--force-vmap-seeds`` is accepted and changes nothing.
 
 Examples:
   python -m disentagled_multimodal_fusion_tpu_torch.runners.run_synthetic \
@@ -71,8 +76,6 @@ import time
 
 import numpy as np
 import torch
-
-from ..core.setup import resolve_device
 
 BATCH_SIZE = 128  # reference: make_loaders_simple_plus default
 # the med preset's values: the reference's effective code defaults
@@ -172,7 +175,7 @@ def _upload(arrays, device):
 
 
 def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_engine: str,
-             quick: bool, device, rows_out: dict, fused_dmvae: bool = True):
+             quick: bool, device, rows_out: dict, fused_dmvae: bool = True, mesh=None):
     """Train and evaluate the three models of one (seed, dep) cell into
     ``rows_out``; each row also carries its fit's wall time and the
     backbone's (and, over DSSL, the vMF sampler's host syncs per epoch)."""
@@ -198,7 +201,7 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
     model, widths, bb_info = fit_backbone(C=C, st=st, backbone=backbone, dims=view_dims,
                                           xs_tr=xs_tr, n_train=n_train, seeds=(slot(0), slot(4)),
                                           device=device, tag=tag, drop_last=True,
-                                          fused_dmvae=fused_dmvae)
+                                          fused_dmvae=fused_dmvae, mesh=mesh)
     save_checkpoint(f"checkpoints/{checkpoint_name('backbone', seed, dep, backbone)}", model,
                     {"seed": seed, "dep": dep, "model": backbone})
     data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_va), xs_tr, xs_va,
@@ -213,11 +216,12 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
                     optimizer=task.optimizer, epochs=epochs, batch_size=BATCH_SIZE,
                     randomness=Randomness(slot(5 + j), device), val_fn=task.val_fn,
                     val_data=va_data, drop_last=True,
-                    megakernel=task.megakernel if probe_engine == "megakernel" else None)
+                    megakernel=task.megakernel if probe_engine == "megakernel" else None,
+                    mesh=mesh)
         fit_s = time.perf_counter() - t_fit
         evaluate = (evaluate_subjective_model_with_shared if shared_layout
                     else evaluate_subjective_model)
-        info = evaluate(task, va_data)
+        info = evaluate(task, va_data, mesh)
         name = checkpoint_name(label, seed, dep)
         log_training_csv(name, res)
         info["path"] = save_checkpoint(f"checkpoints/{name}", task.model,
@@ -233,7 +237,7 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
 
 
 def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, device, rows: dict,
-                    fused_dmvae: bool = True):
+                    fused_dmvae: bool = True, mesh=None):
     """All seeds of one dep at once (DMVAE backbone): each fit one
     ``train_many`` over the stacked seeds, its results fetched and written
     per seed under the sequential engine's names. Rows carry ``fit_seconds``
@@ -268,7 +272,7 @@ def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, devic
                      data={"xs": xs_tr}, n_train=n_train, optimizer=opt,
                      epochs=st.dmvae_epochs, batch_size=BATCH_SIZE,
                      randomness=[Randomness(fold_seed(s, 1), device) for s in seeds],
-                     drop_last=True)
+                     drop_last=True, mesh=mesh)
     last = res.train_loss[:, -1].tolist()
     bb_s = time.perf_counter() - t_fit
     print(f"  [dep {dep}] dmvae fit x{len(seeds)} seeds: {bb_s:.2f} s, "
@@ -286,7 +290,8 @@ def run_dep_vmapped(*, C, st, seeds, dep: int, data_kw: dict, quick: bool, devic
                       randomness=[Randomness(fold_seed(s, 100 + j), device) for s in seeds],
                       kind=kind, epochs=epochs, shared_layout=shared_layout)
         t_fit = time.perf_counter()
-        fetched = fetch(fit_job(job, data[kind], n_train, BATCH_SIZE, drop_last=True))
+        fetched = fetch(fit_job(job, data[kind], n_train, BATCH_SIZE, drop_last=True,
+                                mesh=mesh))
         fit_s = time.perf_counter() - t_fit
         per_seed = job_rows(job, fetched, seeds)
         load_params([t.model for t in job.tasks], fetched["params"])
@@ -332,7 +337,7 @@ def write_synthetic_report(rows, excel_path: str):
 
 
 def parse_args(argv=None):
-    from .common import add_force_vmap_flag
+    from .common import add_force_vmap_flag, add_mesh_args
 
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -362,9 +367,7 @@ def parse_args(argv=None):
                         help="the products' compute type for the DMVAE, probe and late-fusion "
                              "fits (parameters, optimizer state and losses stay float32; the "
                              "DisentangledSSL backbone always runs float32)")
-    # options of the JAX runner that the port does not have yet (ROADMAP.md)
-    parser.add_argument("--data-parallel", type=int, default=1)
-    parser.add_argument("--model-parallel", type=int, default=1)
+    add_mesh_args(parser)
     add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
     if args.probe_engine == "megakernel" and args.vmap_seeds:
@@ -373,17 +376,17 @@ def parse_args(argv=None):
     if args.backbone == "dssl" and args.vmap_seeds:
         parser.error("--vmap-seeds trains the DMVAE backbone only (the SSL backbone has no "
                      "seed-batched trainer, as in the JAX package)")
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        parser.error("--data-parallel/--model-parallel: not ported yet (see ROADMAP.md)")
+    if args.model_parallel > 1:
+        parser.error("--model-parallel: not ported yet (see ROADMAP.md)")
     return args
 
 
 def main(argv=None):
     """Run the sweep; returns rows[seed][dep][model]."""
-    from .common import load_config, make_getter
+    from .common import build_runner_mesh, load_config, make_getter
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, device = build_runner_mesh(args.data_parallel, args.model_parallel, args.device)
     C = make_getter(load_config("synthetic_config.yaml"))
     seeds = args.seeds if args.seeds is not None else C("experiment.seeds", [0, 1, 2, 3, 4])
     deps = args.deps if args.deps is not None else C("experiment.deps", [0, 25, 50, 75, 100])
@@ -395,14 +398,14 @@ def main(argv=None):
         for dep in deps:
             run_dep_vmapped(C=C, st=st, seeds=seeds, dep=dep, data_kw=data_kw,
                             quick=args.quick, device=device, rows=rows,
-                            fused_dmvae=not args.no_fused_dmvae)
+                            fused_dmvae=not args.no_fused_dmvae, mesh=mesh)
     else:
         for seed in seeds:
             for dep in deps:
                 run_cell(C=C, st=st, seed=seed, dep=dep, data_kw=data_kw,
                          backbone=args.backbone, probe_engine=args.probe_engine,
                          quick=args.quick, device=device, rows_out=rows[seed].setdefault(dep, {}),
-                         fused_dmvae=not args.no_fused_dmvae)
+                         fused_dmvae=not args.no_fused_dmvae, mesh=mesh)
     write_synthetic_report(rows, C("logging.excel_path", "logs/synthetic_dataset.xlsx"))
     print(f"sweep done in {time.time() - t_start:.1f}s")
     return rows

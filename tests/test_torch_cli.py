@@ -22,8 +22,8 @@
   with ``--ood-eval``, prints its ``LUMA protocol done`` line and writes its
   reports and checkpoints, and ``runners/evaluate.py --dataset LUMA``
   reports the fused accuracy it printed; ``run_luma.py`` refuses the flags
-  it does not have yet (the mesh, also beside ``--dtype bfloat16``, which
-  runs) with a parser error that points at ROADMAP.md (``--vmap-seeds`` and ``--segment-epochs`` run:
+  it does not have yet (the mesh's model axis, also beside ``--dtype
+  bfloat16`` and ``--data-parallel``, which run) with a parser error that points at ROADMAP.md (``--vmap-seeds`` and ``--segment-epochs`` run:
   tests/test_torch_luma_seed_batched.py).
 """
 
@@ -195,12 +195,14 @@ def test_evaluate_luma_reports_the_runs_fused_accuracy_when_run_as_a_module(luma
     assert abs(info["fused"]["accuracy"] - printed) <= 5e-5 + 1e-12, (info["fused"], printed)
 
 
-@pytest.mark.parametrize("flags", [["--dtype", "bfloat16", "--data-parallel", "2"],
-                                   ["--data-parallel", "2"], ["--model-parallel", "2"]],
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16", "--model-parallel", "2"],
+                                   ["--data-parallel", "2", "--model-parallel", "2"],
+                                   ["--model-parallel", "2"]],
                          ids=["bfloat16", "data_parallel", "model_parallel"])
 def test_run_luma_refuses_what_is_not_ported(flags, capsys):
-    """The mesh flags are refused, with --dtype bfloat16 too (which runs
-    alone: tests/test_torch_bf16_runs.py)."""
+    """The mesh's model axis is refused, with --dtype bfloat16 and
+    --data-parallel too (which run alone: tests/test_torch_bf16_runs.py,
+    tests/test_torch_parallel.py)."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
 
     with pytest.raises(SystemExit) as exit_info:

@@ -142,7 +142,7 @@ def test_cli_trains_a_quick_cell_on_the_cpu_and_writes_the_report(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--backbone", "dssl", "--vmap-seeds"], ["--dtype", "float16"],
-    ["--intermediate-fusion", "lrtf", "nope"], ["--data-parallel", "2"],
+    ["--intermediate-fusion", "lrtf", "nope"], ["--model-parallel", "2"],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
     """Among them a compute type other than float32 and bfloat16 (bfloat16
@@ -339,10 +339,11 @@ print(len(names))
 
 
 def test_only_bfloat16_and_the_mesh_are_not_ported():
-    """Only the mesh is left: --dtype bfloat16 runs since the bf16 slice."""
+    """Only the mesh's model axis is left: --dtype bfloat16 runs since the
+    bf16 slice, --data-parallel since the data-axis slice."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
-    assert runner.NOT_PORTED == ("--data-parallel/--model-parallel",)
+    assert runner.NOT_PORTED == ("--model-parallel",)
     assert runner.parse_args(["--dtype", "bfloat16"]).dtype == "bfloat16"
     args = runner.parse_args(["--include-intermediate", "--intermediate-fusion", "lrtf", "mi3",
                               "--rows-file", "rows.json", "--profile", "--no-fused-dmvae"])
