@@ -234,13 +234,42 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     CUDA_VISIBLE_DEVICES=0`` over HandWritten and CUB ``--quick``: its
     merged rows equal one process's at rtol 1e-6 and each worker's log
     names the card. (c)'s workers run beside (a)'s ranks; (b), whose host
-    times are read, runs alone.
+    times are read, runs alone;
+28. the mesh's model axis on the one card: (a) phase 27's legs A-C with
+    each single fit cutting its hidden width (``train(tp_hidden_dim=)``:
+    the FusedDMVAE's 512, the probe's 128), plus the first step of each
+    (``step_gradients``), as subprocess ranks of this script
+    (``--model-rank``) in two gloo clusters on cuda:0, world size 2 (mesh
+    1 x 2) and 4 (2 x 2), against the same legs without a mesh: every rank
+    of a model group equal bit for bit; the first steps' losses and every
+    gathered gradient at rtol 1e-4 / atol 1e-5; the fits' train losses at
+    rtol 2e-5 / atol 2e-6, the probe's validation loss at rtol 5e-4
+    (phase 27's), its accuracies within one of the 400 rows; the DMVAE's
+    weights within 1e-3 and the probe's within 1e-2 of each tensor's norm;
+    train_many's parameters (its seeds split over ``data`` alone) at rtol
+    5e-3 / atol 5e-5; served outputs at phase 5's tolerances; the head
+    kernel launched on each rank on the gathered weights exactly at its
+    data index's rows ((7, 400 / n_dp) four times, (4 / n_dp x 7, 400)
+    twice, (7, 256 / n_dp) once, n_dp = world / 2), the epoch kernel never
+    (``MODEL_CUT``); and in bf16 compute mode the first steps of the same
+    DMVAE and probe and a three-epoch probe fit with validation and
+    evaluation: the losses at tests/test_torch_bf16.py's bound
+    (``assert_bf16_close``), each first-step gradient and each of the
+    probe's weights no farther from the float32 leg's than 1.25 times one
+    bf16 process's (norm-wise, ``MODEL_BF16_RATIO``), the accuracies within
+    four of the 400 rows, the bf16 build of the head kernel launched four
+    times a rank at (7, 400 / n_dp) on the gathered weights; (b) ``runners/run.py --model-parallel 2 --device
+    cuda:0`` as two gloo ranks on HandWritten Normal seed 0 ``--quick``
+    against phase 27 (b)'s one-process run, at phase 27 (b)'s limits, both
+    runs' host time per epoch logged. (a) runs as a fifth group beside the
+    others; (b) runs alone, after phase 27.
 
 Each phase logs its time. Phases 3-7 run first, alone; then phases 11-13
-and 26, 14-17 and 21, 18-20, and 22-24 run as four groups, each in a child
-process of this script (``--group``), beside phases 8-10 and 25 in this
-one; phase 27 runs last, alone. Each child counts its own launches, each
-count set to 0 before a path and read after it, and sends them back.
+and 26, 14-17 and 21, 18-20, 22-24, and 28 (a) run as five groups, each
+in a child process of this script (``--group``), beside phases 8-10 and 25
+in this one; phases 27 and 28 (b) run last, alone. Each child counts its
+own launches, each count set to 0 before a path and read after it, and
+sends them back.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -607,21 +636,31 @@ def bf16_reference64(x, w1, b1, w2, b2):
     return evidence_activation(z).transpose(0, 1)
 
 
-def assert_bf16_evidence_close(got, ref, label):
-    """bf16 evidence through its log, the logit it came from: within 2 bf16
-    ulps (2^-7 |ref| + 1e-3) but for at most 1 in 1000 entries, none beyond
-    4 ulps of its own size or of the tensor's rms (tests/test_torch_bf16.py
-    sets the rule from the CPU's readings). Returns (entries beyond 2
-    ulps, the largest gap over the outlier bound, the max abs error of the
-    evidence)."""
-    g, r = got.double().log(), ref.double().log()
+def assert_bf16_close(got, ref, label):
+    """Within 2 bf16 ulps (2^-7 |ref| + 1e-3) but for at most 1 in 1000
+    entries, none beyond 4 ulps of its own size or of the tensor's rms
+    (tests/test_torch_bf16.py sets the rule from the CPU's readings).
+    Returns (entries beyond 2 ulps, the largest gap over the outlier
+    bound)."""
+    g, r = got.double(), ref.double()
     err = (g - r).abs()
     beyond = int((err > 2.0 ** -7 * r.abs() + 1e-3).sum())
-    worst = 2.0 ** -6 * (r.abs() + r.pow(2).mean().sqrt())
+    worst = (2.0 ** -6 * (r.abs() + r.pow(2).mean().sqrt())).clamp_min(1e-30)
     ratio = float((err / worst).max())
     if not bool(torch.isfinite(got).all()) or beyond > got.numel() // 1000 or ratio > 1.0:
         raise AssertionError(f"{label}: {beyond} of {got.numel()} entries beyond 2 bf16 ulps, "
                              f"largest gap {ratio:.3f} of the 4-ulp bound")
+    return beyond, ratio
+
+
+def assert_bf16_evidence_close(got, ref, label):
+    """bf16 evidence through its log, the logit it came from, at
+    :func:`assert_bf16_close`'s bound. Returns (entries beyond 2 ulps, the
+    largest gap over the outlier bound, the max abs error of the
+    evidence)."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: evidence not finite")
+    beyond, ratio = assert_bf16_close(got.double().log(), ref.double().log(), label)
     return beyond, ratio, float((got.double() - ref.double()).abs().max())
 
 
@@ -2993,19 +3032,26 @@ def mesh_data(device):
     return xs, torch.from_numpy(labels).to(device)
 
 
-def mesh_legs(mesh, device="cuda"):
+def mesh_legs(mesh, device="cuda", cut=False):
     """Legs A-C of phase 27 on ``mesh`` (None: one process without a mesh),
     at HandWritten's full width (FusedDMVAE 512/200, heads 200 -> 128 -> 10):
     A, a two-epoch DMVAE fit, and a three-epoch dmvae_cml probe fit through
     the step loop with validation and its evaluation; B, train_many over
     four probe seeds; C, ServingEngine at bucket 256. The probes and the
     served model take the embeddings of the backbone as drawn, so that no
-    leg's inputs depend on another leg's fit. Returns numpy arrays by name."""
+    leg's inputs depend on another leg's fit. With ``cut`` (phase 28) the
+    two single fits cut their hidden widths on the mesh's model axis, and
+    the first step of each is taken apart first (its loss and gathered
+    gradients); and in bf16 compute mode (``bf16.`` keys) the first steps of
+    the same DMVAE and probe and a three-epoch probe fit with validation
+    and evaluation (the bf16 head kernel on the gathered weights). Returns
+    numpy arrays by name."""
     from disentagled_multimodal_fusion_tpu_torch.core import tasks
     from disentagled_multimodal_fusion_tpu_torch.core.serve import ServingEngine, build_inference_fn
     from disentagled_multimodal_fusion_tpu_torch.core.train import (
         Randomness,
         stack_params,
+        step_gradients,
         train,
         train_many,
     )
@@ -3016,16 +3062,27 @@ def mesh_legs(mesh, device="cuda"):
     out = {}
     xs, y = mesh_data(device)
     dims = [x.shape[1] for x in xs]
+    dmvae_tp, probe_tp = (MODEL_CUT["dmvae"], MODEL_CUT["probe"]) if cut else (None, None)
 
     def backbone():
         return tasks.build_dmvae_task(output_dim=dims, hidden_dim=512, embed_dim=200,
                                       fused_modalities=True, seed=0, device=device)
 
+    def first_step(name, model, loss_fn, data, seed, tp):
+        loss, grads = step_gradients(model=model, loss_fn=loss_fn, data=data, n_train=1600,
+                                     batch_size=100, randomness=Randomness(seed, device),
+                                     mesh=mesh, tp_hidden_dim=tp)
+        out[f"{name}.step_loss"] = loss.cpu().numpy()
+        out.update({f"{name}.grad.{k}": g.cpu().numpy() for k, g in grads.items()})
+
     fitted = backbone()
     loss_fn, opt = tasks.dmvae_objective(fitted, lr=1e-4, num_epochs=2)
-    res = train(model=fitted, loss_fn=loss_fn, data={"xs": tuple(x[:1600] for x in xs)},
+    bb_data = {"xs": tuple(x[:1600] for x in xs)}
+    if cut:
+        first_step("dmvae", fitted, loss_fn, bb_data, 1, dmvae_tp)
+    res = train(model=fitted, loss_fn=loss_fn, data=bb_data,
                 n_train=1600, optimizer=opt, epochs=2, batch_size=100,
-                randomness=Randomness(1, device), mesh=mesh)
+                randomness=Randomness(1, device), mesh=mesh, tp_hidden_dim=dmvae_tp)
     out["dmvae.train_loss"] = res.train_loss
     out.update({f"dmvae.{k}": v.detach().cpu().numpy() for k, v in fitted.named_parameters()})
     del fitted
@@ -3037,14 +3094,36 @@ def mesh_legs(mesh, device="cuda"):
     probe = dict(num_modalities=6, num_classes=10, input_dim=200, hidden_dim=(128,), lr=3e-3,
                  dropout=0.1, annealing_start=50, num_epochs=3, device=device)
     task = tasks.build_probe_task(seed=2, **probe)
+    if cut:
+        first_step("probe", task.model, task.loss_fn, data, 3, probe_tp)
     res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=1600,
                 optimizer=task.optimizer, epochs=3, batch_size=100,
-                randomness=Randomness(3, device), val_fn=task.val_fn, val_data=val, mesh=mesh)
+                randomness=Randomness(3, device), val_fn=task.val_fn, val_data=val, mesh=mesh,
+                tp_hidden_dim=probe_tp)
     info = evaluate_subjective_model_with_shared(task, val, mesh)
     out.update({"probe.train_loss": res.train_loss, "probe.val_loss": res.val_loss,
                 "probe.val_acc": res.val_acc,
                 "probe.fused_acc": np.array([info["fused"]["accuracy"]])})
     out.update({f"probe.{k}": v.detach().cpu().numpy() for k, v in task.model.named_parameters()})
+    if cut:  # --dtype bfloat16 under the cut: the first steps and the probe fit
+        bb16 = tasks.build_dmvae_task(output_dim=dims, hidden_dim=512, embed_dim=200,
+                                      fused_modalities=True, seed=0, device=device,
+                                      dtype="bfloat16")
+        first_step("bf16.dmvae", bb16, tasks.dmvae_objective(bb16, lr=1e-4, num_epochs=2)[0],
+                   bb_data, 1, dmvae_tp)
+        del bb16
+        task = tasks.build_probe_task(seed=2, dtype="bfloat16", **probe)
+        first_step("bf16.probe", task.model, task.loss_fn, data, 3, probe_tp)
+        res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=1600,
+                    optimizer=task.optimizer, epochs=3, batch_size=100,
+                    randomness=Randomness(3, device), val_fn=task.val_fn, val_data=val,
+                    mesh=mesh, tp_hidden_dim=probe_tp)
+        info = evaluate_subjective_model_with_shared(task, val, mesh)
+        out.update({"bf16.probe.train_loss": res.train_loss, "bf16.probe.val_loss": res.val_loss,
+                    "bf16.probe.val_acc": res.val_acc,
+                    "bf16.probe.fused_acc": np.array([info["fused"]["accuracy"]])})
+        out.update({f"bf16.probe.{k}": v.detach().cpu().numpy()
+                    for k, v in task.model.named_parameters()})
 
     fits = [tasks.build_probe_task(seed=10 + s, **probe) for s in range(MESH_SEEDS)]
     many = train_many(model=fits[0].model, params=stack_params([t.model for t in fits]),
@@ -3237,68 +3316,89 @@ def backbone_weights(root):
 def mesh_runner_phase(card, scratch):
     """Phase 27 (b): runners/run.py on HandWritten Normal seed 0 --quick,
     in this process without a mesh, then as two gloo ranks on cuda:0 with
-    --data-parallel 2: every row finite, the DMVAE backbone's last train
-    loss within ``RUN_DP_LOSS_GAP`` and its weights within
-    ``RUN_DP_BACKBONE_NORM_TOL`` of each tensor's norm, each late fusion's
-    fused accuracy within one test row (``RUN_DP_LATE_GAP``) and each
-    probe's within ``RUN_DP_ACC_GAP``, and both runs' host time per epoch
-    logged. Nothing else runs meanwhile. Returns the one-process rows."""
+    --data-parallel 2, held to it by :func:`ranks_against_one_process`.
+    Nothing else runs meanwhile. Returns the one-process run
+    (``OneProcess``: its rows, output and backbone weights)."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
-    cell = ["--seeds", "0", "--datasets", "HandWritten", "--conditions", "Normal", "--quick"]
     one_out = io.StringIO()
     with artifact_root("mesh_one_") as one_root, contextlib.redirect_stdout(one_out):
-        one_rows = runner.main(cell + ["--skip-report"])
+        one_rows = runner.main(RUNNER_CELL + ["--skip-report"])
         one_bb = backbone_weights(one_root)
+    one = OneProcess(one_rows, one_out.getvalue(), one_bb)
     dp_root = scratch / "dp"
     dp_root.mkdir()
+    ranks_against_one_process(card, "mesh", ["--data-parallel", "2"], {"data": 2, "model": 1},
+                              dp_root, one)
+    return one
+
+
+RUNNER_CELL = ["--seeds", "0", "--datasets", "HandWritten", "--conditions", "Normal", "--quick"]
+
+
+def ranks_against_one_process(card, label, flags, shape, root, one):
+    """``runners/run.py RUNNER_CELL flags`` as two gloo ranks on cuda:0
+    under ``root``, against ``one`` (the same cell in one process): the
+    mesh ``shape`` over gloo, every row finite, the DMVAE backbone's last
+    train loss within ``RUN_DP_LOSS_GAP`` and its checkpoint (the
+    one-process names and shapes) within ``RUN_DP_BACKBONE_NORM_TOL`` of
+    each tensor's norm, each late fusion's fused accuracy within one test
+    row (``RUN_DP_LATE_GAP``) and each probe's within ``RUN_DP_ACC_GAP``,
+    and both runs' host time per epoch logged."""
+    what = "run.py " + " ".join(flags)
     procs = spawn_ranks(
-        [sys.executable, "-m", "disentagled_multimodal_fusion_tpu_torch.runners.run", *cell,
-         "--data-parallel", "2", "--device", "cuda:0", "--rows-file", str(dp_root / "rows.json")],
-        2, env={"DMF_ARTIFACT_ROOT": str(dp_root)})
+        [sys.executable, "-m", "disentagled_multimodal_fusion_tpu_torch.runners.run",
+         *RUNNER_CELL, *flags, "--device", "cuda:0", "--rows-file", str(root / "rows.json")],
+        2, env={"DMF_ARTIFACT_ROOT": str(root)})
     t0 = time.perf_counter()
-    dp_out = wait_all(procs, "run.py --data-parallel 2")
-    dp_wall = time.perf_counter() - t0
-    if "(gloo)" not in dp_out[0]:
-        raise AssertionError("run.py --data-parallel 2 with both ranks on cuda:0 did not pick "
-                             "gloo")
-    dp_rows = json.loads((dp_root / "rows.json").read_text())["0"]["Normal"]["HandWritten"]
-    one = one_rows[0]["Normal"]["HandWritten"]
-    gaps = {name: dp_rows[name]["fused"]["accuracy"] - info["fused"]["accuracy"]
-            for name, info in one.items()}
-    log("mesh: run.py --data-parallel 2 (gloo, both ranks on cuda:0), HandWritten Normal seed 0 "
-        "--quick: fused accuracies " + ", ".join(
-            f"{n} {dp_rows[n]['fused']['accuracy']:.4f} ({gaps[n]:+.4f})" for n in one)
-        + f" against one process; {dp_wall:.1f} s for both ranks [{card}]")
-    dp_bb = backbone_weights(dp_root)
-    if set(dp_bb) != set(one_bb):
-        raise AssertionError("run.py --data-parallel 2: the DMVAE checkpoint's keys differ")
+    outs = wait_all(procs, what)
+    wall = time.perf_counter() - t0
+    if f"mesh: {shape} over 2 rank(s) (gloo)" not in outs[0]:
+        raise AssertionError(f"{what} with both ranks on cuda:0 did not build a {shape} mesh "
+                             f"over gloo")
+    rows = json.loads((root / "rows.json").read_text())["0"]["Normal"]["HandWritten"]
+    one_rows = one.rows[0]["Normal"]["HandWritten"]
+    gaps = {name: rows[name]["fused"]["accuracy"] - info["fused"]["accuracy"]
+            for name, info in one_rows.items()}
+    log(f"{label}: {what} (gloo, both ranks on cuda:0), HandWritten Normal seed 0 --quick: "
+        "fused accuracies " + ", ".join(
+            f"{n} {rows[n]['fused']['accuracy']:.4f} ({gaps[n]:+.4f})" for n in one_rows)
+        + f" against one process; {wall:.1f} s for both ranks [{card}]")
+    bb = backbone_weights(root)
+    if set(bb) != set(one.backbone):
+        raise AssertionError(f"{what}: the DMVAE checkpoint's keys differ")
     worst, worst_norm = 0.0, 0.0
-    for k, want in one_bb.items():
-        diff = dp_bb[k].double() - want.double()
+    for k, want in one.backbone.items():
+        if bb[k].shape != want.shape:
+            raise AssertionError(f"{what}: DMVAE {k} has shape {tuple(bb[k].shape)}, one "
+                                 f"process's {tuple(want.shape)}")
+        diff = bb[k].double() - want.double()
         gap = float(diff.norm() / want.double().norm().clamp_min(1e-30))
         if not gap <= RUN_DP_BACKBONE_NORM_TOL:
-            raise AssertionError(f"run.py --data-parallel 2: DMVAE {k} {gap:.3e} of its norm "
-                                 f"from one process's")
+            raise AssertionError(f"{what}: DMVAE {k} {gap:.3e} of its norm from one process's")
         worst, worst_norm = max(worst, float(diff.abs().max())), max(worst_norm, gap)
-    losses = (last_train_loss(one_out.getvalue()), last_train_loss(dp_out[0]))
-    log(f"mesh: run.py --data-parallel 2: DMVAE backbone last train loss {losses[1]:.4f} "
-        f"against one process's {losses[0]:.4f}; its weights {worst_norm:.3e} of their norm "
-        f"from one process's (max abs err {worst:.3e}) [{card}]")
+    losses = (last_train_loss(one.text), last_train_loss(outs[0]))
+    log(f"{label}: {what}: DMVAE backbone last train loss {losses[1]:.4f} against one "
+        f"process's {losses[0]:.4f}; its weights {worst_norm:.3e} of their norm from one "
+        f"process's (max abs err {worst:.3e}) [{card}]")
     if abs(losses[1] - losses[0]) > RUN_DP_LOSS_GAP + 1e-9:
-        raise AssertionError("run.py --data-parallel 2: the DMVAE's last train loss differs")
-    for what in ("dmvae fit", "dmvae_cml", "cml_fusion"):
-        log(f"mesh: host time per epoch of {what}: one process "
-            f"{ms_per_epoch(one_out.getvalue(), what):.3f} ms, --data-parallel 2 rank 0 "
-            f"{ms_per_epoch(dp_out[0], what):.3f} ms (16 steps an epoch) [{card}]")
-    for name in one:
-        if not all(np.isfinite(v) for v in _numbers(dp_rows[name])):
-            raise AssertionError(f"run.py --data-parallel 2: {name} has a value not finite")
+        raise AssertionError(f"{what}: the DMVAE's last train loss differs")
+    for fit in ("dmvae fit", "dmvae_cml", "cml_fusion"):
+        log(f"{label}: host time per epoch of {fit}: one process "
+            f"{ms_per_epoch(one.text, fit):.3f} ms, {' '.join(flags)} rank 0 "
+            f"{ms_per_epoch(outs[0], fit):.3f} ms (16 steps an epoch) [{card}]")
+    for name in one_rows:
+        if not all(np.isfinite(v) for v in _numbers(rows[name])):
+            raise AssertionError(f"{what}: {name} has a value not finite")
         limit = RUN_DP_LATE_GAP if name in LATE_FUSIONS else RUN_DP_ACC_GAP
         if abs(gaps[name]) > limit + 1e-9:
-            raise AssertionError(f"run.py --data-parallel 2: {name} fused accuracy "
-                                 f"{gaps[name]:+.4f} from one process's (limit {limit:.4f})")
-    return one_rows
+            raise AssertionError(f"{what}: {name} fused accuracy {gaps[name]:+.4f} from one "
+                                 f"process's (limit {limit:.4f})")
+
+
+class OneProcess(collections.namedtuple("OneProcess", "rows text backbone")):
+    """Phase 27 (b)'s one-process run.py: its rows, its output and its
+    DMVAE backbone's checkpoint."""
 
 
 def start_mesh_sweep(scratch):
@@ -3347,7 +3447,7 @@ def phase_mesh(card):
     CUB cell without a mesh; (b), whose host times are read, runs alone
     after them, and its one-process HandWritten rows are (c)'s too. Returns
     the head kernel's launches over the ranks' legs and their shapes a rank,
-    by world size."""
+    by world size, and (b)'s one-process run."""
     import shutil
     import tempfile
 
@@ -3370,16 +3470,220 @@ def phase_mesh(card):
         launches, shapes = check_mesh_legs(card, runs, ref)
         sweep_out = wait_all([sweep], "sweep_parallel --procs 2")[0]
         log(f"mesh: (a) and (c)'s sweep done in {time.perf_counter() - t0:.1f} s [{card}]")
-        one_rows = mesh_runner_phase(card, scratch)
+        one = mesh_runner_phase(card, scratch)
         check_mesh_sweep(card, scratch, sweep_out, {
-            "HandWritten": one_rows[0]["Normal"]["HandWritten"], "CUB": cub[0]["Normal"]["CUB"]})
-        return launches, shapes
+            "HandWritten": one.rows[0]["Normal"]["HandWritten"], "CUB": cub[0]["Normal"]["CUB"]})
+        return launches, shapes, one
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 28: the model axis
+# the hidden widths phase 28's single fits cut (the JAX runner's
+# tp_hidden_dim at HandWritten: dmvae.hidden_dim, probes.model_hidden_dim)
+MODEL_CUT = {"dmvae": 512, "probe": 128}
+MODEL_WORLDS = (2, 4)  # gloo clusters on cuda:0: meshes 1 x 2 and 2 x 2
+MODEL_STEP_TOL = dict(rtol=1e-4, atol=1e-5)  # the first step's loss and gradients
+MODEL_DMVAE_NORM_TOL = 1e-3  # the DMVAE's weights, of each tensor's norm
+MODEL_ACC_GAP = 1 / 400      # validation and fused accuracies: one of 400 rows
+# the bf16 leg: the losses at tests/test_torch_bf16.py's bound
+# (assert_bf16_close); each first-step gradient and each of the probe's
+# trained weights as close to the float32 leg's (the same weights and draws)
+# as one bf16 process's, within 25 %, norm-wise. The bf16 rule's outlier
+# bound is an activation's: a gradient sums many rounded terms that cancel,
+# and under the data split each rank's weight gradient is rounded before the
+# sum, so the mesh's bf16 step sits up to 1.0 times one process's distance
+# from the float32 step away from one process's step (8.4 times the rule's
+# outlier bound) while no farther from the float32 step (0.89-1.05 times;
+# the probe's weights 1.00-1.06 times, 1.0e-2 of their norm from one
+# process's; the CPU at full width, PERF.md section 6); a wrong collective
+# moves a gradient by about its own size, 21-420 times that distance. The
+# probe's accuracies within four of the 400 rows (a bf16 logit's one-ulp
+# rounding can flip a near tie)
+MODEL_BF16_RATIO = 1.25
+MODEL_BF16_ACC_GAP = 4 / 400
+# the bf16 head kernel's launches a rank in the bf16 probe fit: three
+# validations and one evaluation at its data index's rows
+MODEL_BF16_LAUNCHES = 4
+
+
+def model_rank(out_dir):
+    """One rank of phase 28 (a) (``chip_smoke.py --model-rank OUT_DIR``,
+    with the launcher's environment): legs A-C with the cut on
+    ``make_mesh(model_parallel=2)`` over gloo, on cuda:0, the head kernel's
+    and the epoch kernel's launches counted (the head's by shape); writes
+    ``rank{r}.npz`` and ``rank{r}.json`` to OUT_DIR."""
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
+    from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
+    from disentagled_multimodal_fusion_tpu_torch.parallel import distributed as pdist
+    from disentagled_multimodal_fusion_tpu_torch.parallel.mesh import make_mesh
+
+    configure()
+    torch.set_num_threads(1)
+    pdist.initialize(backend="gloo", device="cuda:0", timeout=MESH_TIMEOUT_S)
+    mesh = make_mesh(model_parallel=2)
+    with head_shape_tally() as shapes:
+        ck.evidential_heads_stacked.launches = 0
+        ck.evidential_heads_stacked_bf16.launches = 0
+        pm.run_epoch_kernel.launches = 0
+        out = mesh_legs(mesh, "cuda:0", cut=True)
+        launches, epochs = ck.evidential_heads_stacked.launches, pm.run_epoch_kernel.launches
+        bf16_launches = ck.evidential_heads_stacked_bf16.launches
+    out_dir = Path(out_dir)
+    np.savez(out_dir / f"rank{mesh.rank}.npz", **out)
+    (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(
+        {"launches": launches, "bf16_launches": bf16_launches, "epoch_launches": epochs,
+         "shapes": dict(shapes), "mesh": [mesh.data_index, mesh.model_index]}))
+    return 0
+
+
+def compare_model_legs(got, ref, label):
+    """A rank's legs with the cut against the legs without a mesh (the
+    limits of the module docstring's phase 28 (a)). Returns the largest
+    elementwise gap of the float32 first steps and the largest norm-wise
+    gap of the DMVAE's and the probe's weights, and the largest ratio of
+    the bf16 leg's distance from the float32 leg to one process's."""
+    t = torch.from_numpy
+    worst_step, worst_norm = 0.0, {"dmvae": 0.0, "probe": 0.0, "bf16": 0.0}
+    assert set(got) == set(ref), set(got) ^ set(ref)
+    for key, want in ref.items():
+        have = np.asarray(got[key])
+        want = np.asarray(want)
+        kind = key.split(".")[0]
+        if key.startswith("serve."):
+            continue
+        if kind == "bf16" and not key.endswith(("_loss", "_acc")):
+            # gradients and weights: both bf16 runs' distance from the
+            # float32 leg's on the same weights and draws, norm-wise
+            f32 = ref[key[5:]].astype(np.float64)
+            own = np.linalg.norm(want.astype(np.float64) - f32)
+            ratio = float(np.linalg.norm(have.astype(np.float64) - f32) / max(own, 1e-30))
+            if not ratio <= MODEL_BF16_RATIO:
+                raise AssertionError(f"{label} {key}: {ratio:.3f} times one process's bf16 "
+                                     f"distance from the float32 leg")
+            worst_norm["bf16"] = max(worst_norm["bf16"], ratio)
+        elif kind == "bf16" and key.endswith(("step_loss", "_loss")):
+            assert_bf16_close(t(have).reshape(-1), t(want).reshape(-1), f"{label} {key}")
+        elif kind == "bf16" and key.endswith(("val_acc", "fused_acc")):
+            gap = float(np.max(np.abs(have - want)))
+            if gap > MODEL_BF16_ACC_GAP + 1e-9:
+                raise AssertionError(f"{label} {key}: {gap:.4f} apart")
+        elif ".grad." in key or key.endswith("step_loss"):
+            worst_step = max(worst_step, assert_close(t(have), t(want), f"{label} {key}",
+                                                      **MODEL_STEP_TOL)[0])
+        elif key.endswith(("val_acc", "fused_acc")):
+            gap = float(np.max(np.abs(have - want)))
+            if gap > MODEL_ACC_GAP + 1e-9:
+                raise AssertionError(f"{label} {key}: {gap:.4f} apart")
+        elif key == "probe.val_loss":
+            assert_close(t(have), t(want), f"{label} {key}", rtol=MESH_PROBE_VAL_RTOL, atol=0)
+        elif key.endswith(("train_loss", "val_loss")):
+            assert_close(t(have), t(want), f"{label} {key}", **MESH_LOSS_TOL)
+        elif kind in worst_norm:
+            gap = float(np.linalg.norm(have - want) / max(np.linalg.norm(want), 1e-30))
+            limit = MODEL_DMVAE_NORM_TOL if kind == "dmvae" else MESH_PROBE_NORM_TOL
+            if not gap <= limit:
+                raise AssertionError(f"{label} {key}: {gap:.3e} of its norm apart")
+            worst_norm[kind] = max(worst_norm[kind], gap)
+        else:
+            assert_close(t(have), t(want), f"{label} {key}", **MESH_PARAM_TOL)
+    assert_outputs_match({k[6:]: got[k] for k in got if k.startswith("serve.")},
+                         {k[6:]: ref[k] for k in ref if k.startswith("serve.")}, f"{label} serve")
+    return worst_step, worst_norm
+
+
+def phase_model_axis_legs(card):
+    """Phase 28 (a): the model-axis clusters at world sizes 2 and 4, started
+    together, against the legs without a mesh run here meanwhile. Returns
+    the head kernel's launches over each cluster's ranks and its shapes a
+    rank, by world size, of its f32 build and of its bf16 build."""
+    import shutil
+    import tempfile
+
+    here = Path(__file__).resolve()
+    scratch = Path(tempfile.mkdtemp(prefix="model_", dir=here.parent / "chip_scratch"))
+    runs, procs = {}, []
+    try:
+        for world in MODEL_WORLDS:
+            out_dir = scratch / f"world{world}"
+            out_dir.mkdir()
+            runs[world] = spawn_ranks([sys.executable, str(here), "--model-rank", str(out_dir)],
+                                      world)
+            procs += runs[world]
+        ref = mesh_legs(None, "cuda:0", cut=True)
+        launches, shapes, bf16_launches, bf16_shapes = {}, {}, {}, {}
+        for world in MODEL_WORLDS:
+            wait_all(runs[world], f"model axis at world size {world}")
+            out_dir = scratch / f"world{world}"
+            ranks = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+            tallies = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+            for r in range(world):
+                first = r - r % 2  # the model group's first rank
+                for key, value in ranks[first].items():
+                    if not np.array_equal(ranks[r][key], value):
+                        raise AssertionError(f"model axis world {world}: rank {r} differs from "
+                                             f"rank {first} of its model group at {key}")
+            worst_step, worst_norm = 0.0, {}
+            for r in range(0, world, 2):
+                step, norm = compare_model_legs(ranks[r], ref, f"model axis world {world} "
+                                                               f"rank {r}")
+                worst_step = max(worst_step, step)
+                worst_norm = {k: max(worst_norm.get(k, 0.0), v) for k, v in norm.items()}
+            want = mesh_expected_shapes(world // 2)
+            want_bf16 = {shape_key(7, 400 // (world // 2), 200, 128, 10) + ",bf16":
+                         MODEL_BF16_LAUNCHES}
+            for r, tally in enumerate(tallies):
+                if (tally["shapes"] != {**want, **want_bf16}
+                        or tally["launches"] != sum(want.values())
+                        or tally["bf16_launches"] != MODEL_BF16_LAUNCHES
+                        or tally["epoch_launches"] != 0):
+                    raise AssertionError(
+                        f"model axis world {world} rank {r}: head kernel launched "
+                        f"{tally['launches']} + {tally['bf16_launches']} (bf16) times at "
+                        f"{tally['shapes']} (expected {want} and {want_bf16}), epoch kernel "
+                        f"{tally['epoch_launches']} times (expected 0)")
+            launches[world] = sum(t["launches"] for t in tallies)
+            bf16_launches[world] = sum(t["bf16_launches"] for t in tallies)
+            shapes[world], bf16_shapes[world] = want, want_bf16
+            log(f"model axis: legs A-C with the cut (DMVAE 512, probe 128) at world size "
+                f"{world} (mesh {world // 2} x 2, gloo, every rank on cuda:0): the ranks of "
+                f"each model group equal bit for bit; held to the legs without a mesh: first "
+                f"steps' losses and gradients max abs err {worst_step:.3e} (rtol 1e-4 / atol "
+                f"1e-5), weights {worst_norm['dmvae']:.3e} (DMVAE) and "
+                f"{worst_norm['probe']:.3e} (probe) of their norm; bf16: the first steps' "
+                f"gradients and the probe's weights at most {worst_norm['bf16']:.3f} times "
+                f"one process's distance from the f32 leg, losses within the bf16 bound; head kernel {tallies[0]['launches']} launches a rank on the "
+                f"gathered weights at {want}, its bf16 build {MODEL_BF16_LAUNCHES} at "
+                f"{want_bf16}, epoch kernel 0 [{card}]")
+        return launches, shapes, bf16_launches, bf16_shapes
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def phase_model_runner(card, one):
+    """Phase 28 (b): runners/run.py --model-parallel 2 as two gloo ranks on
+    cuda:0, HandWritten Normal seed 0 --quick, against ``one`` (phase 27
+    (b)'s one-process run) at phase 27 (b)'s limits
+    (:func:`ranks_against_one_process`). Runs alone."""
+    import shutil
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="model_run_",
+                                 dir=Path(__file__).resolve().parent / "chip_scratch"))
+    try:
+        ranks_against_one_process(card, "model axis", ["--model-parallel", "2"],
+                                  {"data": 1, "model": 2}, root, one)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _numbers(row):
@@ -3399,15 +3703,15 @@ def _numbers(row):
 
 
 # ------------------------------------------------------------------ groups
-# phases 11-24 and 26 run in four child processes of this script (``--group
-# NAME OUT``), beside phases 8-10 and 25 in this one: each path issues its
-# steps from one host thread and leaves the card mostly idle, so the paths
-# overlap on the host's cores. Phases 3-7 (kernel times, serving latency)
-# run before them and phase 27 (host times read) after them, alone. Each
-# child counts its own kernel launches, set to 0 before each path and read
-# after it, as in one process, and sends them back.
+# phases 11-24, 26 and 28 (a) run in five child processes of this script
+# (``--group NAME OUT``), beside phases 8-10 and 25 in this one: each path
+# issues its steps from one host thread and leaves the card mostly idle, so
+# the paths overlap on the host's cores. Phases 3-7 (kernel times, serving
+# latency) run before them and phases 27 and 28 (b) (host times read) after
+# them, alone. Each child counts its own kernel launches, set to 0 before
+# each path and read after it, as in one process, and sends them back.
 GROUPS = {"seed_batched": "11, 12, 13, 26", "synthetic": "14-17, 21", "cub": "18-20",
-          "luma": "22-24"}
+          "luma": "22-24", "model_axis": "28 (a)"}
 GROUP_THREADS = 2  # torch's CPU threads a child: four children and this process share 8 cores
 GROUP_TIMEOUT_S = 900
 
@@ -3462,6 +3766,11 @@ def run_group(name, ck, pm, card, timed):
                                             corpus, fits)
         return {"heads": heads, "shapes": shapes, "sb_heads": sb_heads, "sb_shapes": sb_shapes,
                 "bf16_heads": bf16_heads, "bf16_shapes": bf16_shapes}
+    if name == "model_axis":
+        launches, shapes, bf16_launches, bf16_shapes = timed(
+            "phase 28 (a) model axis legs", phase_model_axis_legs, card)
+        return {"launches": launches, "shapes": shapes, "bf16_launches": bf16_launches,
+                "bf16_shapes": bf16_shapes}
     raise ValueError(f"no group {name!r}")
 
 
@@ -3552,6 +3861,8 @@ def main() -> int:
         return luma_state_trials(card_line(), int(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--model-rank"]:
+        return model_rank(sys.argv[2])
     if sys.argv[1:2] == ["--group"]:
         return group_child(*sys.argv[2:4])
     from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
@@ -3610,8 +3921,8 @@ def main() -> int:
                                               ck, pm, card, f32_accs)
         t_join = time.perf_counter()
         g = join_groups(groups)
-        log(f"groups (phases 11-24, 26) joined {time.perf_counter() - t_join:.1f} s after "
-            f"phase 25 [{card}]")
+        log(f"groups (phases 11-24, 26, 28 (a)) joined {time.perf_counter() - t_join:.1f} s "
+            f"after phase 25 [{card}]")
     finally:
         stop_groups(groups)
     sb_launches, sb_shapes, export_launches = (g["seed_batched"][k] for k in (
@@ -3627,7 +3938,10 @@ def main() -> int:
     luma_heads, luma_shapes, luma_sb_heads, luma_sb_shapes, luma_bf16_heads, luma_bf16_shapes = (
         g["luma"][k] for k in ("heads", "shapes", "sb_heads", "sb_shapes", "bf16_heads",
                                "bf16_shapes"))
-    mesh_launches, mesh_shapes = timed("phase 27 mesh", phase_mesh, card)
+    mesh_launches, mesh_shapes, one = timed("phase 27 mesh", phase_mesh, card)
+    timed("phase 28 (b) run.py --model-parallel 2", phase_model_runner, card, one)
+    model_launches, model_shapes, model_bf16_launches, model_bf16_shapes = (
+        g["model_axis"][k] for k in ("launches", "shapes", "bf16_launches", "bf16_shapes"))
 
     bf16_tally = collections.Counter(hw_bf16_shapes)
     for shapes in luma_bf16_shapes.values():
@@ -3643,13 +3957,16 @@ def main() -> int:
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
                      + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads
-                     + export_launches + sum(mesh_launches.values())),
+                     + export_launches + sum(mesh_launches.values())
+                     + sum(model_launches.values())),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
                              "scene_profile": prof_heads, "luma": luma_heads,
                              "luma_seed_batched": luma_sb_heads, "export": export_launches,
                              "mesh_world1": mesh_launches[1], "mesh_world2": mesh_launches[2],
+                             "model_axis_world2": model_launches[2],
+                             "model_axis_world4": model_launches[4],
                              "luma_bf16": 0, "handwritten_bf16": 0},
         "max_abs_err": max_abs_err,
         **timing,
@@ -3660,22 +3977,29 @@ def main() -> int:
                               "cub": cub_shapes, "scene_profile": prof_shapes,
                               "luma": luma_shapes, "luma_seed_batched": luma_sb_shapes,
                               "mesh_per_rank_world1": mesh_shapes[1],
-                              "mesh_per_rank_world2": mesh_shapes[2]},
+                              "mesh_per_rank_world2": mesh_shapes[2],
+                              "model_axis_per_rank_world2": model_shapes[2],
+                              "model_axis_per_rank_world4": model_shapes[4]},
     }, {
         "name": "evidential_head_bf16",
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/evidential_head.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/pallas_kernels.py:53",
-        "launches": sum(luma_bf16_heads.values()) + hw_bf16_heads,
+        "launches": (sum(luma_bf16_heads.values()) + hw_bf16_heads
+                     + sum(model_bf16_launches.values())),
         "launches_by_path": {"luma_bf16": luma_bf16_heads["sequential"],
                              "luma_seed_batched_bf16": luma_bf16_heads["seed-batched"],
-                             "handwritten_bf16": hw_bf16_heads, "mesh": 0},
+                             "handwritten_bf16": hw_bf16_heads, "mesh": 0,
+                             "model_axis_world2": model_bf16_launches[2],
+                             "model_axis_world4": model_bf16_launches[4]},
         "max_abs_err": bf16_abs_err,
         **bf16_timing,
         "times_by_shape": bf16_times_by_shape,
         "launches_by_shape": {"luma_bf16": luma_bf16_shapes["sequential"],
                               "luma_seed_batched_bf16": luma_bf16_shapes["seed-batched"],
-                              "handwritten_bf16": hw_bf16_shapes},
+                              "handwritten_bf16": hw_bf16_shapes,
+                              "model_axis_per_rank_world2": model_bf16_shapes[2],
+                              "model_axis_per_rank_world4": model_bf16_shapes[4]},
     }, {
         "name": "probe_epoch",
         "route": "cuda",
@@ -3685,7 +4009,7 @@ def main() -> int:
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
                              "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
                              "luma": 0, "luma_seed_batched": 0, "luma_bf16": 0,
-                             "handwritten_bf16": 0, "mesh": 0},
+                             "handwritten_bf16": 0, "mesh": 0, "model_axis": 0},
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,

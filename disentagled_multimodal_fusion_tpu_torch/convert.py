@@ -52,13 +52,17 @@ A Dense ``kernel`` (in, out) becomes ``weight`` (out, in). An attention
 kernel is flattened first: query/key/value (d, heads, head_dim) to
 (d, heads * head_dim), out (heads, head_dim, d) to (heads * head_dim, d);
 their biases (heads, head_dim) to one axis. A LayerNorm ``scale`` becomes
-``weight``. Stacked weights keep the JAX layout (N, in, out).
+``weight``. Stacked weights keep the JAX layout (N, in, out). Each of
+these layouts is a :class:`Layout`, which maps a tensor (or a block of
+one) both ways: :func:`flax_to_state_dict` applies its ``to_port``, and
+:func:`param_layouts` gives each parameter's of a port module, by which
+``parallel.mesh`` reads the JAX sharding rule on the flax shape.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,6 +85,70 @@ _SEGMENTS = (
     (re.compile(r"^(kernel|scale)$"), lambda m: ("weight",)),
 )
 _ATTENTION = ("query", "key", "value", "out")
+
+
+class Layout(NamedTuple):
+    """A parameter's flax layout: ``to_jax`` and ``to_port`` map a tensor,
+    or a block of one, between the port's layout and flax's."""
+
+    to_jax: Callable
+    to_port: Callable
+
+
+def _same(t):
+    return t
+
+
+IDENTITY = Layout(_same, _same)
+DENSE = Layout(lambda t: t.t(), lambda t: t.t())  # weight (out, in) <-> kernel (in, out)
+CONV = Layout(lambda t: t.permute(2, 3, 1, 0),    # (out, in, kh, kw) <-> (kh, kw, in, out)
+              lambda t: t.permute(3, 2, 0, 1))
+
+
+def attention_layout(part: str, leaf: str, heads: int) -> Layout:
+    """The layout of flax attention's ``part`` (query, key, value or out)
+    ``leaf`` (its kernel, the port's weight, or its bias) with ``heads``
+    heads: the (d, heads, head_dim) query/key/value kernels, the (heads,
+    head_dim, d) output kernel and the (heads, head_dim) biases flattened
+    (the output bias, (d,), as it is)."""
+    if leaf == "bias":
+        if part == "out":
+            return IDENTITY
+        return Layout(lambda t: t.reshape(heads, -1), lambda t: t.reshape(-1))
+    if part == "out":
+        return Layout(lambda t: t.t().reshape(heads, -1, t.shape[0]),
+                      lambda t: t.reshape(-1, t.shape[-1]).t())
+    return Layout(lambda t: t.t().reshape(t.shape[1], heads, -1),
+                  lambda t: t.reshape(t.shape[0], -1).t())
+
+
+def _flax_layout(path, t: torch.Tensor) -> Layout:
+    """The layout of the flax leaf at ``path`` holding ``t``."""
+    if len(path) > 1 and path[-2] in _ATTENTION and t.dim() > 1:
+        heads = t.shape[1] if path[-1] == "kernel" and path[-2] != "out" else t.shape[0]
+        return attention_layout(path[-2], path[-1], heads)
+    if path[-1] == "kernel":
+        return CONV if t.dim() == 4 else DENSE
+    return IDENTITY
+
+
+def param_layouts(model: nn.Module) -> Dict[str, Layout]:
+    """The flax layout of each of ``model``'s parameters, by name: a 2-D
+    ``weight`` is a Dense kernel, a 4-D one a convolution's, an attention
+    module's (one with ``num_heads``) kernels and biases are flattened;
+    every other tensor has flax's layout."""
+    layouts, attention = {}, {}
+    for prefix, module in model.named_modules():
+        at = f"{prefix}." if prefix else ""
+        for name, p in module.named_parameters(recurse=False):
+            if name == "weight" and p.dim() in (2, 4):
+                layouts[at + name] = DENSE if p.dim() == 2 else CONV
+            else:
+                layouts[at + name] = IDENTITY
+        if hasattr(module, "num_heads") and hasattr(module, "query"):
+            attention.update({f"{at}{part}.{leaf}": attention_layout(part, leaf, module.num_heads)
+                              for part in _ATTENTION for leaf in ("weight", "bias")})
+    return {**layouts, **attention}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -115,18 +183,7 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
         state[_port_key(path)] = torch.from_numpy(np.array(value, dtype=np.float32))
     for path, value in _flatten(params):
         t = torch.from_numpy(np.array(value, dtype=np.float32))
-        if len(path) > 1 and path[-2] in _ATTENTION and t.dim() > 1:
-            if path[-1] == "bias":      # (heads, head_dim)
-                t = t.reshape(-1)
-            elif path[-2] == "out":     # (heads, head_dim, d)
-                t = t.reshape(-1, t.shape[-1])
-            else:                       # (d, heads, head_dim)
-                t = t.reshape(t.shape[0], -1)
-        if path[-1] == "kernel" and t.dim() == 4:  # (kh, kw, in, out) convolution
-            t = t.permute(3, 2, 0, 1).contiguous()
-        elif path[-1] == "kernel":
-            t = t.t().contiguous()
-        state[_port_key(path)] = t
+        state[_port_key(path)] = _flax_layout(path, t).to_port(t).contiguous()
     return state
 
 

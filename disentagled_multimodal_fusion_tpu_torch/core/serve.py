@@ -127,8 +127,11 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
         A ``parallel.mesh.Mesh``: every rank calls ``fn`` with the same
         request, runs the module on its rows (``B / n_dp``; B must divide by
         the ``data`` axis, which ``ServingEngine(divisor=)`` ensures) and
-        gathers the outputs of all rows in one collective. The weights are
-        each rank's own copy, the same on every rank.
+        gathers the outputs of all rows in one collective over its data
+        group. The weights are each rank's own copy, whole and the same on
+        every rank: a mesh with a ``model`` axis serves them whole, as the
+        JAX package replicates them, its model group's ranks repeating one
+        another's rows.
     """
     module = InferenceModule(task, backbone)
     device = next(task.model.parameters()).device
@@ -154,7 +157,7 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
         sl = rows_of(rows, mesh)
         out = infer(tuple(x[sl] for x in xs))
         with torch.inference_mode():
-            return gather_instances(out, rows, sl)
+            return gather_instances(out, rows, sl, mesh.data_group)
 
     infer_rows.module = module
     return infer_rows

@@ -65,7 +65,8 @@ def fit_job(job: CellJob, data, n_train: int, batch_size: int,
         sl = instances_of(s_count, mesh, "fit_job(mesh=...)", "seed count")
         local = fit_job(_seed_block(job, sl), shard_instances(data, mesh, s_count), n_train,
                         batch_size, drop_last)
-        return _unstack_metrics(gather_instances(_stack_metrics(local), s_count, sl), s_count)
+        return _unstack_metrics(gather_instances(_stack_metrics(local), s_count, sl,
+                                                  mesh.data_group), s_count)
     train_data, test_data = data
     task = job.tasks[0]
     res = train_many(
@@ -157,7 +158,7 @@ def run_cell(
             xs_tr=shard_instances(xs_tr, mesh, s_count), xs_te=shard_instances(xs_te, mesh, s_count),
             y_tr=y_tr[sl], y_te=y_te[sl], n_train=n_train, batch_size=batch_size)
         local["jobs"] = {k: _stack_metrics(v) for k, v in local["jobs"].items()}
-        full = gather_instances(local, s_count, sl)
+        full = gather_instances(local, s_count, sl, mesh.data_group)
         full["jobs"] = {k: _unstack_metrics(v, s_count) for k, v in full["jobs"].items()}
         return full
     bb = train_many(model=backbone, params=bb_params, loss_fn=bb_loss_fn, data={"xs": xs_tr},

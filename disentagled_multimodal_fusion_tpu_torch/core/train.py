@@ -56,12 +56,30 @@ on the device.
   them; validation runs on each rank's rows and its means are summed the
   same way. ``train_many(mesh=)`` splits the S instances instead, with no
   collective inside the fit, and gathers the results so that every rank
-  returns all S. The ``model`` axis is not ported yet.
+  returns all S.
+* The mesh's ``model`` axis (JAX lines 279-327: ``train(mesh=,
+  tp_hidden_dim=)``): each rank keeps its block of every parameter the
+  rule cuts (``parallel.mesh.ShardPlan``) and of its two Adam moments
+  (AdamW's decay is elementwise, so it runs on the blocks), and runs the
+  loss and the validation through :func:`functional` on its blocks inside
+  ``parallel.mesh.model_split`` (the Megatron cut of the MLPs; every other
+  cut parameter gathered whole first). The ranks of a model group compute
+  the same loss, so the gradients, the losses and the validation sums are
+  summed over the data group alone. At the end every rank writes the
+  whole parameters back into the model, and the state's moments are
+  whole too: the caller holds what one process would have trained, as
+  JAX's global arrays are. The model itself keeps its whole parameters
+  on every rank through the fit, and the parameters gathered on use are
+  whole while a step runs, so the cut saves no parameter memory yet: the
+  blocks and their moments come on top of the whole tensors. Without
+  ``tp_hidden_dim`` (and in ``train_many``) the model axis cuts nothing:
+  its ranks repeat the work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -335,7 +353,7 @@ def _validate_rows(mesh, val_fn, val_data, epoch: int, device):
     if sl.stop > sl.start:
         val_loss, val_acc = val_fn(shard_batch(val_data, mesh), epoch)
         part = torch.stack([val_loss.float(), val_acc.float()]) * ((sl.stop - sl.start) / n)
-    val_loss, val_acc = all_reduce(part)
+    val_loss, val_acc = all_reduce(part, group=mesh.data_group)
     return val_loss, val_acc
 
 
@@ -353,22 +371,34 @@ def validate(cfg: OptimizerConfig, val_fn, val_data, epoch: int, plateau, device
     return val_loss.float(), val_acc.float(), _plateau_update(cfg, plateau, val_loss)
 
 
-def _rows_step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int):
+def _step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int, call):
+    """One step's (loss, gradients) of the global batch ``idx`` (and its
+    ``draws``): in this process, or over the mesh (:func:`_rows_step`)."""
+    if mesh is not None:
+        return _rows_step(mesh, loss_fn, params, data, idx, draws, epoch, count, call)
+    mask = torch.ones(idx.shape[0], dtype=torch.float32, device=idx.device)
+    loss, _ = loss_fn.compute(gather_rows(data, idx), mask, epoch, draws, count)
+    return loss, torch.autograd.grad(loss, params)
+
+
+def _rows_step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int, call):
     """One data-parallel step: this rank's part of the global batch ``idx``
-    (and of its ``draws``) through the loss, inside the step's row split.
-    Returns (the global batch's loss, its gradients), equal on every rank:
-    each rank's loss, a mean over its rows, is scaled by its share of the
-    rows, and one sum over the ranks adds the gradients and the losses."""
+    (and of its ``draws``) through the loss, inside the step's row split;
+    ``call(fn, *args)`` runs the loss (on the parameter blocks, under the
+    model axis). Returns (the global batch's loss, its gradients), equal on
+    every rank of a model group: each rank's loss, a mean over its rows, is
+    scaled by its share of the rows, and one sum over the data group adds
+    the gradients and the losses."""
     from ..parallel.distributed import RowSplit, all_reduce, row_split
     from ..parallel.mesh import split_rows
 
     rows = idx.shape[0]
-    split = RowSplit(split_rows(rows, mesh.shape["data"]), mesh.data_index)
+    split = RowSplit(split_rows(rows, mesh.shape["data"]), mesh.data_index, mesh.data_group)
     lo, hi = split.lo, split.hi
     batch = gather_rows(data, idx[lo:hi])
     mask = torch.ones(hi - lo, dtype=torch.float32, device=idx.device)
     with row_split(split):
-        loss, _ = loss_fn.compute(batch, mask, epoch, loss_fn.rows(draws, lo, hi), count)
+        loss, _ = call(loss_fn.compute, batch, mask, epoch, loss_fn.rows(draws, lo, hi), count)
         share = loss * ((hi - lo) / rows)
         grads = torch.autograd.grad(share, params)
     if hi == lo:
@@ -377,7 +407,7 @@ def _rows_step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int):
         share = torch.zeros_like(share)
         grads = [torch.zeros_like(p) for p in params]
     flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]
-                                + [share.detach().float().reshape(1)]))
+                                + [share.detach().float().reshape(1)]), group=mesh.data_group)
     out, at = [], 0
     for p in params:
         out.append(flat[at:at + p.numel()].view_as(p))
@@ -403,6 +433,7 @@ def train(
     start_epoch: int = 0,
     resume: Optional[TrainState] = None,
     mesh: Any = None,
+    tp_hidden_dim: Optional[int] = None,
 ) -> TrainResult:
     """Fit ``model``'s parameters in place over epochs [start_epoch,
     start_epoch + epochs).
@@ -434,6 +465,11 @@ def train(
     (:func:`_rows_step`; the module docstring). The histories, the plateau
     state and the parameters are the global batch's, equal on every rank.
     The epoch kernel is declined under a mesh, as in the JAX package.
+
+    ``tp_hidden_dim``: with a mesh whose ``model`` axis is larger than 1,
+    the hidden width the model axis cuts (the Megatron cut, the module
+    docstring); ``ValueError`` when the axis does not divide a width the
+    rule cuts.
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
@@ -448,9 +484,13 @@ def train(
             )
             return program(model.stack, randomness, data, val_data, resume)
 
-    params = [p for p in model.parameters() if p.requires_grad]
+    names, params, plan, call = _fit_params(model, mesh, tp_hidden_dim)
     device = params[0].device
     moments, count, plateau = resume_state(optimizer, params, randomness, resume)
+    if plan is not None and resume is not None:  # the state's moments are whole
+        moments = [(plan.block(k, m), plan.block(k, v)) for k, (m, v) in zip(names, moments)]
+    if val_fn is not None and plan is not None:
+        val_fn = functools.partial(call, val_fn)
     weight_decay = optimizer.weight_decay if optimizer.name == "adamw" else 0.0
     sizes = batch_sizes(n_train, batch_size, drop_last)
     weights = torch.tensor(sizes, dtype=torch.float32).to(device)
@@ -461,14 +501,7 @@ def train(
         lr = lr_for_epoch(optimizer, epoch, plateau[0])
         losses = []
         for idx, step_draws in zip(epoch_batches(perm, batch_size, drop_last), draws):
-            if mesh is None:
-                batch = gather_rows(data, idx)
-                mask = torch.ones(idx.shape[0], dtype=torch.float32, device=device)
-                loss, _ = loss_fn.compute(batch, mask, epoch, step_draws, count)
-                grads = torch.autograd.grad(loss, params)
-            else:
-                loss, grads = _rows_step(mesh, loss_fn, params, data, idx, step_draws, epoch,
-                                         count)
+            loss, grads = _step(mesh, loss_fn, params, data, idx, step_draws, epoch, count, call)
             count += 1
             adam_update(params, moments, grads, *bias_corrections(count), lr, weight_decay)
             losses.append(loss.detach().float())
@@ -476,7 +509,71 @@ def train(
         val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device,
                                               mesh)
         history.append((train_loss, val_loss, val_acc))
+    if plan is not None:
+        moments = _whole_model(model, plan, names, params, moments)
     return _finish(history, capture_state(moments, count, plateau, randomness))
+
+
+def _plain_call(fn, *args):
+    return fn(*args)
+
+
+def _fit_params(model: nn.Module, mesh, tp_hidden_dim: Optional[int]):
+    """(names, parameters, plan, call) of a fit: ``model``'s trainable
+    parameters, or under a model axis that cuts ``tp_hidden_dim`` this
+    rank's blocks of them (new leaves) and their ``parallel.mesh.ShardPlan``;
+    ``call(fn, *args)`` runs the loss or the validation on them."""
+    names = [k for k, p in model.named_parameters() if p.requires_grad]
+    params = [p for p in model.parameters() if p.requires_grad]
+    if mesh is None or tp_hidden_dim is None or mesh.shape["model"] == 1:
+        return names, params, None, _plain_call
+    from ..parallel.mesh import ShardPlan
+
+    plan = ShardPlan(model, names, mesh, tp_hidden_dim)
+    params = [plan.block(k, p.detach()).clone().requires_grad_() for k, p in zip(names, params)]
+    return names, params, plan, _model_axis_call(model, plan, names, params)
+
+
+def step_gradients(*, model: nn.Module, loss_fn, data, n_train: int, batch_size: int,
+                   randomness, mesh: Any = None, tp_hidden_dim: Optional[int] = None,
+                   drop_last: bool = False, shuffle: bool = True):
+    """(loss, {name: gradient}) of the first step that :func:`train` with
+    these arguments takes, from the same draws, the gradients whole (under
+    a model axis, every rank's blocks gathered); ``model``'s parameters are
+    left as they are (a BatchNorm's running statistics take the step's).
+    For holding a mesh's step elementwise against one process's."""
+    names, params, plan, call = _fit_params(model, mesh, tp_hidden_dim)
+    perm = epoch_order(randomness, n_train, shuffle, params[0].device)
+    draws = loss_fn.draw_epoch(randomness, batch_sizes(n_train, batch_size, drop_last))
+    idx = epoch_batches(perm, batch_size, drop_last)[0]
+    loss, grads = _step(mesh, loss_fn, params, data, idx, draws[0], 0, 0, call)
+    grads = {k: g.detach() for k, g in zip(names, grads)}
+    return loss.detach().float(), grads if plan is None else plan.whole(grads)
+
+
+def _model_axis_call(model: nn.Module, plan, names, params):
+    """``call(fn, *args)``: ``fn`` run on the parameter blocks ``params``
+    (by ``names``) inside the plan's model split."""
+    from ..parallel.mesh import model_split
+
+    def call(fn, *args):
+        with model_split(plan.split):
+            return functional(model, plan.call_params(dict(zip(names, params))), fn, *args)
+
+    return call
+
+
+@torch.no_grad()
+def _whole_model(model: nn.Module, plan, names, params, moments):
+    """The fit's blocks gathered whole: the parameters written back into
+    ``model``, the moments returned."""
+    whole = plan.whole(dict(zip(names, params)))
+    own = dict(model.named_parameters())
+    for k in names:
+        own[k].copy_(whole[k])
+    ms = plan.whole({k: m for k, (m, _) in zip(names, moments)})
+    vs = plan.whole({k: v for k, (_, v) in zip(names, moments)})
+    return [(ms[k], vs[k]) for k in names]
 
 
 # ------------------------------------------------------------ seed-batched fits
@@ -690,7 +787,7 @@ def _train_many_on_mesh(mesh, *, params, randomness, data, val_data, data_broadc
         "plateau": st.plateau, "model_state": st.model_state,
         # a test's replayed randomness has no state
         "rng": None if any(r is None for r in st.rng) else torch.stack(st.rng),
-    }, s_count, sl)
+    }, s_count, sl, mesh.data_group)
     rng = (None,) * s_count
     if full["rng"] is not None:
         rng = tuple(state.clone() for state in full["rng"].cpu().unbind(0))

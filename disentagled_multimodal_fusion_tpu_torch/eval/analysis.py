@@ -245,8 +245,8 @@ def task_evidences(task, data, mesh=None) -> torch.Tensor:
     BatchNorm (the LUMA encoders) normalises by its running statistics,
     the ones its training carried in its buffers (or a checkpoint
     restored). Under a ``mesh`` (``parallel.mesh.Mesh``) each rank runs
-    its rows of ``data`` and the evidence of all rows is gathered to every
-    rank."""
+    its rows of ``data`` (the rows of its data index) and the evidence of
+    all rows is gathered to every rank over the data group."""
     if mesh is None:
         return task.evidences_fn(data)
     from ..core.train import num_rows
@@ -254,7 +254,8 @@ def task_evidences(task, data, mesh=None) -> torch.Tensor:
     from ..parallel.mesh import rows_of, shard_batch
 
     n = num_rows(data)
-    return gather_rows(task.evidences_fn(shard_batch(data, mesh)), n, rows_of(n, mesh).start)
+    return gather_rows(task.evidences_fn(shard_batch(data, mesh)), n, rows_of(n, mesh).start,
+                       group=mesh.data_group)
 
 
 def evaluate_subjective_model(task, data, mesh=None) -> Dict[str, Any]:

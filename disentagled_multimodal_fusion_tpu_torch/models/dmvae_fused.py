@@ -34,8 +34,8 @@ from torch import nn
 
 from ..ops.gaussian import gaussian_kl_standard, product_of_experts, reparameterize
 from .dmvae import _masked_mean_rows
-from .layers import (Encoded, build_encoders, dropout, encode_views, norm_dtype,
-                     torch_bias_init, xavier_uniform)
+from .layers import (Encoded, build_encoders, dense_cut, dropout, encode_views, local_mask,
+                     norm_dtype, torch_bias_init, whole, xavier_uniform)
 
 
 class StackedMLP(nn.Module):
@@ -54,7 +54,16 @@ class StackedMLP(nn.Module):
     and the bias added in it, ReLU and dropout run in it, and the output
     returns to float32 so that the VAE statistics, KL and MSE stay float32.
     The parameters stay float32.
+
+    Each layer runs as ``layers.dense_cut``. Inside a ``model_split`` (the
+    mesh's model axis) it holds this rank's blocks: with the DMVAE's
+    two hidden layers of width h, w1 (N, in, h) is column-parallel, w2
+    (N, h, h) column-parallel too (the rule tests the last axis first), so
+    its input, w1's block, is gathered first, and the last layer (N, h,
+    out) row-parallel; the dropout masks are cut to the block's columns.
     """
+
+    takes_model_blocks = True
 
     def __init__(self, in_dims: Sequence[int], hidden: Union[int, Sequence[int]],
                  out_dims: Sequence[int], generator: torch.Generator, dtype=None):
@@ -64,6 +73,7 @@ class StackedMLP(nn.Module):
         hiddens = [hidden, hidden] if isinstance(hidden, int) else list(hidden)
         widths = [*hiddens, max(out_dims)]
         fans, d_in = list(in_dims), max(in_dims)
+        self.widths = []  # each layer's whole (in, out)
         for li, width in enumerate(widths):
             w = torch.zeros((n, d_in, width))
             b = torch.zeros((n, width))
@@ -72,6 +82,7 @@ class StackedMLP(nn.Module):
                 b[i] = torch_bias_init((width,), fan, generator)
             self.register_parameter(f"w{li + 1}", nn.Parameter(w))
             self.register_parameter(f"b{li + 1}", nn.Parameter(b))
+            self.widths.append((d_in, width))
             fans, d_in = [width] * n, width
         self.num_layers = len(widths)
 
@@ -80,18 +91,20 @@ class StackedMLP(nn.Module):
         return getattr(self, f"w{i + 1}"), getattr(self, f"b{i + 1}")
 
     def forward(self, x, drop_masks=None, keep: float = 1.0):
-        dt = self.dtype
-        y = x if dt is None else x.to(dt)
+        y = x if self.dtype is None else x.to(self.dtype)
         for i in range(self.num_layers):
             w, b = self.layer(i)
-            if dt is not None:
-                w, b = w.to(dt), b.to(dt)
-            y = torch.einsum("...nd,ndh->...nh", y, w) + b
+            y = dense_cut(y, w, b, *self.widths[i], _stacked_product, self.dtype)
             if i < self.num_layers - 1:
                 y = torch.relu(y)
                 if drop_masks is not None:
-                    y = dropout(y, drop_masks[i], keep)
-        return y.float()
+                    y = dropout(y, local_mask(drop_masks[i], y), keep)
+        return whole(y, self.widths[-1][1]).float()
+
+
+def _stacked_product(x, w, b=None):
+    y = torch.einsum("...nd,ndh->...nh", x, w)
+    return y if b is None else y + b
 
 
 def pad_stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -33,6 +33,12 @@ Parameters keep the flax names where they are leaves (``W``, ``U``, ``V``,
 ``b``, ``factor_i``, ``fusion_weights``, ``fusion_bias``); ``convert.py``
 maps the flax submodule paths onto the port's (``Dense_i`` -> ``dense.i``,
 ``LayerNorm_i`` -> ``norm.i``, ...).
+
+On the mesh's model axis (``parallel.mesh``) every parameter here that the
+rule cuts (a Dense kernel, a factor or an attention kernel whose flax axis
+has the hidden width) is gathered whole before the forward and used whole
+on every rank of the model group (gather-on-use); the layers here have no
+Megatron form of their own.
 """
 
 from __future__ import annotations

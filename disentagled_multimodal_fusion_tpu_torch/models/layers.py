@@ -38,6 +38,26 @@ Parameters stay float32. flax's ``BatchNorm(dtype=bf16)`` (with its
 default ``force_float32_reductions``) computes the statistics and the
 normalisation in f32 from the bf16 input and rounds its output to bf16
 once; the running statistics stay f32.
+
+**The mesh's model axis** (``parallel.mesh``; inside ``model_split``, the
+Megatron cut of the hidden width ``h``). ``TorchLinear`` (and so ``MLP``,
+``EvidentialNN`` and the encoders' dense layers) holds this rank's block
+of its parameters and runs :func:`dense_cut`: a column layer (``out ==
+h``) computes its block of the hidden columns, from its input summed back
+over the group in the backward (``to_model``), or gathered first when the
+input is itself a column layer's block; ReLU and dropout run on the
+block, the keep-mask cut to its columns (:func:`local_mask`); a row layer
+(``in == h``) takes its block of the input's columns, sums the partial
+products over the group (``from_model``) and adds the bias, whole on every
+rank, once. Under bf16 the cut's products run in float32 on bf16 operands,
+so the partial products and a column layer's input gradients are summed in
+float32 and rounded once, as the whole product is. A layer's output that is still a block is gathered (:func:`whole`)
+before anything else reads it. Every other parameter the rule cuts (a
+``Conv`` kernel and bias of ``h`` channels, a ``BatchNorm`` scale and
+bias) is gathered whole before the forward and used whole
+(gather-on-use): what reads it runs the same on every rank of the group,
+so each rank's gradient of it is whole, and the gather's backward hands
+this rank its block. BatchNorm's moments sum over the data group.
 """
 
 from __future__ import annotations
@@ -50,7 +70,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.evidence import evidence_activation
-from ..parallel.distributed import all_reduce, current_row_split
+from ..parallel.distributed import (all_reduce, current_row_split, from_model, gather_from_model,
+                                    scatter_to_model, to_model)
+from ..parallel.mesh import current_model_split
 
 
 def norm_dtype(dtype) -> Optional[torch.dtype]:
@@ -87,24 +109,90 @@ def torch_default_kernel(shape, generator: torch.Generator) -> torch.Tensor:
 KERNEL_INITS = {"xavier": xavier_uniform, "torch_default": torch_default_kernel}
 
 
+# ------------------------------------------------------------ the model axis
+def dense_cut(x, w, b, width_in: int, width_out: int, product, dtype=None):
+    """One Dense layer (whole widths ``width_in`` -> ``width_out``) on this
+    rank's blocks ``w`` and ``b`` of the active ``model_split``, or on the
+    whole ``w`` and ``b`` outside one; ``product(x, w, b=None)`` is the
+    layer's product (plus ``b`` when given). ``x`` is whole or, after a
+    column layer, this rank's block of its columns. Returns the output,
+    this rank's block of the columns for a column layer. In ``dtype`` (a
+    compute type) the product is rounded once and then the bias added, as
+    flax's ``Dense(dtype=...)``; under the cut the product runs in float32
+    on the operands rounded to ``dtype``, so that the sums over the group
+    (a row layer's partial products, a column layer's input gradients) are
+    float32 too and each result is rounded once, as the whole product's."""
+    split = current_model_split()
+    kind = None if split is None else split.kind(width_in, width_out)
+    if kind is None:
+        if dtype is None:
+            return product(x, w, b)
+        return product(x.to(dtype), w.to(dtype)) + b.to(dtype)
+    if dtype is not None:
+        x, w = x.to(dtype).float(), w.to(dtype).float()
+    if kind == "row":
+        if x.shape[-1] == width_in:
+            x = scatter_to_model(x, split)
+        y = from_model(product(x, w), split)
+    else:
+        x = (to_model(x, split) if x.shape[-1] == width_in
+             else gather_from_model(x, split, partial=True))
+        y = product(x, w)
+    return y + b if dtype is None else y.to(dtype) + b.to(dtype)
+
+
+def local_mask(mask, x):
+    """A keep-mask of a whole hidden layer, cut to the columns of ``x``
+    when ``x`` is this rank's block of them."""
+    if mask.shape[-1] == x.shape[-1]:
+        return mask
+    return mask[..., current_model_split().block(mask.shape[-1])]
+
+
+def whole(y, width: int):
+    """``y`` whole: gathered when it is this rank's block of ``width``
+    columns (whatever reads it runs the same on every rank of the group)."""
+    if y.shape[-1] == width:
+        return y
+    return gather_from_model(y, current_model_split())
+
+
 class TorchLinear(nn.Module):
     """Dense layer, ``weight`` (out, in) as in ``nn.Linear``, with a
-    xavier-uniform (or ``torch_default``) kernel and the torch-default bias."""
+    xavier-uniform (or ``torch_default``) kernel and the torch-default bias.
+    It runs :func:`dense_cut`, on its blocks inside a ``model_split``:
+    :meth:`cut` leaves a column layer's output a block, ``forward`` returns
+    it whole."""
+
+    takes_model_blocks = True
 
     def __init__(self, in_features: int, out_features: int, generator: torch.Generator,
                  init: str = "xavier", dtype=None):
         super().__init__()
         kernel = KERNEL_INITS[init]((in_features, out_features), generator)
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(kernel.t().contiguous())
         self.bias = nn.Parameter(torch_bias_init((out_features,), in_features, generator))
         self.dtype = norm_dtype(dtype)
 
+    def cut(self, x):
+        return dense_cut(x, self.weight, self.bias, self.in_features, self.out_features,
+                         F.linear, self.dtype)
+
     def forward(self, x):
-        if self.dtype is None:
-            return F.linear(x, self.weight, self.bias)
-        # flax Dense(dtype=...): the product rounded, then the bias added
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return whole(self.cut(x), self.out_features)
+
+
+def dense_stack(x, layers, masks, keep: float, start: int = 0):
+    """``layers`` (TorchLinear) with ReLU and, when ``masks`` are given,
+    dropout after every layer but the last (masks[start:] are the hidden
+    layers'): inside a ``model_split`` the hidden activations stay blocks
+    and only the output is gathered."""
+    for i, layer in enumerate(layers[:-1]):
+        x = torch.relu(layer.cut(x))
+        if masks:
+            x = dropout(x, local_mask(masks[start + i], x), keep)
+    return whole(layers[-1].cut(x), layers[-1].out_features)
 
 
 class IdentityEncoder(nn.Module):
@@ -135,11 +223,7 @@ class MLP(nn.Module):
         hidden layer; None in eval mode. The output is in the compute type."""
         # the data in the parameters' type (float32), then in the compute type
         x = x.to(self.dtype or self.layers[0].weight.dtype)
-        for i, layer in enumerate(self.layers[:-1]):
-            x = torch.relu(layer(x))
-            if drop_masks is not None:
-                x = dropout(x, drop_masks[i], self.keep)
-        return self.layers[-1](x)
+        return dense_stack(x, self.layers, drop_masks, self.keep)
 
 
 class EvidentialNN(nn.Module):
@@ -177,19 +261,20 @@ def batch_norm(x, weight, bias, mean, var, train: bool, momentum: float = 0.99,
     Inside a data-parallel step (``parallel.distributed.row_split``) x holds
     this rank's rows and the batch statistics are the global batch's, as
     GSPMD computes the mean over a sharded axis: the sums of x and x^2 and
-    the count are summed over the ranks (with their gradients), and the
+    the count are summed over the data group (with their gradients), and the
     variance keeps flax's form E[x^2] - E[x]^2."""
     out_dtype, x = x.dtype, x.float()
     axes = [a for a in range(x.dim()) if a != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
     if train:
-        if current_row_split() is None:
+        split = current_row_split()
+        if split is None:
             mu, ex2 = torch.mean(x, dim=axes), torch.mean(x * x, dim=axes)
         else:
             c = x.shape[1]
             count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
             sums = all_reduce(torch.cat([torch.sum(x, dim=axes), torch.sum(x * x, dim=axes),
-                                         count]), differentiable=True)
+                                         count]), differentiable=True, group=split.group)
             mu, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
         var_b = torch.clamp(ex2 - mu * mu, min=0.0)
         new = (momentum * mean + (1.0 - momentum) * mu.detach(),
@@ -278,15 +363,6 @@ class _Encoder(nn.Module):
     def drop_shapes(self, rows: int):
         return [] if self.keep >= 1.0 else self._drop_shapes(rows)
 
-    def _dense(self, x, layers, masks, start: int):
-        """ReLU + dropout after every layer but the last; masks[start:] are
-        the hidden layers'."""
-        for i, layer in enumerate(layers[:-1]):
-            x = torch.relu(layer(x))
-            if masks:
-                x = dropout(x, masks[start + i], self.keep)
-        return layers[-1](x)
-
 
 class ImageEncoder(_Encoder):
     """(B, 3072) CHW-flattened 32 x 32 images -> (B, output_dim): three conv
@@ -310,7 +386,7 @@ class ImageEncoder(_Encoder):
         x = x.reshape(b, 3, 32, 32).to(self.layers[0].weight.dtype)
         x = self.blocks(x, drop_masks, self.keep)
         x = x.permute(0, 2, 3, 1).flatten(1)  # flax's NHWC flatten
-        return self._dense(x, self.layers, drop_masks, 3)
+        return dense_stack(x, self.layers, drop_masks, self.keep, 3)
 
 
 class AudioEncoder(_Encoder):
@@ -341,7 +417,7 @@ class AudioEncoder(_Encoder):
     def forward(self, x, drop_masks=None):
         x = x.to(self.layers[0].weight.dtype)
         if not self.use_2d:
-            return self._dense(x, self.layers, drop_masks, 0)
+            return dense_stack(x, self.layers, drop_masks, self.keep)
         if x.dim() == 3:
             x = x[:, None]
         elif x.shape[1] != 1:  # NHWC (B, H, W, 1)
@@ -366,7 +442,8 @@ class TextEncoder(_Encoder):
         return [(rows, 256), (rows, 256)]
 
     def forward(self, x, drop_masks=None):
-        return self._dense(x.to(self.layers[0].weight.dtype), self.layers, drop_masks, 0)
+        return dense_stack(x.to(self.layers[0].weight.dtype), self.layers, drop_masks,
+                           self.keep)
 
 
 ENCODER_REGISTRY = {"ImageEncoder": ImageEncoder, "AudioEncoder": AudioEncoder,

@@ -26,6 +26,8 @@ from torch import nn
 
 from ..ops.cuda_kernels import evidential_heads_stacked, evidential_heads_stacked_bf16
 from ..ops.evidence import evidence_activation
+from ..parallel.distributed import gather_from_model
+from ..parallel.mesh import current_model_split
 from .dmvae_fused import StackedMLP, pad_stack
 from .layers import EvidentialNN
 
@@ -36,6 +38,21 @@ def _wants_grad(stack: StackedMLP, x: torch.Tensor) -> bool:
     )
 
 
+def _whole(stack: StackedMLP, i: int):
+    """Layer ``i``'s (w, b), gathered whole when the active model split
+    holds blocks of them."""
+    w, b = stack.layer(i)
+    split = current_model_split()
+    if split is None:
+        return w, b
+    width_in, width_out = stack.widths[i]
+    if w.shape[-1] != width_out:
+        return gather_from_model(w, split), gather_from_model(b, split)
+    if w.shape[-2] != width_in:
+        return gather_from_model(w, split, dim=-2), b
+    return w, b
+
+
 def stacked_evidence(stack: StackedMLP, x: torch.Tensor, drop_masks=None,
                      keep: float = 1.0) -> torch.Tensor:
     """Evidence (B, V, C) of the stacked heads on x (B, V, D): through the
@@ -43,7 +60,7 @@ def stacked_evidence(stack: StackedMLP, x: torch.Tensor, drop_masks=None,
     one-hidden-layer heads, else layer by layer (differentiable, with the
     dropout masks when given)."""
     if stack.num_layers == 2 and drop_masks is None and not _wants_grad(stack, x):
-        (w1, b1), (w2, b2) = stack.layer(0), stack.layer(1)
+        (w1, b1), (w2, b2) = (_whole(stack, i) for i in range(2))
         heads = evidential_heads_stacked if stack.dtype is None else evidential_heads_stacked_bf16
         return heads(x.transpose(0, 1), w1, b1, w2, b2)
     return evidence_activation(stack(x, drop_masks, keep))

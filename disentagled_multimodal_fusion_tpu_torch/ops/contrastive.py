@@ -15,8 +15,9 @@ rank's rows and each loss takes its global form: SupCon contrasts this
 rank's anchors with the global batch's features, gathered with their
 gradient, and averages over this rank's anchors (``core.train`` weighs the
 ranks' means by their rows); the orthogonality penalty sums its product
-over the global batch. loss_x and loss_y, which no loss term reads, are
-then this rank's anchors' means.
+over the global batch. Both sum over the split's data group: the ranks of
+one model group hold the same rows. loss_x and loss_y, which no loss term
+reads, are then this rank's anchors' means.
 """
 
 from __future__ import annotations
@@ -98,7 +99,8 @@ def _supcon_rows(features, labels, temperature: float, base_temperature: float, 
     b_local, views = features.shape[0], features.shape[1]
     batch_size, lo = split.total, split.lo
     device = features.device
-    gathered = gather_rows(features, batch_size, lo, differentiable=True)    # (B, V, D)
+    gathered = gather_rows(features, batch_size, lo, differentiable=True,
+                           group=split.group)                               # (B, V, D)
     contrast_feature = torch.cat(gathered.unbind(dim=1), dim=0)             # (V*B, D)
     anchor_feature = torch.cat(features.unbind(dim=1), dim=0)               # (V*b, D)
     rows = lo + torch.arange(b_local, device=device)
@@ -109,7 +111,7 @@ def _supcon_rows(features, labels, temperature: float, base_temperature: float, 
         same = rows[:, None] == (contrast_index % batch_size)[None]
     else:
         labels = labels.reshape(-1)
-        all_labels = gather_rows(labels.float(), batch_size, lo)
+        all_labels = gather_rows(labels.float(), batch_size, lo, group=split.group)
         same = labels.float()[:, None] == all_labels[contrast_index % batch_size][None]
     mask = same.float().repeat(views, 1)                                    # (V*b, V*B)
 
@@ -145,6 +147,7 @@ def ortho_loss(z1: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of normalized(z1)^T @ normalized(zs) (losses.py:104-110),
     the product summed over the global batch inside a data-parallel step."""
     product = _l2_normalize(z1).T @ _l2_normalize(zs)
-    if current_row_split() is not None:
-        product = all_reduce(product, differentiable=True)
+    split = current_row_split()
+    if split is not None:
+        product = all_reduce(product, differentiable=True, group=split.group)
     return torch.linalg.matrix_norm(product)

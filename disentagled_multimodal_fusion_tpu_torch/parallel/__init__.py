@@ -1,7 +1,8 @@
-"""The mesh's ``data`` axis over ``torch.distributed`` ranks, multi-process
-start-up and host-local data feeding (the JAX package's ``parallel``; its
-``model`` axis, ``param_sharding_rule`` and ``shard_params``, is not
-ported yet)."""
+"""The mesh over ``torch.distributed`` ranks: its ``data`` axis (row and
+seed splits), its ``model`` axis (the Megatron cut of the hidden widths,
+``param_sharding_rule`` and ``shard_params`` as in the JAX package),
+multi-process start-up and host-local data feeding (the JAX package's
+``parallel``)."""
 
 from .distributed import (
     global_mesh,
@@ -12,9 +13,13 @@ from .distributed import (
 )
 from .mesh import (
     Mesh,
+    ShardPlan,
     make_mesh,
+    model_split,
+    param_sharding_rule,
     rows_of,
     shard_batch,
     shard_instances,
+    shard_params,
     split_rows,
 )

@@ -1,5 +1,5 @@
-"""Multi-process start-up, host-local data feeding and the collectives of
-the mesh's ``data`` axis.
+"""Multi-process start-up, host-local data feeding, the mesh's process
+groups and the collectives of its ``data`` and ``model`` axes.
 
 Counterpart of ``disentagled_multimodal_fusion_tpu/parallel/distributed.py``.
 JAX runs a mesh as one program over many devices; torch's idiom is one
@@ -22,7 +22,19 @@ gloo, several ranks on one card or on the CPU).
    across cards and over gloo with two ranks on one card. A gather is a sum
    into a zero-filled buffer (adding zeros is exact). :func:`all_reduce`
    with ``differentiable=True`` sums the gradient in the backward too, which
-   is the gradient of the sum of every rank's loss.
+   is the gradient of the sum of every rank's loss. Every collective takes
+   a ``group``: None is every rank, else one of the mesh's groups
+   (:func:`mesh_groups`).
+4. **The model axis** (the Megatron cut of the hidden widths): the
+   autograd pairs of ``parallel.mesh.ModelSplit``'s group, with
+   :func:`to_model` (identity forward, sum backward) before a column layer
+   whose input every rank of the group holds whole, :func:`from_model` (sum
+   forward, identity backward) after a row layer's partial product,
+   :func:`gather_from_model` (each rank's block of an axis gathered into
+   the whole; backward, this rank's block of the gradient, summed over the
+   group first when the consumer is a column layer) and
+   :func:`scatter_to_model` (this rank's block of a whole tensor; backward,
+   the blocks' gradients gathered).
 
 A data-parallel step (``core.train.train(mesh=)``) runs its loss on this
 rank's part of the global batch inside :func:`row_split`; the terms that
@@ -37,7 +49,7 @@ import contextlib
 import contextvars
 import datetime
 import os
-from typing import NamedTuple, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,6 +148,34 @@ def is_writer() -> bool:
     return rank() == 0
 
 
+def mesh_groups(data: int, model: int):
+    """(data groups, model groups) of a (data, model) mesh over the whole
+    process group: model group i holds ranks [i * model, (i + 1) * model)
+    (a contiguous run, as the JAX package lays its devices out), data group
+    j the ranks j, j + model, ... . Every rank creates every group, in this
+    order, as ``dist.new_group`` requires; a second call for the same shape
+    returns the same groups."""
+    key = (data, model)
+    if key not in _GROUPS:
+        model_groups = [dist.new_group(list(range(i * model, (i + 1) * model)))
+                        for i in range(data)]
+        data_groups = [dist.new_group(list(range(j, data * model, model)))
+                       for j in range(model)]
+        _GROUPS[key] = (data_groups, model_groups)
+    return _GROUPS[key]
+
+
+_GROUPS: dict = {}
+
+
+def group_size(group) -> int:
+    """The number of ranks in ``group`` (None: every rank; 1 without a
+    process group)."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
 def global_mesh(model_parallel: int = 1):
     """The mesh over every rank of the group, shaped (world / model_parallel,
     model_parallel)."""
@@ -184,31 +224,111 @@ def place_global(x, spec: Sequence):
 
 
 # ------------------------------------------------------------ collectives
+def _summed(tensor: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of ``tensor`` summed over ``group``. A collective
+    needs one shape on every rank, so a tensor without elements is empty on
+    all of them and skips it alike."""
+    out = tensor.clone(memory_format=torch.contiguous_format)
+    if out.numel():
+        dist.all_reduce(out, group=group)
+    return out
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks whose backward sums the incoming gradients over
-    the ranks: the gradient of the sum of every rank's loss."""
+    """A sum over the group whose backward sums the incoming gradients over
+    the group: the gradient of the sum of every rank's loss."""
 
     @staticmethod
-    def forward(ctx, tensor):
-        out = tensor.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return _summed(tensor, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce(tensor: torch.Tensor, differentiable: bool = False) -> torch.Tensor:
-    """The sum of ``tensor`` over the ranks (a new tensor; ``tensor`` itself
-    without a group)."""
-    if not dist.is_initialized():
+def all_reduce(tensor: torch.Tensor, differentiable: bool = False, group=None) -> torch.Tensor:
+    """The sum of ``tensor`` over ``group`` (every rank by default): a new
+    tensor, or ``tensor`` itself when the group is this rank alone."""
+    if group_size(group) == 1:
         return tensor
     if differentiable:
-        return _AllReduceSum.apply(tensor)
-    out = tensor.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out)
-    return out
+        return _AllReduceSum.apply(tensor, group)
+    return _summed(tensor, group)
+
+
+# ------------------------------------------------------------ the model axis
+# ``split`` below is a ``parallel.mesh.ModelSplit``: this rank's ``index``
+# of the ``size`` ranks of the model ``group``.
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_model(x: torch.Tensor, split) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over the model group: before a
+    column layer, whose columns each see only their own part of the
+    gradient of an input every rank holds whole."""
+    return _ToModel.apply(x, split.group)
+
+
+def from_model(x: torch.Tensor, split) -> torch.Tensor:
+    """The sum of the group's partial products ``x`` (after a row layer);
+    the gradient passes to each partial unchanged."""
+    return _FromModel.apply(x, split.group)
+
+
+def placed(block: torch.Tensor, dim: int, lo: int, total: int) -> torch.Tensor:
+    """``block`` at [lo, lo + len) of a zero tensor ``total`` long on
+    ``dim`` (its backward is the block's slice of the gradient)."""
+    dim = dim % block.dim()
+    hi = lo + block.shape[dim]
+    zeros = list(block.shape)
+    parts = []
+    if lo:
+        zeros[dim] = lo
+        parts.append(block.new_zeros(zeros))
+    parts.append(block)
+    if total > hi:
+        zeros[dim] = total - hi
+        parts.append(block.new_zeros(zeros))
+    return torch.cat(parts, dim) if len(parts) > 1 else block
+
+
+def gather_from_model(x: torch.Tensor, split, dim: int = -1,
+                      partial: bool = False) -> torch.Tensor:
+    """Each rank's block of ``dim`` gathered into the whole (a sum into
+    zeros). Backward: this rank's block of the gradient, which is whole on
+    every rank when what consumes the gathered tensor runs replicated; with
+    ``partial`` (the consumer is a column layer, each rank's gradient a part
+    of the whole) the gradients are summed over the group first."""
+    k = x.shape[dim]
+    full = placed(x, dim, split.index * k, split.size * k)
+    return _AllReduceSum.apply(full, split.group) if partial else from_model(full, split)
+
+
+def scatter_to_model(x: torch.Tensor, split, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``dim`` of ``x``, which every rank of the group
+    holds whole; backward, the blocks' gradients gathered."""
+    k = x.shape[dim] // split.size
+    return to_model(x, split).narrow(dim, split.index * k, k)
 
 
 def barrier() -> None:
@@ -249,22 +369,22 @@ def from_rank0(fn):
 
 
 def gather_rows(local: torch.Tensor, total: int, lo: int,
-                differentiable: bool = False) -> torch.Tensor:
+                differentiable: bool = False, group=None) -> torch.Tensor:
     """Every rank's block of rows gathered into the (total, ...) tensor on
-    every rank, this rank's block at [lo, lo + len(local)): a sum into
-    zeros."""
+    every rank of ``group`` (the mesh's data group), this rank's block at
+    [lo, lo + len(local)): a sum into zeros."""
     hi = lo + local.shape[0]
     pad = (0, 0) * (local.dim() - 1)
     full = torch.nn.functional.pad(local, pad + (lo, total - hi))
-    return all_reduce(full, differentiable)
+    return all_reduce(full, differentiable, group)
 
 
-def gather_instances(tree, total: int, sl: slice):
+def gather_instances(tree, total: int, sl: slice, group=None):
     """Each tensor leaf of ``tree`` holds this rank's block ``sl`` of
     ``total`` on its leading axis (stacked instances, or a request's rows):
-    gathered to all ``total`` on every rank, in one collective (float64 on
-    the wire, exact for every type used here). Leaves that are not tensors
-    are returned as they are."""
+    gathered to all ``total`` on every rank of ``group`` (the mesh's data
+    group), in one collective (float64 on the wire, exact for every type
+    used here). Leaves that are not tensors are returned as they are."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
     leaves, spec = tree_flatten(tree)
@@ -278,7 +398,7 @@ def gather_instances(tree, total: int, sl: slice):
         full = torch.zeros((total, *t.shape[1:]), dtype=torch.float64, device=wire)
         full[sl] = t.detach().to(device=wire, dtype=torch.float64)
         blocks.append(full.reshape(-1))
-    flat = all_reduce(torch.cat(blocks))
+    flat = all_reduce(torch.cat(blocks), group=group)
     offset = 0
     for i in at:
         t = leaves[i]
@@ -299,10 +419,13 @@ def _wire_device(device: torch.device) -> torch.device:
 # ------------------------------------------------------------ the step's row split
 class RowSplit(NamedTuple):
     """How one step's global batch of ``bounds[-1][1]`` rows is split over
-    the mesh's data axis: rank i holds rows [bounds[i][0], bounds[i][1])."""
+    the mesh's data axis: rank i holds rows [bounds[i][0], bounds[i][1]).
+    The terms that couple rows sum over ``group``, the ranks of this rank's
+    model index (None: every rank)."""
 
     bounds: tuple  # ((lo, hi), ...) per data index
     index: int     # this rank's data index
+    group: Any = None
 
     @property
     def lo(self) -> int:

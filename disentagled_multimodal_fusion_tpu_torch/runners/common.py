@@ -137,8 +137,9 @@ def add_mesh_args(parser) -> None:
              "e.g. torchrun --nproc-per-node N -m <runner> --data-parallel N")
     parser.add_argument(
         "--model-parallel", type=int, default=1, metavar="N",
-        help="tensor-parallel hidden-dim cut over N devices (mesh 'model' axis; not ported "
-             "yet)")
+        help="tensor-parallel hidden-dim cut over N ranks (mesh 'model' axis: the Megatron "
+             "cut of every MLP's hidden width in the single fits; the seed-batched engines "
+             "repeat their work on it); the world size is --data-parallel x --model-parallel")
 
 
 def build_runner_mesh(data_parallel: int = 1, model_parallel: int = 1, device=None):
@@ -166,8 +167,10 @@ def build_runner_mesh(data_parallel: int = 1, model_parallel: int = 1, device=No
         raise SystemExit(
             f"--data-parallel x --model-parallel = {n} devices requested, but this process "
             f"group has {world_size()} rank(s); launch one process per device, e.g. torchrun "
-            f"--nproc-per-node {n} -m <runner> --data-parallel {n} (each rank joins from RANK, "
-            f"WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT)")
+            f"--nproc-per-node {n} -m <runner> --data-parallel {data_parallel}"
+            + (f" --model-parallel {model_parallel}" if model_parallel > 1 else "")
+            + " (each rank joins from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and "
+            "MASTER_PORT)")
     mesh = global_mesh(model_parallel)
     dev = resolve_device(rank_device(device))
     import torch.distributed as dist

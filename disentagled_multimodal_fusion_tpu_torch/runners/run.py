@@ -75,8 +75,12 @@ seed-batched engines split the seeds (their count must divide by N). The
 results are the same on every rank, and rank 0 alone writes the
 checkpoints, logs, rows file and report. ``--probe-engine megakernel`` is
 refused with it, as in the JAX package (the epoch kernel is one device's
-program). ``--model-parallel`` (the mesh's ``model`` axis) is not ported
-yet.
+program). ``--model-parallel M`` runs the mesh's ``model`` axis, the world
+size --data-parallel x M: every single fit cuts its MLPs' hidden width
+over M ranks (the Megatron cut, ``parallel/mesh.py``; the backbone at its
+hidden width, the heads at the probes' ``probes.model_hidden_dim``), the
+JAX runner's ``tp_hidden_dim``; the seed-batched engines split their
+seeds over ``data`` alone and repeat their work on ``model``.
 ``--force-vmap-seeds`` is accepted for the JAX CLI's sake: the port never
 falls back from ``--vmap-seeds`` to the sequential engine.
 
@@ -311,13 +315,15 @@ def build_cell_head_specs(*, st: CellSettings, dims, num_classes: int, device,
 
 def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: int,
                  seeds: tuple, device, tag: str, drop_last: bool, fused_dmvae: bool = True,
-                 mesh=None):
+                 mesh=None, tp_hidden_dim=None):
     """Build and fit the cell's backbone, DMVAE (fused unless
     ``fused_dmvae`` is off) or DisentangledSSL (weights from generator seed
     ``seeds[0]``, fit draws from ``seeds[1]``), and print its fit time (and
     the vMF sampler's host syncs per epoch); returns (model, the probes'
     input widths over it, {backbone_fit_seconds, vmf_syncs_per_epoch}).
-    ``mesh`` splits each step's rows over its ranks."""
+    ``mesh`` splits each step's rows over its ranks, and its model axis
+    cuts ``tp_hidden_dim`` (by default the backbone's hidden width, as the
+    JAX runner passes it)."""
     from ..core.tasks import build_disentangledssl_task, dmvae_objective
     from ..core.train import Randomness, train
 
@@ -333,15 +339,18 @@ def fit_backbone(*, C, st: CellSettings, backbone: str, dims, xs_tr, n_train: in
             vmfkappa=C("dssl.vmfkappa", 1.0), lr=C("dssl.lr", 1e-3), epochs=st.dmvae_epochs,
             device=device)
         widths = dict(input_dim=embed, shared_input_dim=2 * embed)
+        hidden = C("dssl.hidden_dim", 512)
     else:
         model = build_backbone(st, dims, seeds[0], device, fused=fused_dmvae)
         loss_fn, opt = dmvae_objective(model, lr=st.dmvae_lr, num_epochs=st.dmvae_epochs)
         backbone = "dmvae" if fused_dmvae else "dmvae (unfused)"
+        hidden = st.dmvae_hidden
     randomness = Randomness(seeds[1], device)
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train,
                 optimizer=opt, epochs=st.dmvae_epochs, batch_size=st.batch_size,
-                randomness=randomness, drop_last=drop_last, mesh=mesh)
+                randomness=randomness, drop_last=drop_last, mesh=mesh,
+                tp_hidden_dim=hidden if tp_hidden_dim is None else tp_hidden_dim)
     fit_s = time.perf_counter() - t_fit
     syncs = randomness.vmf_syncs / st.dmvae_epochs
     print(f"  {tag} {backbone} fit: {fit_s:.2f} s, {1e3 * fit_s / st.dmvae_epochs:.3f} ms/epoch"
@@ -413,6 +422,7 @@ def run_condition(*, C, seed, dataset_name, conflict, quick, device, rows_out,
             optimizer=task.optimizer, epochs=st.probe_epochs, batch_size=st.batch_size,
             randomness=Randomness(fit_seed, device), val_fn=task.val_fn, val_data=te_data,
             megakernel=task.megakernel if probe_engine == "megakernel" else None, mesh=mesh,
+            tp_hidden_dim=st.probe_hidden[0],
         )
         fit_s = time.perf_counter() - t_fit
         evaluate = (evaluate_subjective_model_with_shared if shared_layout
@@ -677,10 +687,6 @@ def write_sweep_report(rows, excel_path):
     return table
 
 
-# options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--model-parallel",)
-
-
 def parse_args(argv=None):
     from ..models.fusions import INTERMEDIATE_FUSIONS
     from .common import add_force_vmap_flag, add_mesh_args
@@ -747,12 +753,10 @@ def parse_args(argv=None):
     if args.include_intermediate and "concat" not in fusions:
         fusions.insert(0, "concat")
     args.intermediate_fusion = fusions
-    used = [flag for flag, on in zip(NOT_PORTED, (args.model_parallel > 1,)) if on]
-    if used:
-        parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
-    if args.probe_engine == "megakernel" and args.data_parallel > 1:
+    if args.probe_engine == "megakernel" and (args.data_parallel > 1
+                                              or args.model_parallel > 1):
         parser.error("--probe-engine megakernel is single-device (probe fits are KB-scale; mesh "
-                     "parallelism applies to the fits of the step loop)")
+                     "parallelism applies to the backbone fit, which keeps the step loop)")
     return args
 
 

@@ -81,8 +81,13 @@ corpus and sends the arrays to every rank (:func:`luma_features`), every
 sequential fit splits each step's rows over the ranks (the
 encoders' BatchNorm moments are the global batch's), every evaluation its
 test and OOD rows, ``--vmap-seeds`` splits the seeds (their count must
-divide by N), and rank 0 writes the files. ``--model-parallel`` is not
-ported yet.
+divide by N), and rank 0 writes the files. ``--model-parallel M`` (world
+size --data-parallel x M) cuts the hidden widths of every sequential fit
+over the mesh's ``model`` axis (``parallel/mesh.py``): the DMVAE's 512,
+which also cuts the image encoder's 2048 -> 512 layer, and the heads'
+128, which also cuts, gathered whole where they are used, the encoders'
+128-channel convolutions and BatchNorm scales, as the JAX runner's rule
+does; ``--vmap-seeds`` splits its seeds over ``data`` alone.
 
 The port runs on the CUDA card unless ``--device cpu``.
 
@@ -100,8 +105,6 @@ import time
 import numpy as np
 import torch
 
-# options of the JAX runner that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("--model-parallel",)
 ENC_OUT = 200  # the Audio/Text/Image encoders' output width
 # the seed-batched engine's intermediate jobs: job j >= 6 takes its weights
 # from intermediate_seed(seed, VMAP_INIT + j - 6) and its fit from
@@ -307,7 +310,7 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
     t_fit = time.perf_counter()
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs_tr}, n_train=n_train, optimizer=opt,
                 epochs=dmvae_epochs, batch_size=batch_size, randomness=Randomness(slot(1), device),
-                mesh=mesh)
+                mesh=mesh, tp_hidden_dim=C("dmvae.hidden_dim", 512))
     fit_s = time.perf_counter() - t_fit
     save_checkpoint(backbone_checkpoint(seed), model, {"dataset": "LUMA", "seed": seed})
     print(f"[seed {seed}] DMVAE trained: {fit_s:.2f} s, {1e3 * fit_s / dmvae_epochs:.3f} ms/epoch, "
@@ -331,7 +334,8 @@ def run_seed(*, C, seed: int, data, specs, jobs, num_classes: int, dmvae_epochs:
         res_m = train(model=task.model, loss_fn=task.loss_fn, data=tr_data, n_train=n_train,
                       optimizer=task.optimizer, epochs=probe_epochs, batch_size=batch_size,
                       randomness=Randomness(fit_seed, device), val_fn=task.val_fn,
-                      val_data=te_data, mesh=mesh)
+                      val_data=te_data, mesh=mesh,
+                      tp_hidden_dim=tuple(C("probes.model_hidden_dim", (128,)))[0])
         rows_out[name] = finish_job(
             name=name, fusion=fusion, task=task, result=res_m, seed=seed, te_data=te_data,
             ood_data=late_ood if views else probe_ood, num_classes=num_classes,
@@ -515,9 +519,6 @@ def parse_args(argv=None):
     add_mesh_args(parser)
     add_force_vmap_flag(parser)
     args = parser.parse_args(argv)
-    used = [flag for flag, on in zip(NOT_PORTED, (args.model_parallel > 1,)) if on]
-    if used:
-        parser.error(f"{', '.join(used)}: not ported yet (see ROADMAP.md)")
     if args.use_ood and args.ood_eval:
         parser.error("--use-ood trains on ALL classes, leaving no held-out set for --ood-eval; "
                      "pick one")

@@ -57,7 +57,12 @@ process group (``runners/run.py``'s docstring): each fit's rows, the DSSL
 backbone's SupCon negatives and orthogonality penalty included, are split
 over the ranks, ``--vmap-seeds`` splits the seeds, and rank 0 writes the
 files; ``--probe-engine megakernel`` then trains the probe through the step
-loop, as in the JAX package. ``--model-parallel`` is not ported yet.
+loop, as in the JAX package. ``--model-parallel M`` (world size
+--data-parallel x M) cuts the hidden widths of every single fit over the
+mesh's ``model`` axis (the Megatron cut, ``parallel/mesh.py``): the
+backbone's at ``dmvae.hidden_dim`` (DSSL's too, as the JAX runner passes
+it), the probe's and late fusion's at theirs; ``--vmap-seeds`` splits its
+seeds over ``data`` alone.
 ``--force-vmap-seeds`` is accepted and changes nothing.
 
 Examples:
@@ -141,7 +146,7 @@ def head_specs(C, st, view_dims, shared_dim: int, device, quick: bool):
     """[(label, builder(seed) -> task, kind, shared_layout, epochs)] in the
     JAX order, which fixes each head's slots and fold indices: the probe
     (kind 'probe', on the embeddings), then late fusion cml and avg (kind
-    'raw', on the views)."""
+    'raw', on the views). :func:`head_hidden` is each one's hidden width."""
     from ..core.tasks import build_late_fusion_task, build_probe_task
 
     late_epochs = 3 if quick else C("latefusion.num_epochs", 50)
@@ -166,6 +171,14 @@ def head_specs(C, st, view_dims, shared_dim: int, device, quick: bool):
     return [("dmvae_cml", probe, "probe", True, st.probe_epochs),
             ("cml", late("cml"), "raw", False, late_epochs),
             ("avg", late("avg"), "raw", False, late_epochs)]
+
+
+def head_hidden(C, st, kind: str) -> int:
+    """The hidden width a head of ``kind`` cuts on the mesh's model axis
+    (the JAX runner's ``tp_hidden_dim``): the probe's, or late fusion's."""
+    if kind == "probe":
+        return st.probe_hidden[0]
+    return tuple(C("latefusion.hidden_dim", (128,)))[0]
 
 
 def _upload(arrays, device):
@@ -201,7 +214,8 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
     model, widths, bb_info = fit_backbone(C=C, st=st, backbone=backbone, dims=view_dims,
                                           xs_tr=xs_tr, n_train=n_train, seeds=(slot(0), slot(4)),
                                           device=device, tag=tag, drop_last=True,
-                                          fused_dmvae=fused_dmvae, mesh=mesh)
+                                          fused_dmvae=fused_dmvae, mesh=mesh,
+                                          tp_hidden_dim=st.dmvae_hidden)
     save_checkpoint(f"checkpoints/{checkpoint_name('backbone', seed, dep, backbone)}", model,
                     {"seed": seed, "dep": dep, "model": backbone})
     data = head_data(embed_dataset(model, xs_tr), embed_dataset(model, xs_va), xs_tr, xs_va,
@@ -217,7 +231,7 @@ def run_cell(*, C, st, seed: int, dep: int, data_kw: dict, backbone: str, probe_
                     randomness=Randomness(slot(5 + j), device), val_fn=task.val_fn,
                     val_data=va_data, drop_last=True,
                     megakernel=task.megakernel if probe_engine == "megakernel" else None,
-                    mesh=mesh)
+                    mesh=mesh, tp_hidden_dim=head_hidden(C, st, kind))
         fit_s = time.perf_counter() - t_fit
         evaluate = (evaluate_subjective_model_with_shared if shared_layout
                     else evaluate_subjective_model)
@@ -376,8 +390,6 @@ def parse_args(argv=None):
     if args.backbone == "dssl" and args.vmap_seeds:
         parser.error("--vmap-seeds trains the DMVAE backbone only (the SSL backbone has no "
                      "seed-batched trainer, as in the JAX package)")
-    if args.model_parallel > 1:
-        parser.error("--model-parallel: not ported yet (see ROADMAP.md)")
     return args
 
 

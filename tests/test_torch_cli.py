@@ -199,14 +199,22 @@ def test_evaluate_luma_reports_the_runs_fused_accuracy_when_run_as_a_module(luma
                                    ["--data-parallel", "2", "--model-parallel", "2"],
                                    ["--model-parallel", "2"]],
                          ids=["bfloat16", "data_parallel", "model_parallel"])
-def test_run_luma_refuses_what_is_not_ported(flags, capsys):
-    """The mesh's model axis is refused, with --dtype bfloat16 and
-    --data-parallel too (which run alone: tests/test_torch_bf16_runs.py,
-    tests/test_torch_parallel.py)."""
+def test_run_luma_refuses_what_is_not_ported(flags, capsys, monkeypatch):
+    """The mesh's model axis runs now, with --dtype bfloat16 and
+    --data-parallel too: the flags parse, and without a process group of
+    data x model ranks the runner exits naming that launch (the ranks run
+    in tests/test_torch_multiprocess_model.py)."""
+    from disentagled_multimodal_fusion_tpu_torch.parallel.distributed import CLUSTER_ENV
     from disentagled_multimodal_fusion_tpu_torch.runners import run_luma
 
+    for var in CLUSTER_ENV:
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--seeds", "0", *flags, "--device", "cpu"]
+    args = run_luma.parse_args(argv)
+    assert args.model_parallel == 2
+    world = 2 * args.data_parallel
     with pytest.raises(SystemExit) as exit_info:
-        run_luma.parse_args(["--seeds", "0", *flags])
-    assert exit_info.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet (see ROADMAP.md)" in err and flags[-2] in err
+        run_luma.main(argv)
+    assert (f"--nproc-per-node {world} -m <runner> --data-parallel {args.data_parallel} "
+            f"--model-parallel 2") in str(exit_info.value)
+    assert "not ported" not in capsys.readouterr().err

@@ -188,13 +188,22 @@ def test_rows_file_skips_the_block_only_when_every_seed_is_complete(vmap_run, lu
 @pytest.mark.parametrize("flags", [["--dtype", "bfloat16", "--model-parallel", "2"],
                                    ["--data-parallel", "2", "--model-parallel", "2"],
                                    ["--model-parallel", "2"]])
-def test_bf16_and_the_mesh_stay_refused(flags, capsys):
-    """The mesh's model axis stays refused, beside --dtype bfloat16 and
-    --data-parallel too (which run with --vmap-seeds:
-    tests/test_torch_bf16_runs.py, tests/test_torch_parallel.py)."""
-    with pytest.raises(SystemExit):
-        run_luma.parse_args(["--vmap-seeds", "--segment-epochs", "1", *flags])
-    assert "not ported yet" in capsys.readouterr().err
+def test_bf16_and_the_mesh_stay_refused(flags, capsys, monkeypatch):
+    """--vmap-seeds with the mesh's model axis parses, beside --dtype
+    bfloat16 and --data-parallel too (the seeds split over ``data`` alone,
+    as in the JAX package); without a process group of data x model ranks
+    the runner exits naming that launch."""
+    from disentagled_multimodal_fusion_tpu_torch.parallel.distributed import CLUSTER_ENV
+
+    for var in CLUSTER_ENV:
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--vmap-seeds", "--segment-epochs", "1", *flags, "--device", "cpu"]
+    args = run_luma.parse_args(argv)
+    assert args.vmap_seeds and args.model_parallel == 2
+    with pytest.raises(SystemExit) as exit_info:
+        run_luma.main(argv)
+    assert f"--nproc-per-node {2 * args.data_parallel} -m <runner>" in str(exit_info.value)
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_vmap_flags_parse():

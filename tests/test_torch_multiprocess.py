@@ -123,7 +123,13 @@ def _probe(seed, dropout=0.3, input_dim=4):
 
 
 # ------------------------------------------------------------------ the legs
-def leg_train(mesh):
+# ``cut``: on a mesh with a model axis, each fit cuts its hidden width
+# (tests/test_torch_multiprocess_model.py); the fits are the same without it
+def _tp(cut, width):
+    return width if cut else None
+
+
+def leg_train(mesh, cut=False):
     out = {}
     xs = _views(N, DIMS, 0)
     for fused in (True, False):
@@ -132,7 +138,7 @@ def leg_train(mesh):
         loss_fn, opt = ttasks.dmvae_objective(bb, lr=1e-3, num_epochs=EPOCHS)
         res = train(model=bb, loss_fn=loss_fn, data={"xs": xs}, n_train=N, optimizer=opt,
                     epochs=EPOCHS if fused else 1, batch_size=BATCH,
-                    randomness=Randomness(1, "cpu"), mesh=mesh)
+                    randomness=Randomness(1, "cpu"), mesh=mesh, tp_hidden_dim=_tp(cut, 16))
         name = "dmvae" if fused else "dmvae_unfused"
         out.update(_params(name, bb), **{f"{name}.train_loss": res.train_loss})
     zc, zp = ttasks.embed_dataset(bb, xs)
@@ -142,7 +148,8 @@ def leg_train(mesh):
     task = _probe(2)
     res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=N,
                 optimizer=task.optimizer, epochs=EPOCHS, batch_size=BATCH,
-                randomness=Randomness(3, "cpu"), val_fn=task.val_fn, val_data=val, mesh=mesh)
+                randomness=Randomness(3, "cpu"), val_fn=task.val_fn, val_data=val, mesh=mesh,
+                tp_hidden_dim=_tp(cut, 8))
     info = evaluate_subjective_model_with_shared(task, val, mesh)
     out.update(_params("probe", task.model), **_history("probe", res))
     out["probe.eval"] = np.array([info["fused"]["accuracy"], info["fused"]["ece"],
@@ -222,11 +229,14 @@ ENCODERS = (("AudioEncoder", dict(input_dim=8, output_dim=6, dropout=0.1, use_2d
             ("TextEncoder", dict(input_dim=10, output_dim=6, dropout=0.1)))
 
 
-def leg_batchnorm(mesh):
+def leg_batchnorm(mesh, cut=False):
     """The fit's parameters and losses; then the same fit at lr 0, whose
     running statistics and validation hold the global moments alone (at a
     learning rate, the drift of the biases before BatchNorm, see _close,
-    reaches the running means and the validation)."""
+    reaches the running means and the validation). With ``cut`` the heads'
+    hidden width is the audio encoder's first convolution's 32 channels, so
+    the model axis cuts that convolution and its BatchNorm too."""
+    hidden = 32 if cut else 8
     out = {}
     rng = np.random.default_rng(12)
     xs = (torch.from_numpy(rng.standard_normal((N, 8, 5)).astype(np.float32)),
@@ -234,14 +244,14 @@ def leg_batchnorm(mesh):
     data = {"xs": xs, "y": _labels(N, 13)}
     val = {"xs": tuple(x[:20] for x in xs), "y": data["y"][:20]}
     for name, lr in (("bn", 3e-3), ("bn_lr0", 0.0)):
-        task = ttasks.build_late_fusion_task(output_dims=(6, 6), num_classes=C, hidden_dim=(8,),
-                                             dropout=0.3, lr=lr, annealing_start=2,
-                                             aggregation="cml", feature_encoders=ENCODERS,
-                                             seed=11, device="cpu")
+        task = ttasks.build_late_fusion_task(output_dims=(6, 6), num_classes=C,
+                                             hidden_dim=(hidden,), dropout=0.3, lr=lr,
+                                             annealing_start=2, aggregation="cml",
+                                             feature_encoders=ENCODERS, seed=11, device="cpu")
         res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=N,
                     optimizer=task.optimizer, epochs=EPOCHS, batch_size=BATCH,
                     randomness=Randomness(14, "cpu"), val_fn=task.val_fn, val_data=val,
-                    mesh=mesh)
+                    mesh=mesh, tp_hidden_dim=_tp(cut, hidden))
         out[f"{name}.train_loss"] = res.train_loss
         if lr:
             out.update(_params(name, task.model))
@@ -251,14 +261,14 @@ def leg_batchnorm(mesh):
     return out
 
 
-def leg_dssl(mesh):
+def leg_dssl(mesh, cut=False):
     model, loss_fn, opt = ttasks.build_disentangledssl_task(
         output_dim=(6, 5), hidden_dim=16, embed_dim=4, distribution="vmf",
         lmd_start_value=0.5, epochs=2, seed=15, device="cpu")
     xs = _views(40, (6, 5), 16)
     res = train(model=model, loss_fn=loss_fn, data={"xs": xs}, n_train=40, optimizer=opt,
                 epochs=2, batch_size=BATCH, randomness=Randomness(17, "cpu"), drop_last=True,
-                mesh=mesh)
+                mesh=mesh, tp_hidden_dim=_tp(cut, 16))
     return {**_params("dssl", model), "dssl.train_loss": res.train_loss}
 
 
@@ -285,11 +295,12 @@ def leg_luma(corpus):
     return out
 
 
-def run_legs(mesh, n_dp):
+def run_legs(mesh, n_dp, cut=False):
     """Legs A-F on ``mesh`` (None: one process); ``n_dp`` sizes the
-    seed-batched and serving legs alike in both."""
-    return {**leg_train(mesh), **leg_many(mesh, 2 * n_dp), **leg_serve(mesh, n_dp),
-            **leg_corpus(mesh), **leg_batchnorm(mesh), **leg_dssl(mesh)}
+    seed-batched and serving legs alike in both; ``cut`` cuts the single
+    fits' hidden widths on the mesh's model axis."""
+    return {**leg_train(mesh, cut), **leg_many(mesh, 2 * n_dp), **leg_serve(mesh, n_dp),
+            **leg_corpus(mesh), **leg_batchnorm(mesh, cut), **leg_dssl(mesh, cut)}
 
 
 # ------------------------------------------------------------------ JAX legs

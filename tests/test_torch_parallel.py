@@ -8,11 +8,13 @@
   one when called again;
 * the errors of the JAX package: ``train_many(mesh=)`` (and the seed-split
   cell and job) when the seed count does not divide by the ``data`` axis,
-  ``place_global``'s guard, and a ``model`` axis larger than 1 (not ported
-  yet);
-* the runners' refusals: ``--model-parallel 2`` (not ported yet),
-  ``--probe-engine megakernel --data-parallel 2`` (as in the JAX runner),
-  and ``--data-parallel 2`` without a process group (the launch message);
+  and ``place_global``'s guard; a mesh with a ``model`` axis knows its
+  position, and needs the process groups ``make_mesh`` makes;
+* the runners' refusals: ``--model-parallel 2`` without a process group of
+  its ranks (the launch message, which names both axes),
+  ``--probe-engine megakernel`` with ``--data-parallel 2`` or
+  ``--model-parallel 2`` (as in the JAX runner), and ``--data-parallel 2``
+  without a process group (the launch message);
 * every objective of the trainers is a mean over the rows its draws are
   cut to: a batch's loss is the rows-weighted sum of its parts' losses,
   each part with its rows of the draws (``Objective.rows``), which is what
@@ -148,9 +150,11 @@ def test_the_jax_errors():
     job = CellJob("dmvae_cml", tasks, [Randomness(s, "cpu") for s in range(3)], "probe", 1, True)
     with pytest.raises(ValueError, match="seed count 3 must divide"):
         fit_job(job, (data, data), 10, 4, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    mesh12 = Mesh(1, 2, rank=1)
+    assert (mesh12.data_index, mesh12.model_index) == (0, 1)
+    with pytest.raises(RuntimeError, match="no process groups"):
+        mesh12.data_group
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh(2, model_parallel=2)
     desc = tasks[0].megakernel
     assert supports_probe_megakernel(desc, tasks[0].optimizer)
@@ -168,20 +172,32 @@ def test_place_global_guard(monkeypatch):
     np.testing.assert_array_equal(tdist.place_global(x[:4], ("data",)).numpy(), x[2:4])
 
 
+LAUNCH_MP2 = "--nproc-per-node 2 -m <runner> --data-parallel 1 --model-parallel 2"
+
+
 @pytest.mark.parametrize("runner,flags,message", [
-    ("run", ["--model-parallel", "2"], "--model-parallel: not ported yet"),
-    ("run_synthetic", ["--model-parallel", "2"], "--model-parallel: not ported yet"),
-    ("run_luma", ["--model-parallel", "2"], "--model-parallel: not ported yet"),
+    ("run", ["--model-parallel", "2"], LAUNCH_MP2),
+    ("run_synthetic", ["--model-parallel", "2"], LAUNCH_MP2),
+    ("run_luma", ["--model-parallel", "2"], LAUNCH_MP2),
     ("run", ["--probe-engine", "megakernel", "--data-parallel", "2"],
      "--probe-engine megakernel is single-device"),
-])
-def test_runners_refuse(runner, flags, message, capsys):
+    ("run", ["--probe-engine", "megakernel", "--model-parallel", "2"],
+     "--probe-engine megakernel is single-device"),
+], ids=["run", "run_synthetic", "run_luma", "megakernel_data", "megakernel_model"])
+def test_runners_refuse(runner, flags, message, capsys, monkeypatch):
+    """``--model-parallel 2`` parses; without a process group of its two
+    ranks the runner exits naming the launch. ``run.py`` refuses the epoch
+    kernel on a mesh, as the JAX runner does."""
     import importlib
 
+    for var in tdist.CLUSTER_ENV:
+        monkeypatch.delenv(var, raising=False)
     module = importlib.import_module(f"disentagled_multimodal_fusion_tpu_torch.runners.{runner}")
-    with pytest.raises(SystemExit):
-        module.parse_args(["--seeds", "0", *flags])
-    assert message in capsys.readouterr().err
+    argv = ["--seeds", "0", *flags, "--device", "cpu"]
+    with pytest.raises(SystemExit) as exit_info:
+        assert module.parse_args(argv).model_parallel == 2
+        module.main(argv)
+    assert message in capsys.readouterr().err + str(exit_info.value)
 
 
 @pytest.mark.parametrize("runner", ["run", "run_synthetic", "run_luma"])

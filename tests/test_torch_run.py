@@ -142,11 +142,14 @@ def test_cli_trains_a_quick_cell_on_the_cpu_and_writes_the_report(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--backbone", "dssl", "--vmap-seeds"], ["--dtype", "float16"],
-    ["--intermediate-fusion", "lrtf", "nope"], ["--model-parallel", "2"],
+    ["--intermediate-fusion", "lrtf", "nope"],
+    ["--model-parallel", "2", "--probe-engine", "megakernel"],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
     """Among them a compute type other than float32 and bfloat16 (bfloat16
-    runs: tests/test_torch_bf16_runs.py)."""
+    runs: tests/test_torch_bf16_runs.py), and the epoch kernel on the
+    mesh's model axis (the axis itself runs:
+    tests/test_torch_multiprocess_model.py)."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
     with pytest.raises(SystemExit):
@@ -339,11 +342,14 @@ print(len(names))
 
 
 def test_only_bfloat16_and_the_mesh_are_not_ported():
-    """Only the mesh's model axis is left: --dtype bfloat16 runs since the
-    bf16 slice, --data-parallel since the data-axis slice."""
+    """Nothing of the JAX runner's options is left unported: --dtype
+    bfloat16 runs since the bf16 slice, --data-parallel since the data-axis
+    slice, --model-parallel since the model-axis slice."""
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
-    assert runner.NOT_PORTED == ("--model-parallel",)
+    assert not hasattr(runner, "NOT_PORTED")
+    args = runner.parse_args(["--model-parallel", "2", "--data-parallel", "2"])
+    assert (args.model_parallel, args.data_parallel) == (2, 2)
     assert runner.parse_args(["--dtype", "bfloat16"]).dtype == "bfloat16"
     args = runner.parse_args(["--include-intermediate", "--intermediate-fusion", "lrtf", "mi3",
                               "--rows-file", "rows.json", "--profile", "--no-fused-dmvae"])

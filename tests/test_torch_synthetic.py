@@ -370,13 +370,22 @@ def test_evaluate_reproduces_the_sweeps_row(sweep, model, monkeypatch):
 @pytest.mark.parametrize("flags,message", [
     (["--vmap-seeds", "--probe-engine", "megakernel"], "sequential path only"),
     (["--vmap-seeds", "--backbone", "dssl"], "DMVAE backbone only"),
-    (["--dtype", "bfloat16", "--model-parallel", "2"], "not ported yet"),
-    (["--data-parallel", "2", "--model-parallel", "2"], "not ported yet"),
+    (["--dtype", "bfloat16", "--model-parallel", "2"],
+     "--nproc-per-node 2 -m <runner> --data-parallel 1 --model-parallel 2"),
+    (["--data-parallel", "2", "--model-parallel", "2"],
+     "--nproc-per-node 4 -m <runner> --data-parallel 2 --model-parallel 2"),
 ])
-def test_run_synthetic_refuses(flags, message, capsys):
-    with pytest.raises(SystemExit):
-        trs.parse_args(flags)
-    assert message in capsys.readouterr().err
+def test_run_synthetic_refuses(flags, message, capsys, monkeypatch):
+    """The seed-batched engine's refusals; --model-parallel (with --dtype
+    bfloat16 and --data-parallel too) parses, and without a process group
+    of its data x model ranks the runner exits naming that launch."""
+    from disentagled_multimodal_fusion_tpu_torch.parallel.distributed import CLUSTER_ENV
+
+    for var in CLUSTER_ENV:
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit) as exit_info:
+        trs.main([*flags, "--device", "cpu"])
+    assert message in capsys.readouterr().err + str(exit_info.value)
 
 
 def test_evaluate_synthetic_refuses_the_models_the_sweep_does_not_train():
