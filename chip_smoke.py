@@ -258,18 +258,41 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     probe's weights no farther from the float32 leg's than 1.25 times one
     bf16 process's (norm-wise, ``MODEL_BF16_RATIO``), the accuracies within
     four of the 400 rows, the bf16 build of the head kernel launched four
-    times a rank at (7, 400 / n_dp) on the gathered weights; (b) ``runners/run.py --model-parallel 2 --device
-    cuda:0`` as two gloo ranks on HandWritten Normal seed 0 ``--quick``
-    against phase 27 (b)'s one-process run, at phase 27 (b)'s limits, both
-    runs' host time per epoch logged. (a) runs as a fifth group beside the
-    others; (b) runs alone, after phase 27.
+    times a rank at (7, 400 / n_dp) on the gathered weights; and what the
+    float32 DMVAE and probe fits hold, read at their last step from inside
+    them on every rank and in the leg without a mesh: the bytes of the
+    distinct storages of the model's parameters, the fit's and their Adam
+    moments (``core.train.resident_bytes``), held exactly to three times
+    the plan's blocks (the whole parameters without a mesh; the FusedDMVAE
+    at 512: 99 902 592 bytes without a mesh, 49 988 736 a rank), beside
+    ``torch.cuda.memory_allocated()`` then and the peak over the fit,
+    printed and not held (``memory_watch``); (b) ``runners/run.py
+    --model-parallel 2 --device cuda:0`` as two gloo ranks on HandWritten
+    Normal seed 0 ``--quick`` against phase 27 (b)'s one-process run, at
+    phase 27 (b)'s limits, both runs' host time per epoch logged. (a) runs
+    as a fifth group beside the others; (b) runs alone, after phase 27;
+29. the unfused heads (``fused_heads=False``: one module a head, plain
+    PyTorch) on the card: dmvae_cml (``EvidentialProbe``, AdamW cosine)
+    and dmvae_dis (``DisentangledEvidentialProbe``, AdamW plateau) on
+    random embeddings of the backbone's shapes (Zc and Zp of 200, 6 views)
+    and cml_fusion (``LateFusion``, Adam plateau) on HandWritten's raw
+    views, 1600 train and 400 validation rows, batch 100, five epochs
+    through the step loop; each held against its stacked twin on the same
+    weights (``convert.stack_heads``) and ``Randomness``, through the step
+    loop and, for the probes, the epoch kernel (5 launches a probe): the
+    losses at rtol 2e-5 / atol 2e-6, validation accuracy within one of the
+    400 rows, each parameter tensor within rtol 5e-3 / atol 5e-5 by norm,
+    each bound widened by twice how far the unfused fit with float64
+    weights lies from the float32 one (``UNFUSED_SPREAD``: these fits turn
+    chaotic); the head kernel once per validation epoch of each stacked
+    fit, the unfused fits no kernel; ms per epoch of each fit.
 
 Each phase logs its time. Phases 3-7 run first, alone; then phases 11-13
-and 26, 14-17 and 21, 18-20, 22-24, and 28 (a) run as five groups, each
-in a child process of this script (``--group``), beside phases 8-10 and 25
-in this one; phases 27 and 28 (b) run last, alone. Each child counts its
-own launches, each count set to 0 before a path and read after it, and
-sends them back.
+and 26, 14-17 and 21, 18-20, 22-24, 28 (a), and 29 run as six groups,
+each in a child process of this script (``--group``), beside phases 8-10
+and 25 in this one; phases 27 and 28 (b) run last, alone. Each child
+counts its own launches, each count set to 0 before a path and read after
+it, and sends them back.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -3032,7 +3055,42 @@ def mesh_data(device):
     return xs, torch.from_numpy(labels).to(device)
 
 
-def mesh_legs(mesh, device="cuda", cut=False):
+def memory_watch(model, loss_fn, mesh, tp, steps, reading):
+    """``loss_fn`` (an Objective) whose loss, at the fit's last step (its
+    ``steps``-th call), records in ``reading`` what the fit holds:
+    ``resident``, the bytes of the distinct storages of the model's
+    parameters, the fit's and their Adam moments
+    (``core.train.resident_bytes``), beside ``planned``, three times this
+    rank's blocks of the parameters under the cut of ``tp`` on ``mesh``'s
+    model axis (every parameter whole without one) in their type,
+    ``allocated``, ``torch.cuda.memory_allocated()``, and ``peak_steps``,
+    the peak allocation up to then since the caller's
+    ``reset_peak_memory_stats()`` before the fit (the caller adds ``peak``,
+    over the whole fit: the gathers that make the model whole at its end
+    too)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Objective, resident_bytes
+    from disentagled_multimodal_fusion_tpu_torch.parallel.mesh import ShardPlan
+
+    own = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    cuts = {} if mesh is None or tp is None else ShardPlan(model, list(own), mesh, tp).cuts
+    size = 1 if mesh is None else mesh.shape["model"]
+    planned = 3 * sum(p.numel() // (size if k in cuts else 1) * p.element_size()
+                      for k, p in own.items())
+    calls = [0]
+
+    def loss(*args):
+        calls[0] += 1
+        if calls[0] == steps:
+            reading.update(resident=resident_bytes(), planned=planned,
+                           allocated=torch.cuda.memory_allocated(),
+                           peak_steps=torch.cuda.max_memory_allocated())
+        return loss_fn.loss(*args)
+
+    return Objective(None, loss, draw_epoch=loss_fn.draw_epoch, with_step=loss_fn.with_step,
+                     rows=loss_fn.rows)
+
+
+def mesh_legs(mesh, device="cuda", cut=False, memory=None):
     """Legs A-C of phase 27 on ``mesh`` (None: one process without a mesh),
     at HandWritten's full width (FusedDMVAE 512/200, heads 200 -> 128 -> 10):
     A, a two-epoch DMVAE fit, and a three-epoch dmvae_cml probe fit through
@@ -3044,8 +3102,11 @@ def mesh_legs(mesh, device="cuda", cut=False):
     the first step of each is taken apart first (its loss and gathered
     gradients); and in bf16 compute mode (``bf16.`` keys) the first steps of
     the same DMVAE and probe and a three-epoch probe fit with validation
-    and evaluation (the bf16 head kernel on the gathered weights). Returns
-    numpy arrays by name."""
+    and evaluation (the bf16 head kernel on the gathered weights). With
+    ``memory`` (a dict) the DMVAE's and the probe's fits read what they
+    hold at their last step into ``memory["dmvae"]`` and
+    ``memory["probe"]`` (:func:`memory_watch`, plus ``peak``, the device's
+    peak allocation over the fit). Returns numpy arrays by name."""
     from disentagled_multimodal_fusion_tpu_torch.core import tasks
     from disentagled_multimodal_fusion_tpu_torch.core.serve import ServingEngine, build_inference_fn
     from disentagled_multimodal_fusion_tpu_torch.core.train import (
@@ -3075,14 +3136,27 @@ def mesh_legs(mesh, device="cuda", cut=False):
         out[f"{name}.step_loss"] = loss.cpu().numpy()
         out.update({f"{name}.grad.{k}": g.cpu().numpy() for k, g in grads.items()})
 
+    def watched(name, model, loss_fn, tp, epochs):
+        if memory is None:
+            return loss_fn
+        memory[name] = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return memory_watch(model, loss_fn, mesh, tp, epochs * 16, memory[name])
+
+    def peak(name):
+        if memory is not None:
+            memory[name]["peak"] = torch.cuda.max_memory_allocated()
+
     fitted = backbone()
     loss_fn, opt = tasks.dmvae_objective(fitted, lr=1e-4, num_epochs=2)
     bb_data = {"xs": tuple(x[:1600] for x in xs)}
     if cut:
         first_step("dmvae", fitted, loss_fn, bb_data, 1, dmvae_tp)
-    res = train(model=fitted, loss_fn=loss_fn, data=bb_data,
-                n_train=1600, optimizer=opt, epochs=2, batch_size=100,
+    res = train(model=fitted, loss_fn=watched("dmvae", fitted, loss_fn, dmvae_tp, 2),
+                data=bb_data, n_train=1600, optimizer=opt, epochs=2, batch_size=100,
                 randomness=Randomness(1, device), mesh=mesh, tp_hidden_dim=dmvae_tp)
+    peak("dmvae")
     out["dmvae.train_loss"] = res.train_loss
     out.update({f"dmvae.{k}": v.detach().cpu().numpy() for k, v in fitted.named_parameters()})
     del fitted
@@ -3096,10 +3170,11 @@ def mesh_legs(mesh, device="cuda", cut=False):
     task = tasks.build_probe_task(seed=2, **probe)
     if cut:
         first_step("probe", task.model, task.loss_fn, data, 3, probe_tp)
-    res = train(model=task.model, loss_fn=task.loss_fn, data=data, n_train=1600,
-                optimizer=task.optimizer, epochs=3, batch_size=100,
+    res = train(model=task.model, loss_fn=watched("probe", task.model, task.loss_fn, probe_tp, 3),
+                data=data, n_train=1600, optimizer=task.optimizer, epochs=3, batch_size=100,
                 randomness=Randomness(3, device), val_fn=task.val_fn, val_data=val, mesh=mesh,
                 tp_hidden_dim=probe_tp)
+    peak("probe")
     info = evaluate_subjective_model_with_shared(task, val, mesh)
     out.update({"probe.train_loss": res.train_loss, "probe.val_loss": res.val_loss,
                 "probe.val_acc": res.val_acc,
@@ -3531,15 +3606,32 @@ def model_rank(out_dir):
         ck.evidential_heads_stacked.launches = 0
         ck.evidential_heads_stacked_bf16.launches = 0
         pm.run_epoch_kernel.launches = 0
-        out = mesh_legs(mesh, "cuda:0", cut=True)
+        memory = {}
+        out = mesh_legs(mesh, "cuda:0", cut=True, memory=memory)
         launches, epochs = ck.evidential_heads_stacked.launches, pm.run_epoch_kernel.launches
         bf16_launches = ck.evidential_heads_stacked_bf16.launches
     out_dir = Path(out_dir)
     np.savez(out_dir / f"rank{mesh.rank}.npz", **out)
     (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(
         {"launches": launches, "bf16_launches": bf16_launches, "epoch_launches": epochs,
-         "shapes": dict(shapes), "mesh": [mesh.data_index, mesh.model_index]}))
+         "shapes": dict(shapes), "mesh": [mesh.data_index, mesh.model_index],
+         "memory": memory}))
     return 0
+
+
+def log_memory(label, memory, card):
+    """Prints phase 28 (a)'s memory readings of one process
+    (:func:`memory_watch`) and holds each fit's resident bytes to the count
+    its plan gives, exactly."""
+    for name, m in memory.items():
+        log(f"{label}: {name} fit at its last step holds {m['resident']} bytes "
+            f"({m['resident'] / 1e6:.2f} MB) of parameters and Adam moments (planned "
+            f"{m['planned']}); torch.cuda.memory_allocated {m['allocated'] / 1e6:.2f} MB, peak "
+            f"through its steps {m['peak_steps'] / 1e6:.2f} MB, over the whole fit (its end's "
+            f"gathers too) {m['peak'] / 1e6:.2f} MB [{card}]")
+        if m["resident"] != m["planned"]:
+            raise AssertionError(f"{label}: the {name} fit holds {m['resident']} bytes of "
+                                 f"parameters and moments, its plan {m['planned']}")
 
 
 def compare_model_legs(got, ref, label):
@@ -3615,7 +3707,9 @@ def phase_model_axis_legs(card):
             runs[world] = spawn_ranks([sys.executable, str(here), "--model-rank", str(out_dir)],
                                       world)
             procs += runs[world]
-        ref = mesh_legs(None, "cuda:0", cut=True)
+        ref_memory = {}
+        ref = mesh_legs(None, "cuda:0", cut=True, memory=ref_memory)
+        log_memory("model axis: no mesh", ref_memory, card)
         launches, shapes, bf16_launches, bf16_shapes = {}, {}, {}, {}
         for world in MODEL_WORLDS:
             wait_all(runs[world], f"model axis at world size {world}")
@@ -3638,6 +3732,8 @@ def phase_model_axis_legs(card):
             want_bf16 = {shape_key(7, 400 // (world // 2), 200, 128, 10) + ",bf16":
                          MODEL_BF16_LAUNCHES}
             for r, tally in enumerate(tallies):
+                log_memory(f"model axis: world {world} rank {r} (mesh {world // 2} x 2)",
+                           tally["memory"], card)
                 if (tally["shapes"] != {**want, **want_bf16}
                         or tally["launches"] != sum(want.values())
                         or tally["bf16_launches"] != MODEL_BF16_LAUNCHES
@@ -3686,6 +3782,180 @@ def phase_model_runner(card, one):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 29: unfused heads
+# the first epochs of HandWritten's head fits (the sweep's 200-epoch schedules,
+# lr 3e-3, dropout 0.1, annealing from epoch 50) on random embeddings of the
+# backbone's shapes, Zc and Zp of 200 for 6 views, and on the raw views
+UNFUSED_EPOCHS = 5
+UNFUSED_ACC_GAP = 1 / 400  # validation accuracy: one of the 400 rows
+UNFUSED_LOSS_TOL = dict(rtol=2e-5, atol=2e-6)  # phase 12's, and the epoch kernel's
+UNFUSED_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+# On random embeddings these fits turn chaotic from about the third epoch
+# (a CPU rehearsal at full width: the stacked probe through the step loop
+# and through the epoch kernel's plain version, from the same weights and
+# draws, part by up to the learning rate in 5790 of 179 200 entries of w1
+# after five epochs, while every gradient is ~3e-5 and Adam steps each entry
+# by about the learning rate). So, as tests/test_torch_intermediate.py
+# holds its chaotic lft fit, the unfused fit with its weights in float64
+# (the evidence and the loss stay float32) on the same weights and draws
+# measures how far float32 rounding alone moves each result: a
+# stacked fit must lie within twice that distance of the unfused float32
+# fit, plus the tolerances above (losses and accuracies elementwise, each
+# parameter tensor by its norm). A fit that is not chaotic meets the
+# tolerances alone.
+UNFUSED_SPREAD = 2.0
+
+
+def unfused_fits(device):
+    """(name, builder, keyword arguments, train data, validation data) of
+    phase 29's three models on ``device``."""
+    from disentagled_multimodal_fusion_tpu_torch.core import tasks
+    from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
+
+    views, labels = DATASET_REGISTRY["HandWritten"]().arrays()
+    xs = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device) for v in views)
+    y = torch.from_numpy(labels).to(device)
+    g = torch.Generator().manual_seed(29)
+    zc = torch.randn(len(y), 200, generator=g).to(device)
+    zp = torch.randn(len(y), len(xs), 200, generator=g).to(device)
+    emb = {"zc": zc, "zp": zp, "y": y}
+    raw = {"xs": xs, "y": y}
+
+    def split(data):
+        def rows(sl):
+            return {k: (tuple(x[sl] for x in v) if isinstance(v, tuple) else v[sl])
+                    for k, v in data.items()}
+        return rows(slice(0, 1600)), rows(slice(1600, None))
+
+    head = dict(num_classes=10, hidden_dim=(128,), lr=3e-3, dropout=0.1, annealing_start=50,
+                device=device)
+    probe = dict(head, num_modalities=len(xs), input_dim=200, num_epochs=200)
+    return [("dmvae_cml", tasks.build_probe_task, dict(probe, aggregation="cml"), *split(emb)),
+            ("dmvae_dis", tasks.build_disentangled_probe_task, probe, *split(emb)),
+            ("cml_fusion", tasks.build_late_fusion_task,
+             dict(head, output_dims=[x.shape[1] for x in xs], aggregation="cml"), *split(raw))]
+
+
+def _as(data, dtype):
+    """``data`` with its floating tensors in ``dtype``."""
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+    return {k: (tuple(cast(x) for x in v) if isinstance(v, tuple) else cast(v))
+            for k, v in data.items()}
+
+
+def hold_to_unfused(label, res, state, ref, ref_state, exact, exact_state):
+    """A stacked fit (``res``, its state dict) against the unfused float32
+    fit (``ref``, its state stacked), with the unfused float64 fit
+    (``exact``, ``exact_state``) measuring how far float32 rounding moves
+    each result (``UNFUSED_SPREAD``). Returns (the largest loss gap, the
+    largest accuracy gap, the largest parameter gap as a share of its
+    bound, and the parameter entries beyond ``UNFUSED_PARAM_TOL`` alone)."""
+    worst_loss = 0.0
+    for k in ("train_loss", "val_loss"):
+        have, want = getattr(res, k), getattr(ref, k)
+        spread = np.abs(want - getattr(exact, k))
+        bound = (UNFUSED_SPREAD * spread + UNFUSED_LOSS_TOL["atol"]
+                 + UNFUSED_LOSS_TOL["rtol"] * np.abs(want))
+        gap = np.abs(have - want)
+        if not np.all(gap <= bound):
+            raise AssertionError(f"{label} {k}: {have} against {want} (float64 "
+                                 f"{getattr(exact, k)})")
+        worst_loss = max(worst_loss, float(gap.max()))
+    acc = np.abs(res.val_acc - ref.val_acc)
+    acc_bound = UNFUSED_SPREAD * np.abs(ref.val_acc - exact.val_acc) + UNFUSED_ACC_GAP + 1e-9
+    if not np.all(acc <= acc_bound):
+        raise AssertionError(f"{label} val_acc: {res.val_acc} against {ref.val_acc} (float64 "
+                             f"{exact.val_acc})")
+    if set(state) != set(ref_state):
+        raise AssertionError(f"{label}: {set(state) ^ set(ref_state)}")
+    share, beyond = 0.0, 0
+    for k, want in ref_state.items():
+        have, want, x = (t.double().cpu() for t in (state[k], want, exact_state[k]))
+        tol = (UNFUSED_PARAM_TOL["atol"] + UNFUSED_PARAM_TOL["rtol"] * want.abs())
+        bound = UNFUSED_SPREAD * float((want - x).norm()) + float(tol.norm())
+        gap = float((have - want).norm())
+        if not gap <= bound:
+            raise AssertionError(f"{label} {k}: {gap:.3e} from the unfused fit, beyond {bound:.3e}")
+        share = max(share, gap / bound)
+        beyond += int(((have - want).abs() > tol).sum())
+    return worst_loss, float(acc.max()), share, beyond
+
+
+def phase_unfused_heads(ck, pm, card, device="cuda"):
+    """Phase 29: each of dmvae_cml, dmvae_dis and cml_fusion fitted for
+    ``UNFUSED_EPOCHS`` with one module per head (``fused_heads=False``,
+    the step loop, plain PyTorch), in float32 and in float64, and with its
+    heads stacked from the same weights (``convert.stack_heads``) and the
+    same ``Randomness``: through the step loop and, for the probes, the
+    epoch kernel, each held to the unfused fit (:func:`hold_to_unfused`).
+    The unfused fits launch no kernel; a stacked fit the head kernel once
+    per validation epoch, and through the epoch kernel that kernel once per
+    epoch. Returns (the epoch kernel's launches, the head kernel's, its
+    launches by shape, ms per epoch by fit); on the CPU (a rehearsal) the
+    readings by fit and the ms per epoch."""
+    from disentagled_multimodal_fusion_tpu_torch.convert import stack_heads
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, train
+
+    epoch_total, head_total, ms, readings = 0, 0, {}, {}
+    with head_shape_tally() as shapes:
+        for name, build, kw, data, val in unfused_fits(device):
+            unfused = build(fused_heads=False, seed=1, **kw)
+            init = {k: v.clone() for k, v in unfused.model.state_dict().items()}
+            engines = ["unfused", "exact", "step"] + (["megakernel"] if name != "cml_fusion"
+                                                       else [])
+            results = {}
+            for engine in engines:
+                one_a_head = engine in ("unfused", "exact")
+                task = build(seed=2, fused_heads=not one_a_head, **kw)
+                task.model.load_state_dict(init if one_a_head else stack_heads(init))
+                if (task.megakernel is not None) != (engine in ("step", "megakernel")
+                                                     and name != "cml_fusion"):
+                    raise AssertionError(f"unfused {name} {engine}: epoch-kernel descriptor "
+                                         f"{task.megakernel}")
+                dtype = torch.float64 if engine == "exact" else torch.float32
+                task.model.to(dtype)
+                pm.run_epoch_kernel.launches = 0
+                ck.evidential_heads_stacked.launches = 0
+                sync(device)
+                t0 = time.perf_counter()
+                res = train(model=task.model, loss_fn=task.loss_fn, data=_as(data, dtype),
+                            n_train=1600, optimizer=task.optimizer, epochs=UNFUSED_EPOCHS,
+                            batch_size=100, randomness=Randomness(29, device),
+                            val_fn=task.val_fn, val_data=_as(val, dtype),
+                            megakernel=task.megakernel if engine == "megakernel" else None)
+                sync(device)
+                ms[f"{name}.{engine}"] = 1e3 * (time.perf_counter() - t0) / UNFUSED_EPOCHS
+                epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+                want = ((0, 0) if one_a_head or device == "cpu" else
+                        (UNFUSED_EPOCHS if engine == "megakernel" else 0, UNFUSED_EPOCHS))
+                if (epochs, heads) != want:
+                    raise AssertionError(f"unfused {name} {engine}: the epoch kernel launched "
+                                         f"{epochs} times and the head kernel {heads} (expected "
+                                         f"{want})")
+                epoch_total, head_total = epoch_total + epochs, head_total + heads
+                state = task.model.state_dict()
+                results[engine] = (res, stack_heads(state) if one_a_head else state)
+            (ref, ref_state), (exact, exact_state) = results["unfused"], results["exact"]
+            for engine in engines[2:]:
+                res, state = results[engine]
+                route = "epoch kernel" if engine == "megakernel" else "step loop"
+                reading = hold_to_unfused(f"unfused {name} against the {route}", res, state,
+                                          ref, ref_state, exact, exact_state)
+                readings[f"{name}.{engine}"] = reading
+                log(f"unfused heads: {name}, {UNFUSED_EPOCHS} epochs, one module a head against "
+                    f"the stacked heads through the {route} from the same weights and draws: "
+                    f"losses max abs err {reading[0]:.3e}, val_acc {reading[1]:.4f} apart, "
+                    f"parameters at {reading[2]:.3f} of their bound ({reading[3]} entries beyond "
+                    f"rtol 5e-3 / atol 5e-5 alone); ms/epoch {ms[f'{name}.unfused']:.2f} "
+                    f"unfused, {ms[f'{name}.{engine}']:.2f} stacked [{card}]")
+    if device == "cpu":
+        return readings, ms
+    log(f"unfused heads: epoch kernel {epoch_total} launches, head kernel {head_total} (by shape "
+        f"{dict(shapes)}) [{card}]")
+    return epoch_total, head_total, dict(shapes), ms
+
+
 def _numbers(row):
     """A row's numbers in key order, without its wall times and path."""
     out = []
@@ -3703,7 +3973,7 @@ def _numbers(row):
 
 
 # ------------------------------------------------------------------ groups
-# phases 11-24, 26 and 28 (a) run in five child processes of this script
+# phases 11-24, 26, 28 (a) and 29 run in six child processes of this script
 # (``--group NAME OUT``), beside phases 8-10 and 25 in this one: each path
 # issues its steps from one host thread and leaves the card mostly idle, so
 # the paths overlap on the host's cores. Phases 3-7 (kernel times, serving
@@ -3711,8 +3981,8 @@ def _numbers(row):
 # them, alone. Each child counts its own kernel launches, set to 0 before
 # each path and read after it, as in one process, and sends them back.
 GROUPS = {"seed_batched": "11, 12, 13, 26", "synthetic": "14-17, 21", "cub": "18-20",
-          "luma": "22-24", "model_axis": "28 (a)"}
-GROUP_THREADS = 2  # torch's CPU threads a child: four children and this process share 8 cores
+          "luma": "22-24", "model_axis": "28 (a)", "unfused": "29"}
+GROUP_THREADS = 2  # torch's CPU threads a child: six children and this process share 8 cores
 GROUP_TIMEOUT_S = 900
 
 
@@ -3771,6 +4041,10 @@ def run_group(name, ck, pm, card, timed):
             "phase 28 (a) model axis legs", phase_model_axis_legs, card)
         return {"launches": launches, "shapes": shapes, "bf16_launches": bf16_launches,
                 "bf16_shapes": bf16_shapes}
+    if name == "unfused":
+        epochs, heads, shapes, ms = timed("phase 29 unfused heads", phase_unfused_heads, ck, pm,
+                                          card)
+        return {"epoch_launches": epochs, "head_launches": heads, "shapes": shapes, "ms": ms}
     raise ValueError(f"no group {name!r}")
 
 
@@ -3921,7 +4195,7 @@ def main() -> int:
                                               ck, pm, card, f32_accs)
         t_join = time.perf_counter()
         g = join_groups(groups)
-        log(f"groups (phases 11-24, 26, 28 (a)) joined {time.perf_counter() - t_join:.1f} s "
+        log(f"groups (phases 11-24, 26, 28 (a), 29) joined {time.perf_counter() - t_join:.1f} s "
             f"after phase 25 [{card}]")
     finally:
         stop_groups(groups)
@@ -3942,6 +4216,8 @@ def main() -> int:
     timed("phase 28 (b) run.py --model-parallel 2", phase_model_runner, card, one)
     model_launches, model_shapes, model_bf16_launches, model_bf16_shapes = (
         g["model_axis"][k] for k in ("launches", "shapes", "bf16_launches", "bf16_shapes"))
+    ph29_epochs, ph29_heads, ph29_shapes = (
+        g["unfused"][k] for k in ("epoch_launches", "head_launches", "shapes"))
 
     bf16_tally = collections.Counter(hw_bf16_shapes)
     for shapes in luma_bf16_shapes.values():
@@ -3958,7 +4234,7 @@ def main() -> int:
         "launches": (serve_launches + train_head_launches + sb_launches + syn_head_launches
                      + im_heads + uf_heads + prof_heads + luma_heads + luma_sb_heads
                      + export_launches + sum(mesh_launches.values())
-                     + sum(model_launches.values())),
+                     + sum(model_launches.values()) + ph29_heads),
         "launches_by_path": {"serving": serve_launches, "training": train_head_launches,
                              "seed_batched": sb_launches, "synthetic": syn_head_launches,
                              "cub_intermediate": im_heads, "cub_unfused": uf_heads,
@@ -3967,6 +4243,7 @@ def main() -> int:
                              "mesh_world1": mesh_launches[1], "mesh_world2": mesh_launches[2],
                              "model_axis_world2": model_launches[2],
                              "model_axis_world4": model_launches[4],
+                             "unfused_heads": ph29_heads,
                              "luma_bf16": 0, "handwritten_bf16": 0},
         "max_abs_err": max_abs_err,
         **timing,
@@ -3979,7 +4256,8 @@ def main() -> int:
                               "mesh_per_rank_world1": mesh_shapes[1],
                               "mesh_per_rank_world2": mesh_shapes[2],
                               "model_axis_per_rank_world2": model_shapes[2],
-                              "model_axis_per_rank_world4": model_shapes[4]},
+                              "model_axis_per_rank_world4": model_shapes[4],
+                              "unfused_heads": ph29_shapes},
     }, {
         "name": "evidential_head_bf16",
         "route": "cuda",
@@ -4005,9 +4283,11 @@ def main() -> int:
         "route": "cuda",
         "source": "disentagled_multimodal_fusion_tpu_torch/csrc/probe_epoch.cu",
         "replaces": "disentagled_multimodal_fusion_tpu/ops/probe_megakernel.py:246",
-        "launches": epoch_launches + syn_epoch_launches + im_epochs + uf_epochs,
+        "launches": (epoch_launches + syn_epoch_launches + im_epochs + uf_epochs
+                     + ph29_epochs),
         "launches_by_path": {"training": epoch_launches, "synthetic": syn_epoch_launches,
                              "cub_intermediate": im_epochs, "cub_unfused": uf_epochs,
+                             "unfused_heads": ph29_epochs,
                              "luma": 0, "luma_seed_batched": 0, "luma_bf16": 0,
                              "handwritten_bf16": 0, "mesh": 0, "model_axis": 0},
         "max_abs_err": epoch_abs_err,

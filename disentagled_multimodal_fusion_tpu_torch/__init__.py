@@ -13,8 +13,10 @@ Ported: serving (``runners/serve.py``, the daemon, the HTTP front and
 ``run_synthetic.py``, ``run_luma.py``) with their engines, ``--dtype
 bfloat16`` and ``evaluate.py``, and both TPU kernels as CUDA kernels
 (``csrc/evidential_head.cu`` with its bf16 build, ``csrc/probe_epoch.cu``),
-the mesh's ``data`` axis over ``torch.distributed`` ranks (``parallel/``,
-``--data-parallel`` in the three sweep runners) and
-``runners/sweep_parallel.py``. The mesh's ``model`` axis
-(``--model-parallel``) is not ported yet.
+the mesh over ``torch.distributed`` ranks (``parallel/``: its ``data``
+axis, ``--data-parallel``, and its ``model`` axis, ``--model-parallel``,
+whose ranks hold only their blocks of the parameters it cuts through a
+fit) and ``runners/sweep_parallel.py``, and the unfused heads'
+training (``fused_heads=False``). Every module, runner flag and TPU kernel
+of the JAX package has its counterpart here.
 """

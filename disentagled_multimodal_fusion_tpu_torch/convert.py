@@ -187,6 +187,39 @@ def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
     return state
 
 
+_HEAD = re.compile(r"^(x_shared|x_specs\.(\d+)|spec_heads\.(\d+)|heads\.(\d+))"
+                   r"\.mlp\.layers\.(\d+)\.(weight|bias)$")
+
+
+def stack_heads(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The state dict of a stacked-head model (``FusedEvidentialProbe``,
+    ``FusedDisentangledEvidentialProbe``, ``FusedLateFusion``) holding the
+    heads of its unfused twin's ``state`` (``EvidentialProbe``,
+    ``DisentangledEvidentialProbe``, ``LateFusion``): head v's Dense layer
+    i becomes slice v of ``stack.w{i+1}`` (V, in, out) and ``stack.b{i+1}``
+    (V, out), its kernel zero-padded to the widest input as ``StackedMLP``
+    pads it; the shared head (``x_shared``) is head 0, before ``x_specs``.
+    Every other entry (feature encoders, BatchNorm statistics) is kept."""
+    heads, out = {}, {}
+    for key, t in state.items():
+        m = _HEAD.match(key)
+        if m is None:
+            out[key] = t
+            continue
+        v = 0 if m.group(1) == "x_shared" else int(next(g for g in m.group(2, 3, 4) if g))
+        v += 1 if m.group(2) is not None else 0
+        heads.setdefault(int(m.group(5)), {}).setdefault(v, {})[m.group(6)] = t
+    for i, layer in sorted(heads.items()):
+        views = [layer[v] for v in sorted(layer)]
+        width = max(h["weight"].shape[1] for h in views)
+        w = views[0]["weight"].new_zeros((len(views), width, views[0]["weight"].shape[0]))
+        for v, h in enumerate(views):
+            w[v, :h["weight"].shape[1]] = h["weight"].t()
+        out[f"stack.w{i + 1}"] = w
+        out[f"stack.b{i + 1}"] = torch.stack([h["bias"] for h in views])
+    return out
+
+
 def load_flax_params(module: nn.Module, params: Mapping,
                      batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Load a flax ``params`` tree (and its ``batch_stats``) into ``module``

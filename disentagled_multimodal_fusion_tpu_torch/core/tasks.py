@@ -37,6 +37,15 @@ eval forward goes through the head kernel's bf16 build. The feature
 encoders keep their own type (their specs' ``dtype``; the runners build
 them in float32, as the JAX runners do).
 
+``fused_heads`` (the probe and late-fusion builders; JAX lines 255, 344,
+436) picks the stacked heads (the default) or one module per head
+(``EvidentialProbe``, ``DisentangledEvidentialProbe``, ``LateFusion``).
+Both train: the same loss and validation closures, the same optimizer, and
+the same draw of the stacked keep-masks, each unfused head taking its
+slice, so that the two fed the same randomness drop the same units. Only
+the stacked probes have an epoch-kernel descriptor, as in the JAX package;
+the unfused heads compute by plain PyTorch, in training and evaluation.
+
 ``feature_encoders`` (the DMVAE, late-fusion and intermediate-fusion
 builders; JAX lines 127-177, 411-566) are specs for
 ``models.layers.build_encoders``, LUMA's Audio, Text and Image encoders:
@@ -328,13 +337,10 @@ def build_probe_task(
     """Shared + private evidential probe. Data: {'zc': (B, Ds), 'zp': (B, N, D), 'y'}."""
     hidden = tuple(hidden_dim)
     dtype = norm_dtype(dtype)
-    kw = dict(num_modalities=num_modalities, num_classes=num_classes, input_dim=input_dim,
-              hidden_dim=hidden, shared_input_dim=shared_input_dim, dtype=dtype)
-    if not fused_heads:
-        model = _build(EvidentialProbe, seed, device, **kw)
-        return EvidentialTask(model, lambda d: model(d["zc"], list(d["zp"].unbind(dim=1))),
-                              AGGREGATIONS[aggregation], num_classes)
-    model = _build(FusedEvidentialProbe, seed, device, dropout=dropout, **kw)
+    model = _build(FusedEvidentialProbe if fused_heads else EvidentialProbe, seed, device,
+                   num_modalities=num_modalities, num_classes=num_classes, input_dim=input_dim,
+                   hidden_dim=hidden, shared_input_dim=shared_input_dim, dropout=dropout,
+                   dtype=dtype)
 
     def forward(data, masks=None):
         return model(data["zc"], list(data["zp"].unbind(dim=1)), masks)
@@ -344,7 +350,7 @@ def build_probe_task(
     opt = OptimizerConfig(name="adamw", lr=lr, weight_decay=1e-4, schedule="cosine",
                           cosine_t_max=num_epochs, eta_min=1e-6)
     mk = None
-    if len(hidden) == 1 and dtype is None:
+    if fused_heads and len(hidden) == 1 and dtype is None:
         mk = ProbeMegakernelDesc(num_modalities, num_classes, input_dim, shared_input_dim,
                                  hidden[0], float(dropout), float(fused),
                                  float(annealing_start), True)
@@ -373,13 +379,9 @@ def build_disentangled_probe_task(
         raise ValueError("aggregation must be one of ['cml', 'avg']")
     hidden = tuple(hidden_dim)
     dtype = norm_dtype(dtype)
-    kw = dict(num_modalities=num_modalities, num_classes=num_classes, input_dim=input_dim,
-              hidden_dim=hidden, dtype=dtype)
-    if not fused_heads:
-        model = _build(DisentangledEvidentialProbe, seed, device, **kw)
-        return EvidentialTask(model, lambda d: model(list(d["zp"].unbind(dim=1))),
-                              AGGREGATIONS[aggregation], num_classes)
-    model = _build(FusedDisentangledEvidentialProbe, seed, device, dropout=dropout, **kw)
+    cls = FusedDisentangledEvidentialProbe if fused_heads else DisentangledEvidentialProbe
+    model = _build(cls, seed, device, num_modalities=num_modalities, num_classes=num_classes,
+                   input_dim=input_dim, hidden_dim=hidden, dropout=dropout, dtype=dtype)
 
     def forward(data, masks=None):
         return model(list(data["zp"].unbind(dim=1)), masks)
@@ -389,7 +391,7 @@ def build_disentangled_probe_task(
     opt = OptimizerConfig(name="adamw", lr=lr, weight_decay=0.01, schedule="plateau",
                           plateau_factor=0.1, plateau_patience=5)
     mk = None
-    if len(hidden) == 1 and dtype is None:
+    if fused_heads and len(hidden) == 1 and dtype is None:
         mk = ProbeMegakernelDesc(num_modalities, num_classes, input_dim, None, hidden[0],
                                  float(dropout), 1.0, float(annealing_start), False)
     return EvidentialTask(model, forward, AGGREGATIONS[aggregation], num_classes, loss_fn,
@@ -417,13 +419,9 @@ def build_late_fusion_task(
     when given (``output_dims`` are then their output widths). Data: {'xs':
     N views (B, S_i), 'y'}."""
     hidden = tuple(hidden_dim)
-    kw = dict(output_dims=tuple(output_dims), num_classes=num_classes, hidden_dim=hidden,
-              feature_encoders=feature_encoders, dtype=dtype)
-    if not fused_heads:
-        model = _build(LateFusion, seed, device, **kw)
-        return EvidentialTask(model, lambda d: model(d["xs"]), AGGREGATIONS[aggregation],
-                              num_classes)
-    model = _build(FusedLateFusion, seed, device, dropout=dropout, **kw)
+    model = _build(FusedLateFusion if fused_heads else LateFusion, seed, device,
+                   output_dims=tuple(output_dims), num_classes=num_classes, hidden_dim=hidden,
+                   dropout=dropout, feature_encoders=feature_encoders, dtype=dtype)
 
     def forward(data, masks=None, enc_masks=None):
         return model(data["xs"], masks, enc_masks)

@@ -68,16 +68,27 @@ on the device.
   summed over the data group alone. At the end every rank writes the
   whole parameters back into the model, and the state's moments are
   whole too: the caller holds what one process would have trained, as
-  JAX's global arrays are. The model itself keeps its whole parameters
-  on every rank through the fit, and the parameters gathered on use are
-  whole while a step runs, so the cut saves no parameter memory yet: the
-  blocks and their moments come on top of the whole tensors. Without
+  JAX's global arrays are. Through the fit the model holds no storage for
+  the parameters the plan cuts (each rank holds 1/M of them and of their
+  moments, as a JAX device holds its shards): a rank keeps its blocks,
+  their moments, the tensors the rule leaves whole (trained in the
+  model's own storage) and, while a step runs, the transient gathers of
+  the parameters gathered on use. Anything that reads a cut parameter of
+  the model during the fit, rather than the blocks through
+  :func:`functional`, fails. The model gets its whole parameters back at
+  the end of the fit, and also when the fit raises. Without
   ``tp_hidden_dim`` (and in ``train_many``) the model axis cuts nothing:
   its ranks repeat the work.
+* :func:`live_fit` names what the step loop running now holds (the
+  model's parameters, the fit's and their moments), and
+  :func:`resident_bytes` counts the bytes of their distinct storages: a
+  reading of the memory a fit keeps resident, taken from inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 import math
@@ -412,7 +423,9 @@ def _rows_step(mesh, loss_fn, params, data, idx, draws, epoch: int, count: int, 
     for p in params:
         out.append(flat[at:at + p.numel()].view_as(p))
         at += p.numel()
-    return flat[-1], out
+    # the loss a copy: a view would keep the step's whole gradient buffer
+    # alive in the epoch's list of losses
+    return flat[-1].clone(), out
 
 
 def train(
@@ -469,7 +482,8 @@ def train(
     ``tp_hidden_dim``: with a mesh whose ``model`` axis is larger than 1,
     the hidden width the model axis cuts (the Megatron cut, the module
     docstring); ``ValueError`` when the axis does not divide a width the
-    rule cuts.
+    rule cuts. Until the fit ends (or raises) the model holds no storage
+    for the parameters the cut takes: each rank trains its blocks.
     """
     if optimizer.name == "adam" and optimizer.weight_decay > 0:
         raise NotImplementedError("coupled L2 for Adam is not needed by the reference")
@@ -488,29 +502,34 @@ def train(
     device = params[0].device
     moments, count, plateau = resume_state(optimizer, params, randomness, resume)
     if plan is not None and resume is not None:  # the state's moments are whole
-        moments = [(plan.block(k, m), plan.block(k, v)) for k, (m, v) in zip(names, moments)]
+        moments = [(plan.block(k, m).clone(), plan.block(k, v).clone())
+                   for k, (m, v) in zip(names, moments)]
     if val_fn is not None and plan is not None:
         val_fn = functools.partial(call, val_fn)
     weight_decay = optimizer.weight_decay if optimizer.name == "adamw" else 0.0
     sizes = batch_sizes(n_train, batch_size, drop_last)
     weights = torch.tensor(sizes, dtype=torch.float32).to(device)
     history = []
-    for epoch in range(start_epoch, start_epoch + epochs):
-        perm = epoch_order(randomness, n_train, shuffle, device)
-        draws = loss_fn.draw_epoch(randomness, sizes)
-        lr = lr_for_epoch(optimizer, epoch, plateau[0])
-        losses = []
-        for idx, step_draws in zip(epoch_batches(perm, batch_size, drop_last), draws):
-            loss, grads = _step(mesh, loss_fn, params, data, idx, step_draws, epoch, count, call)
-            count += 1
-            adam_update(params, moments, grads, *bias_corrections(count), lr, weight_decay)
-            losses.append(loss.detach().float())
-        train_loss = torch.sum(torch.stack(losses) * weights) / weights.sum()
-        val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau, device,
-                                              mesh)
-        history.append((train_loss, val_loss, val_acc))
-    if plan is not None:
-        moments = _whole_model(model, plan, names, params, moments)
+    with _holding(model, plan, names, params, moments):
+        for epoch in range(start_epoch, start_epoch + epochs):
+            perm = epoch_order(randomness, n_train, shuffle, device)
+            draws = loss_fn.draw_epoch(randomness, sizes)
+            lr = lr_for_epoch(optimizer, epoch, plateau[0])
+            losses = []
+            for idx, step_draws in zip(epoch_batches(perm, batch_size, drop_last), draws):
+                loss, grads = _step(mesh, loss_fn, params, data, idx, step_draws, epoch, count,
+                                    call)
+                count += 1
+                adam_update(params, moments, grads, *bias_corrections(count), lr, weight_decay)
+                losses.append(loss.detach().float())
+            train_loss = torch.sum(torch.stack(losses) * weights) / weights.sum()
+            val_loss, val_acc, plateau = validate(optimizer, val_fn, val_data, epoch, plateau,
+                                                  device, mesh)
+            history.append((train_loss, val_loss, val_acc))
+    if plan is not None:  # the state's moments whole, as the model's parameters are
+        ms = plan.whole({k: m for k, (m, _) in zip(names, moments)})
+        vs = plan.whole({k: v for k, (_, v) in zip(names, moments)})
+        moments = [(ms[k], vs[k]) for k in names]
     return _finish(history, capture_state(moments, count, plateau, randomness))
 
 
@@ -521,8 +540,9 @@ def _plain_call(fn, *args):
 def _fit_params(model: nn.Module, mesh, tp_hidden_dim: Optional[int]):
     """(names, parameters, plan, call) of a fit: ``model``'s trainable
     parameters, or under a model axis that cuts ``tp_hidden_dim`` this
-    rank's blocks of them (new leaves) and their ``parallel.mesh.ShardPlan``;
-    ``call(fn, *args)`` runs the loss or the validation on them."""
+    rank's blocks of the ones its ``parallel.mesh.ShardPlan`` cuts (new
+    leaves) and the others in the model's own storage; ``call(fn, *args)``
+    runs the loss or the validation on them."""
     names = [k for k, p in model.named_parameters() if p.requires_grad]
     params = [p for p in model.parameters() if p.requires_grad]
     if mesh is None or tp_hidden_dim is None or mesh.shape["model"] == 1:
@@ -530,8 +550,65 @@ def _fit_params(model: nn.Module, mesh, tp_hidden_dim: Optional[int]):
     from ..parallel.mesh import ShardPlan
 
     plan = ShardPlan(model, names, mesh, tp_hidden_dim)
-    params = [plan.block(k, p.detach()).clone().requires_grad_() for k, p in zip(names, params)]
+    params = [(plan.block(k, p.detach()).clone() if k in plan.cuts else p.detach())
+              .requires_grad_() for k, p in zip(names, params)]
     return names, params, plan, _model_axis_call(model, plan, names, params)
+
+
+class LiveFit(NamedTuple):
+    """What the :func:`train` step loop running now holds."""
+
+    model_params: list  # the model's parameters (the cut ones hold no storage)
+    params: list        # the tensors the fit trains: under a model axis, this rank's blocks
+    moments: list       # their (m, v) pairs
+
+
+_LIVE_FIT: contextvars.ContextVar = contextvars.ContextVar("live_fit", default=None)
+
+
+def live_fit() -> Optional[LiveFit]:
+    """The :class:`LiveFit` of the step loop running now (None outside
+    one), for reading from inside a fit (its loss or validation) what the
+    fit holds."""
+    return _LIVE_FIT.get()
+
+
+def resident_bytes(fit: Optional[LiveFit] = None) -> int:
+    """The bytes of the distinct storages that ``fit`` (by default
+    :func:`live_fit`'s) holds: the model's parameters, the fit's and their
+    moments, each storage once; a parameter released under the model axis
+    holds none."""
+    fit = fit or live_fit()
+    storages = {}
+    for t in [*fit.model_params, *fit.params, *(x for mv in fit.moments for x in mv)]:
+        st = t.untyped_storage()
+        if st.nbytes():
+            storages[(t.device, st.data_ptr())] = st.nbytes()
+    return sum(storages.values())
+
+
+@contextlib.contextmanager
+def _holding(model: nn.Module, plan, names, params, moments):
+    """The block as the body of a fit of ``params`` (by ``names``) with
+    ``moments``: :func:`live_fit` names them. Under a model axis (``plan``)
+    each parameter of the model that the plan cuts holds an empty tensor
+    of its type while the block runs, and on leaving it, by an exception
+    too, gets its whole value back, gathered from every rank's blocks (a
+    collective over the model group, so every rank leaves the block
+    alike)."""
+    own = dict(model.named_parameters())
+    cut = [] if plan is None else [k for k in names if k in plan.cuts]
+    token = _LIVE_FIT.set(LiveFit(list(own.values()), params, moments))
+    for k in cut:  # an empty tensor of the parameter's type: any read of its values fails
+        own[k].data = own[k].new_empty(0)
+    try:
+        yield
+    finally:
+        _LIVE_FIT.reset(token)
+        if cut:
+            whole = plan.whole({k: p for k, p in zip(names, params) if k in plan.cuts})
+            for k in cut:
+                own[k].data = whole[k].clone(memory_format=torch.contiguous_format)
 
 
 def step_gradients(*, model: nn.Module, loss_fn, data, n_train: int, batch_size: int,
@@ -543,10 +620,11 @@ def step_gradients(*, model: nn.Module, loss_fn, data, n_train: int, batch_size:
     left as they are (a BatchNorm's running statistics take the step's).
     For holding a mesh's step elementwise against one process's."""
     names, params, plan, call = _fit_params(model, mesh, tp_hidden_dim)
-    perm = epoch_order(randomness, n_train, shuffle, params[0].device)
-    draws = loss_fn.draw_epoch(randomness, batch_sizes(n_train, batch_size, drop_last))
-    idx = epoch_batches(perm, batch_size, drop_last)[0]
-    loss, grads = _step(mesh, loss_fn, params, data, idx, draws[0], 0, 0, call)
+    with _holding(model, plan, names, params, []):
+        perm = epoch_order(randomness, n_train, shuffle, params[0].device)
+        draws = loss_fn.draw_epoch(randomness, batch_sizes(n_train, batch_size, drop_last))
+        idx = epoch_batches(perm, batch_size, drop_last)[0]
+        loss, grads = _step(mesh, loss_fn, params, data, idx, draws[0], 0, 0, call)
     grads = {k: g.detach() for k, g in zip(names, grads)}
     return loss.detach().float(), grads if plan is None else plan.whole(grads)
 
@@ -561,19 +639,6 @@ def _model_axis_call(model: nn.Module, plan, names, params):
             return functional(model, plan.call_params(dict(zip(names, params))), fn, *args)
 
     return call
-
-
-@torch.no_grad()
-def _whole_model(model: nn.Module, plan, names, params, moments):
-    """The fit's blocks gathered whole: the parameters written back into
-    ``model``, the moments returned."""
-    whole = plan.whole(dict(zip(names, params)))
-    own = dict(model.named_parameters())
-    for k in names:
-        own[k].copy_(whole[k])
-    ms = plan.whole({k: m for k, (m, _) in zip(names, moments)})
-    vs = plan.whole({k: v for k, (_, v) in zip(names, moments)})
-    return [(ms[k], vs[k]) for k in names]
 
 
 # ------------------------------------------------------------ seed-batched fits

@@ -5,11 +5,13 @@ Counterpart of ``LateFusion`` and ``FusedLateFusion`` in
 head per raw view, evidence (B, N, C). The fused variant zero-pads the views
 to the widest; its eval forward runs the stacked heads through the
 evidential head kernel, its training forward (dropout masks given, or a
-gradient wanted) the differentiable plain path. ``LateFusion`` is eval-only
-here. ``IntermediateFusion`` joins the flat views with a library fusion
-(``models/fusions.py``) and puts one evidential head, with dropout, on the
-result: evidence (B, C), computed by plain PyTorch as the JAX package
-computes it by plain XLA. ``dtype`` is the heads' (and not the encoders')
+gradient wanted) the differentiable plain path. ``LateFusion`` keeps one
+``EvidentialNN`` per view, with dropout, and takes the fused variant's
+keep-masks, head v slice v (``probes.head_masks``). ``IntermediateFusion``
+joins the flat views with a library fusion (``models/fusions.py``) and puts
+one evidential head, with dropout, on the result: evidence (B, C). Both
+compute by plain PyTorch, as the JAX package computes them by plain XLA.
+``dtype`` is the heads' (and not the encoders')
 compute type, as the JAX builders set it (``--dtype bfloat16``).
 
 Each model takes ``feature_encoders`` (specs for ``layers.build_encoders``;
@@ -31,7 +33,7 @@ from torch import nn
 from .dmvae_fused import StackedMLP, pad_stack
 from .fusions import build_fusion
 from .layers import Encoded, EvidentialNN, build_encoders, encode_views
-from .probes import stacked_evidence
+from .probes import head_masks, stacked_evidence
 
 
 class LateFusion(Encoded):
@@ -39,19 +41,23 @@ class LateFusion(Encoded):
 
     def __init__(self, output_dims: Sequence[int], num_classes: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 feature_encoders=None, dtype=None):
+                 dropout: float = 0.3, feature_encoders=None, dtype=None):
         super().__init__()
         self.output_dims = tuple(output_dims)
         self.feat_encs = build_encoders(feature_encoders, generator)
+        self.keep = 1.0 - dropout
         self.heads = nn.ModuleList(
-            EvidentialNN((d, *tuple(hidden_dim)), num_classes, generator, dtype=dtype)
+            EvidentialNN((d, *tuple(hidden_dim)), num_classes, generator, dropout, dtype)
             for d in self.output_dims
         )
 
-    def forward(self, xs):
-        """xs: N views (B, S_i). Returns (B, N, C)."""
-        feats = encode_views(self.feat_encs, [x.float() for x in xs])
-        return torch.stack([head(x) for head, x in zip(self.heads, feats)], dim=1)
+    def forward(self, xs, drop_masks=None, enc_masks=None):
+        """xs: N views (B, S_i); drop_masks: one boolean (B, N, hidden)
+        keep-mask per hidden layer in training, enc_masks the encoders'.
+        Returns (B, N, C)."""
+        feats = encode_views(self.feat_encs, [x.float() for x in xs], enc_masks)
+        return torch.stack([head(x, head_masks(drop_masks, v))
+                            for v, (head, x) in enumerate(zip(self.heads, feats))], dim=1)
 
 
 class FusedLateFusion(Encoded):

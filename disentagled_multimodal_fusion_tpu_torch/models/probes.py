@@ -13,8 +13,14 @@ through the evidential head kernel (``ops/cuda_kernels.py``) in one launch,
 its bf16 build when the heads compute in bf16 (``dtype``; the evidence is
 float32 in both, JAX lines 127 and 152).
 That kernel has no backward, so a training forward (dropout masks given, or
-a gradient wanted) takes the differentiable plain path. The unfused
-variants are eval-only here (training runs the fused ones).
+a gradient wanted) takes the differentiable plain path.
+
+The unfused variants keep one :class:`EvidentialNN` per head, each with
+flax's ``Dropout`` at rate ``dropout`` in training, and take the fused
+variants' keep-masks (:func:`head_masks`): one boolean (B, V, hidden) mask
+per hidden layer, head v taking slice v, so an unfused and a fused model
+fed the same masks drop the same units. They compute by plain PyTorch, as
+the JAX package's unfused heads compute by plain XLA.
 """
 
 from __future__ import annotations
@@ -53,6 +59,12 @@ def _whole(stack: StackedMLP, i: int):
     return w, b
 
 
+def head_masks(drop_masks, v: int):
+    """Head ``v``'s keep-masks, (B, hidden) per hidden layer, of the stacked
+    ones (B, V, hidden); None stays None (eval mode)."""
+    return None if drop_masks is None else [m[:, v] for m in drop_masks]
+
+
 def stacked_evidence(stack: StackedMLP, x: torch.Tensor, drop_masks=None,
                      keep: float = 1.0) -> torch.Tensor:
     """Evidence (B, V, C) of the stacked heads on x (B, V, D): through the
@@ -71,20 +83,24 @@ class EvidentialProbe(nn.Module):
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
                  generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
-                 shared_input_dim: Optional[int] = None, dtype=None):
+                 shared_input_dim: Optional[int] = None, dropout: float = 0.3, dtype=None):
         super().__init__()
         hidden = tuple(hidden_dim)
+        self.keep = 1.0 - dropout
         self.x_shared = EvidentialNN(
-            (shared_input_dim or input_dim, *hidden), num_classes, generator, dtype=dtype
+            (shared_input_dim or input_dim, *hidden), num_classes, generator, dropout, dtype
         )
         self.x_specs = nn.ModuleList(
-            EvidentialNN((input_dim, *hidden), num_classes, generator, dtype=dtype)
+            EvidentialNN((input_dim, *hidden), num_classes, generator, dropout, dtype)
             for _ in range(num_modalities)
         )
 
-    def forward(self, zc, zp_list):
-        """zc (B, Ds); zp_list N x (B, D). Returns (B, 1+N, C)."""
-        evid = [self.x_shared(zc)] + [head(z) for head, z in zip(self.x_specs, zp_list)]
+    def forward(self, zc, zp_list, drop_masks=None):
+        """zc (B, Ds); zp_list N x (B, D); drop_masks: one boolean (B, 1+N,
+        hidden) keep-mask per hidden layer in training. Returns (B, 1+N, C)."""
+        heads = [self.x_shared, *self.x_specs]
+        evid = [head(z, head_masks(drop_masks, v))
+                for v, (head, z) in enumerate(zip(heads, [zc, *zp_list]))]
         return torch.stack(evid, dim=1)
 
 
@@ -92,16 +108,20 @@ class DisentangledEvidentialProbe(nn.Module):
     """Private-only evidential heads, one module each."""
 
     def __init__(self, num_modalities: int, num_classes: int, input_dim: int,
-                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,), dtype=None):
+                 generator: torch.Generator, hidden_dim: Sequence[int] = (32,),
+                 dropout: float = 0.3, dtype=None):
         super().__init__()
+        self.keep = 1.0 - dropout
         self.spec_heads = nn.ModuleList(
-            EvidentialNN((input_dim, *tuple(hidden_dim)), num_classes, generator, dtype=dtype)
+            EvidentialNN((input_dim, *tuple(hidden_dim)), num_classes, generator, dropout, dtype)
             for _ in range(num_modalities)
         )
 
-    def forward(self, zp_list):
-        """zp_list N x (B, D). Returns (B, N, C)."""
-        return torch.stack([head(z) for head, z in zip(self.spec_heads, zp_list)], dim=1)
+    def forward(self, zp_list, drop_masks=None):
+        """zp_list N x (B, D); drop_masks: one boolean (B, N, hidden)
+        keep-mask per hidden layer in training. Returns (B, N, C)."""
+        return torch.stack([head(z, head_masks(drop_masks, v))
+                            for v, (head, z) in enumerate(zip(self.spec_heads, zp_list))], dim=1)
 
 
 class FusedEvidentialProbe(nn.Module):

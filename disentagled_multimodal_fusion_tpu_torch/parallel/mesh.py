@@ -25,8 +25,10 @@ and everything else is whole on every rank (:func:`param_sharding_rule`).
 A model group (the ``model`` ranks of one data index, a contiguous run of
 ranks as the JAX package lays its devices out) trains 1/M of each such
 tensor: :func:`shard_params` gives this rank's block, and :class:`ShardPlan`
-carries the blocks through a fit (the model keeps its whole parameters on
-every rank meanwhile, so no parameter memory is saved yet). The modules that take their blocks
+carries the blocks through a fit, during which the model holds no storage
+for the parameters the plan cuts (``core.train``), so a rank holds 1/M of
+each of them and of its Adam moments, as a JAX device holds its shards.
+The modules that take their blocks
 (``models.layers.TorchLinear`` and ``models.dmvae_fused.StackedMLP``, the
 MLPs) run the Megatron cut inside :func:`model_split`; every other
 parameter the rule cuts (convolutions, BatchNorm scales, the fusion ops'

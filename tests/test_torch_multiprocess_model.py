@@ -13,8 +13,9 @@ rank runs, on ``make_mesh(model_parallel=2)``:
   so that convolution and its BatchNorm are gathered whole where they are
   used); ``train_many``, ``run_cell`` and serving split their seeds and rows
   over ``data`` alone;
-* the first step of eight fits (``core.train.step_gradients``): both
-  DMVAEs with dropout, the probe, leg E's late fusion with its encoders at
+* the first step of nine fits (``core.train.step_gradients``): both
+  DMVAEs with dropout, the probe and its unfused twin (one module per
+  head, ``fused_heads=False``), leg E's late fusion with its encoders at
   32 and at 128 (where the audio encoder's 128 -> 6 Dense is a row layer
   whose whole input carries a gradient), an IntermediateFusion over
   ``concat_linear``, whose Dense (a fusion op's, gathered whole) and head
@@ -25,7 +26,17 @@ rank runs, on ``make_mesh(model_parallel=2)``:
   the cut, the probe's validation and evaluation running the bf16 head
   kernel's operator on the gathered weights;
 * a FusedDMVAE fit whose draws replay the JAX package's
-  ``train(mesh=make_mesh(2 | 4, model_parallel=2), tp_hidden_dim=16)``.
+  ``train(mesh=make_mesh(2 | 4, model_parallel=2), tp_hidden_dim=16)``;
+* what a rank holds through a fit with the cut (``leg_memory``), read at
+  its last step from inside it (``core.train.live_fit``): the FusedDMVAE
+  cutting its 16, the unfused probe its 8 and leg E's late fusion its 32
+  (a convolution and its BatchNorm gathered on use). Every parameter of
+  the model that the plan cuts holds no storage, the fit trains tensors of
+  exactly the plan's block shapes, and the distinct storages of the
+  model's parameters, the fit's and their Adam moments hold exactly three
+  times the plan's blocks in float32; after the fit, and after a fit whose
+  loss raises at its second step on every rank, the model's parameters are
+  whole again.
 
 The launcher runs the legs and the first steps in process without a mesh
 and holds every rank to them: the legs at ``tests/test_torch_multiprocess.py``'s
@@ -71,7 +82,8 @@ from test_torch_multiprocess import (
 )
 
 from disentagled_multimodal_fusion_tpu_torch.core import tasks as ttasks
-from disentagled_multimodal_fusion_tpu_torch.core.train import Randomness, step_gradients, train
+from disentagled_multimodal_fusion_tpu_torch.core.train import (OptimizerConfig, Randomness,
+                                                                step_gradients, train)
 from disentagled_multimodal_fusion_tpu_torch.eval.analysis import (
     evaluate_subjective_model_with_shared,
 )
@@ -109,10 +121,11 @@ def _first_steps():
         fits.append(("dmvae" if fused else "dmvae_unfused", bb, loss_fn, {"xs": xs}, 16))
     zc, zp = torch.randn(N, 4, generator=torch.Generator().manual_seed(2)), \
         torch.randn(N, 2, 4, generator=torch.Generator().manual_seed(3))
-    probe = ttasks.build_probe_task(num_modalities=2, num_classes=3, input_dim=4,
-                                    hidden_dim=(8,), dropout=0.3, annealing_start=2, seed=2,
-                                    device="cpu")
-    fits.append(("probe", probe.model, probe.loss_fn, {"zc": zc, "zp": zp, "y": y}, 8))
+    for name, fused_heads in (("probe", True), ("probe_unfused", False)):
+        probe = ttasks.build_probe_task(num_modalities=2, num_classes=3, input_dim=4,
+                                        hidden_dim=(8,), dropout=0.3, annealing_start=2, seed=2,
+                                        fused_heads=fused_heads, device="cpu")
+        fits.append((name, probe.model, probe.loss_fn, {"zc": zc, "zp": zp, "y": y}, 8))
     rng = np.random.default_rng(12)
     enc_xs = (torch.from_numpy(rng.standard_normal((N, 8, 5)).astype(np.float32)),
               torch.from_numpy(rng.standard_normal((N, 10)).astype(np.float32)))
@@ -178,6 +191,79 @@ def leg_bf16(mesh):
     return out
 
 
+def _watched(loss_fn, at_call, then):
+    """``loss_fn`` (an Objective) whose loss, at its ``at_call``-th call,
+    first calls ``then()``."""
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Objective
+
+    calls = [0]
+
+    def loss(*args):
+        calls[0] += 1
+        if calls[0] == at_call:
+            then()
+        return loss_fn.loss(*args)
+
+    return Objective(None, loss, draw_epoch=loss_fn.draw_epoch, with_step=loss_fn.with_step,
+                     rows=loss_fn.rows)
+
+
+def _whole(model, shapes):
+    """1.0 when every parameter of ``model`` has its whole shape and a
+    storage of exactly its size."""
+    return float(all(tuple(p.shape) == shapes[k]
+                     and p.untyped_storage().nbytes() == p.numel() * p.element_size()
+                     for k, p in model.named_parameters()))
+
+
+def leg_memory(mesh):
+    """What this rank holds through fits with the cut, by ``mem.`` keys:
+    ``released`` (the model's cut parameters holding no storage, the plan's
+    cuts), ``blocks`` (1.0 when the fit trains tensors of the plan's block
+    shapes), ``bytes`` (the distinct storages of the model's parameters,
+    the fit's and their moments; three times the plan's blocks in float32),
+    ``after`` and ``raised`` (1.0 when the model is whole after the fit and
+    after a fit that raises at its second step)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.train import live_fit, resident_bytes
+    from disentagled_multimodal_fusion_tpu_torch.parallel.mesh import ShardPlan
+
+    fits = {name: fit for name, *fit in _first_steps()
+            if name in ("dmvae", "probe_unfused", "late_bn")}
+    out, steps = {}, EPOCHS * -(-N // 16)
+    for name, (model, loss_fn, data, tp) in fits.items():
+        own = dict(model.named_parameters())
+        shapes = {k: tuple(p.shape) for k, p in own.items()}
+        plan = ShardPlan(model, list(own), mesh, tp)
+        blocks = {k: tuple(plan.block(k, p.detach()).shape) for k, p in own.items()}
+        planned = 3 * 4 * sum(int(np.prod(b)) for b in blocks.values())
+        reading = {}
+
+        def read(plan=plan, own=own, blocks=blocks, reading=reading):
+            fit = live_fit()
+            reading["released"] = [sum(own[k].untyped_storage().nbytes() == 0
+                                       for k in plan.cuts), len(plan.cuts)]
+            reading["blocks"] = [float([tuple(p.shape) for p in fit.params]
+                                       == list(blocks.values()))]
+            reading["bytes"] = [resident_bytes(), planned]
+
+        def fit(objective):
+            train(model=model, loss_fn=objective, data=data, n_train=N,
+                  optimizer=OptimizerConfig(name="adam", lr=1e-3), epochs=EPOCHS,
+                  batch_size=16, randomness=Randomness(5, "cpu"), mesh=mesh, tp_hidden_dim=tp)
+
+        fit(_watched(loss_fn, steps, read))
+        out.update({f"mem.{name}.{k}": np.array(v) for k, v in reading.items()})
+        out[f"mem.{name}.after"] = np.array([_whole(model, shapes)])
+
+        def stop():
+            raise RuntimeError("stop")
+
+        with pytest.raises(RuntimeError, match="stop"):
+            fit(_watched(loss_fn, 2, stop))
+        out[f"mem.{name}.raised"] = np.array([_whole(model, shapes)])
+    return out
+
+
 def leg_grads(mesh):
     """Each fit's first-step loss and gradients; on a mesh also how many of
     its parameters the model axis cuts, as (taken as blocks by the
@@ -239,7 +325,8 @@ def _worker(out_dir: Path) -> None:
     assert pdist.initialize(backend="gloo", device="cpu", timeout=RANK_TIMEOUT_S)
     mesh = make_mesh(model_parallel=2)
     assert (mesh.data_index, mesh.model_index) == divmod(pdist.rank(), 2)
-    out = {**run_legs(mesh, mesh.shape["data"], cut=True), **leg_grads(mesh), **leg_bf16(mesh)}
+    out = {**run_legs(mesh, mesh.shape["data"], cut=True), **leg_grads(mesh), **leg_bf16(mesh),
+           **leg_memory(mesh)}
     out.update(jax_leg(mesh, torch.load(out_dir / "jax_inputs.pt", weights_only=False)))
     np.savez(out_dir / f"rank{pdist.rank()}.npz", **out)
 
@@ -370,7 +457,7 @@ def test_cluster_matches_the_world_one_run(runs, nproc):
     np.testing.assert_array_equal(ranks[0]["corpus.guard"], [1.0])
     ref = runs[1]["legs"][nproc]
     assert set(ref) == {k for k in ranks[0]
-                        if not k.startswith(("grad.", "cuts.", "jax.", "bf16."))}
+                        if not k.startswith(("grad.", "cuts.", "jax.", "bf16.", "mem."))}
     for key, value in ref.items():
         if key != "corpus.guard":
             _close(key, ranks[0][key], value)
@@ -383,8 +470,8 @@ def test_first_step_gradients_match_one_process(runs, nproc):
     from test_torch_bf16 import assert_bf16_close
 
     port = runs[0][nproc][0]
-    for name in ("dmvae", "dmvae_unfused", "probe", "late_bn", "late_bn128", "inter",
-                 "dmvae_bf16", "probe_bf16"):
+    for name in ("dmvae", "dmvae_unfused", "probe", "probe_unfused", "late_bn", "late_bn128",
+                 "inter", "dmvae_bf16", "probe_bf16"):
         taken, gathered = port[f"cuts.{name}"]
         assert taken > 0 and (gathered > 0) == name.startswith(("late_bn", "inter")), name
     ref = runs[1]["grads"]
@@ -394,6 +481,22 @@ def test_first_step_gradients_match_one_process(runs, nproc):
             assert_bf16_close(port[key], want, key)
         else:
             np.testing.assert_allclose(port[key], want, err_msg=key, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_ranks_hold_only_their_blocks(runs, nproc):
+    """On every rank, through a fit with the cut: the model's cut
+    parameters hold no storage and the fit's parameters and moments hold
+    exactly the plan's blocks; after the fit, and after one that raised,
+    the model is whole."""
+    for r, rank in enumerate(runs[0][nproc]):
+        for name in ("dmvae", "probe_unfused", "late_bn"):
+            released, cuts = rank[f"mem.{name}.released"]
+            have, planned = rank[f"mem.{name}.bytes"]
+            assert cuts > 0 and released == cuts, (r, name, released, cuts)
+            assert have == planned, (r, name, have, planned)
+            for key in ("blocks", "after", "raised"):
+                assert rank[f"mem.{name}.{key}"][0] == 1.0, (r, name, key)
 
 
 @pytest.mark.parametrize("nproc", [2, 4])

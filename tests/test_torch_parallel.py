@@ -18,7 +18,9 @@
 * every objective of the trainers is a mean over the rows its draws are
   cut to: a batch's loss is the rows-weighted sum of its parts' losses,
   each part with its rows of the draws (``Objective.rows``), which is what
-  ``train(mesh=)`` sums over the ranks;
+  ``train(mesh=)`` sums over the ranks (the unfused heads' too);
+* a fit over a mesh keeps no earlier step's summed gradients alive (its
+  losses are no views of them);
 * ``ServingEngine(divisor=)`` rounds the buckets as the JAX engine does,
   and a mesh-built inference function of one rank serves and exports the
   single-device program.
@@ -239,6 +241,12 @@ def _objectives():
     out["late_fusion"] = (ttasks.build_late_fusion_task(
         output_dims=dims, num_classes=3, hidden_dim=(8,), dropout=0.3, annealing_start=2,
         device="cpu").loss_fn, raw)
+    out["probe_unfused"] = (ttasks.build_probe_task(fused_heads=False, **kw).loss_fn, probe)
+    out["disentangled_probe_unfused"] = (
+        ttasks.build_disentangled_probe_task(fused_heads=False, **kw).loss_fn, probe)
+    out["late_fusion_unfused"] = (ttasks.build_late_fusion_task(
+        output_dims=dims, num_classes=3, hidden_dim=(8,), dropout=0.3, annealing_start=2,
+        fused_heads=False, device="cpu").loss_fn, raw)
     for fusion in TWO_VIEW_FUSIONS:
         out[f"intermediate_{fusion}"] = (ttasks.build_intermediate_fusion_task(
             output_dims=dims, num_classes=3, fusion=fusion, annealing_start=2,
@@ -248,6 +256,7 @@ def _objectives():
 
 TWO_VIEW_FUSIONS = [f for f in INTERMEDIATE_FUSIONS if f != "mi3"]  # mi3 takes three views
 OBJECTIVES = ["dmvae", "dmvae_unfused", "probe", "disentangled_probe", "late_fusion",
+              "probe_unfused", "disentangled_probe_unfused", "late_fusion_unfused",
               *(f"intermediate_{f}" for f in TWO_VIEW_FUSIONS)]
 
 
@@ -268,6 +277,38 @@ def test_objectives_are_row_means_over_their_cut_draws(name):
                                           loss_fn.rows(draws, lo, hi))
                 total = total + loss * ((hi - lo) / rows)
             np.testing.assert_allclose(float(total), float(whole), rtol=2e-6, err_msg=str(parts))
+
+
+def test_a_mesh_fit_keeps_no_earlier_steps_gradients():
+    """Under a mesh each step's gradients come summed in one buffer; the
+    step's loss is read from it, and must not keep it alive in the epoch's
+    list of losses: at an epoch's fourth step only the last step's buffer
+    may be live (the trainer still holds its gradients)."""
+    import gc
+
+    from disentagled_multimodal_fusion_tpu_torch.core.train import Objective, train
+
+    task = ttasks.build_probe_task(num_modalities=2, num_classes=3, input_dim=4,
+                                   hidden_dim=(8,), annealing_start=2, device="cpu")
+    rows = 40
+    data = {"zc": torch.randn(rows, 4), "zp": torch.randn(rows, 2, 4),
+            "y": torch.from_numpy(np.random.default_rng(5).integers(0, 3, rows))}
+    flat = 4 * (1 + sum(p.numel() for p in task.model.parameters()))
+    live, calls = [], [0]
+
+    def loss(*args):
+        calls[0] += 1
+        if calls[0] == 4:
+            live.append(len({t.untyped_storage().data_ptr() for t in gc.get_objects()
+                             if isinstance(t, torch.Tensor)
+                             and t.untyped_storage().nbytes() == flat}))
+        return task.loss_fn.loss(*args)
+
+    objective = Objective(None, loss, draw_epoch=task.loss_fn.draw_epoch)
+    train(model=task.model, loss_fn=objective, data=data, n_train=rows,
+          optimizer=task.optimizer, epochs=1, batch_size=10, randomness=Randomness(6, "cpu"),
+          mesh=Mesh(1))
+    assert live == [1]
 
 
 def test_engine_divisor_and_a_one_rank_mesh_serve_and_export():
