@@ -50,9 +50,13 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
    by its profiler device time summed over its kernels: the bf16 chain at
    every shape, the f32 one at (7, 256) and ``CHAIN_SHAPES``); the profiler
    window of the probe epoch must
-   hold exactly its four kernels, S launches each per epoch (S = 16 on
+   hold exactly its three kernels (``EPOCH_KERNELS``: forward, loss with
+   dh, gradient + AdamW), S launches each per epoch (S = 16 on
    HandWritten, 62 on the synthetic sweep, 5 on CUB with its tail of 80),
-   and nothing else but the wrapper's PyTorch operations;
+   and nothing else but the wrapper's PyTorch operations; the epoch's
+   backward half (the gradient + AdamW pass) per step beside its bound and
+   a library chain (``torch.bmm``, bias sums, ``torch._fused_adamw_``) by
+   profiler device time;
 5. the serving path, ``runners/serve.py`` main with ``--random-init`` on
    HandWritten at full width for dmvae_cml, dmvae_dis and cml_fusion at
    buckets 1, 8, 64, 256, with the kernels' launch counts read around it;
@@ -298,10 +302,13 @@ The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
 of the package first on the path and prints its times at the main-path
 shapes as one JSON line: copied into an unpacked checkout of another
-commit, it times that commit's kernel in the same call. ``python3
-chip_smoke.py --engine-times`` only times ``--vmap-seeds`` against
-``--one-program-cells`` on two full-depth HandWritten cells (about 35
-minutes) and checks that their reports agree. ``python3 chip_smoke.py
+commit, it times that commit's kernel in the same call; ``python3
+chip_smoke.py --epoch-times`` does the same for the epoch kernel (phase
+4's epoch times, the profiler window held to the kernels its source
+defines). ``python3 chip_smoke.py --engine-times`` only times
+``--vmap-seeds`` against ``--one-program-cells`` on two full-depth
+HandWritten cells (about 35 minutes) and checks that their reports
+agree. ``python3 chip_smoke.py
 --luma-state-trials N`` only repeats phase 22's, 23's and 24's state
 comparisons N times from other weights and draws and prints their
 readings (``luma_state_trials``).
@@ -472,6 +479,23 @@ EPOCH_SHAPES = [(16, 7, 100, 200, 128, 10), (62, 3, 128, 16, 128, 3), (62, 3, 12
 # 480 rows in four steps of 100 and a tail of 80, V = 3 (dmvae_cml,
 # dmvae_joint) and 2 (dmvae_dis), C = 10
 CUB_EPOCH_SHAPES = [(5, 3, 100, 200, 128, 10, 80), (5, 2, 100, 200, 128, 10, 80)]
+# the epoch kernel's launches, each once per step: the forward, the loss with
+# dh, the gradient + AdamW pass (its backward half)
+EPOCH_KERNELS = ("forward_kernel", "loss_dh_kernel", "grad_adamw_kernel")
+BACKWARD_KERNEL = "grad_adamw_kernel"
+# The epoch kernel before its backward half was tiled into grad_adamw_kernel
+# (dh had its own launch): ms of profiler device time per launch of
+# loss_kernel, dh_kernel and grad_adam_kernel, from ``--epoch-times`` on that
+# tree (NVIDIA H100 80GB HBM3, 700.00 W), by the keys of
+# phase_probe_epoch_times. Printed beside the new pass: another call's
+# reading, a guide and not a held comparison.
+OLD_BACKWARD_MS = {
+    "S=16,V=7,B=100,D=200,H=128,C=10": (0.0071133, 0.0071337, 0.0135892),
+    "S=62,V=3,B=128,D=16,H=128,C=3": (0.0064728, 0.0057848, 0.0145810),
+    "S=62,V=3,B=128,D=32,H=128,C=3": (0.0064543, 0.0064650, 0.0145842),
+    "S=5,V=3,B=100,tail=80,D=200,H=128,C=10": (0.0060395, 0.0064274, 0.0124735),
+    "S=5,V=2,B=100,tail=80,D=200,H=128,C=10": (0.0059222, 0.0066524, 0.0122538),
+}
 
 
 def ptxas_summary(text):
@@ -972,23 +996,79 @@ def probe_epoch_bound(s, v, b, d, h, c, keep, tail=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_probe_epoch_times(pm, card):
+def backward_bound(s, v, b, d, h, c, tail=None):
+    """(ms per step, 'operations' | 'bytes') of the epoch's backward half,
+    averaged over its S steps: the products dh = dz W2^T, dW1 = x^T dh and
+    dW2 = hd^T dz, the bias sums and ~12 operations per state element of
+    AdamW, against x, hd and dz read once and p, m, v read and written once
+    each step (dh is made and used inside the half, so it counts no bytes;
+    W2 is read as part of p). A ragged ``tail`` counts only its rows."""
+    rows = s * b if tail is None else (s - 1) * b + tail
+    state = v * (d * h + h + h * c + c)
+    flops = 2.0 * v * rows * (d * h + 2 * h * c) + v * rows * (h + c) + s * 12.0 * state
+    nbytes = 4.0 * (v * rows * (d + h + c) + s * 2 * 3 * state)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3 / s, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def backward_library_ms(v, b, d, h, c, keep=0.9, seed=5):
+    """Profiler device time of one step's backward half through PyTorch's
+    own kernels, summed over them: ``torch.bmm`` for dh (masked by hd > 0,
+    scaled by 1 / keep), dW1 and dW2, the bias sums, then
+    ``torch._fused_adamw_`` on p, m, v; f32 with TF32 off. A yardstick
+    only: the port never calls it."""
+    g = torch.Generator().manual_seed(seed)
+    x, hd, dz = (torch.randn(v, b, n, generator=g).cuda() for n in (d, h, c))
+    hd = hd.clamp_min(0.0)
+    params = [t.cuda() for t in (torch.randn(v, d, h, generator=g) * 0.1,
+                                 torch.randn(v, h, generator=g) * 0.1,
+                                 torch.randn(v, h, c, generator=g) * 0.1,
+                                 torch.randn(v, c, generator=g) * 0.1)]
+    mus = [torch.zeros_like(p) for p in params]
+    nus = [torch.zeros_like(p) for p in params]
+    steps = [torch.ones((), device="cuda") for _ in params]
+
+    def chain(x, hd, dz):
+        w2 = params[2]
+        dh = torch.bmm(dz, w2.transpose(1, 2)).masked_fill_(hd <= 0.0, 0.0).mul_(1.0 / keep)
+        grads = [torch.bmm(x.transpose(1, 2), dh), dh.sum(1), torch.bmm(hd.transpose(1, 2), dz),
+                 dz.sum(1)]
+        torch._fused_adamw_(params, grads, mus, nus, [], steps, lr=3e-3, beta1=0.9,
+                            beta2=0.999, weight_decay=1e-2, eps=1e-8, amsgrad=False,
+                            maximize=False)
+
+    return device_ms(chain, (x, hd, dz))
+
+
+def epoch_source_kernels(pm):
+    """The __global__ functions that the checkout's epoch source defines, in
+    source order."""
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
+
+    text = (cuda_build.CSRC_DIR / f"{pm.KERNEL_SOURCE}.cu").read_text()
+    return tuple(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                            text))
+
+
+def phase_probe_epoch_times(pm, card, names=EPOCH_KERNELS):
     """Kernel and plain time per epoch at every shape of ``EPOCH_SHAPES``
-    (dmvae_cml's probe on HandWritten, V=7, first), the device time per
-    epoch and per step kernel from the profiler, the bound. Returns the
-    first shape's row and {shape key: row} of all."""
+    (dmvae_cml's probe on HandWritten, V=7, first) and ``CUB_EPOCH_SHAPES``,
+    the device time per epoch and per launch of each of ``names`` from the
+    profiler, the bound; the backward half's device time per step beside
+    its bound and the library chain's. Returns the first shape's row and
+    {shape key: row} of all."""
     rows = {}
     for i, (s, v, b, d, h, c) in enumerate(EPOCH_SHAPES):
-        fused = 1.0 if i == 0 else 0.0
-        row = probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused)
-        rows[f"S={s},V={v},B={b},D={d},H={h},C={c}"] = row
+        key = f"S={s},V={v},B={b},D={d},H={h},C={c}"
+        rows[key] = probe_epoch_times_at(pm, card, names, key, s, v, b, d, h, c,
+                                         1.0 if i == 0 else 0.0)
     for s, v, b, d, h, c, tail in CUB_EPOCH_SHAPES:
-        row = probe_epoch_times_at(pm, card, s, v, b, d, h, c, 1.0, tail)
-        rows[f"S={s},V={v},B={b},tail={tail},D={d},H={h},C={c}"] = row
+        key = f"S={s},V={v},B={b},tail={tail},D={d},H={h},C={c}"
+        rows[key] = probe_epoch_times_at(pm, card, names, key, s, v, b, d, h, c, 1.0, tail)
     return rows[next(iter(rows))], rows
 
 
-def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused, tail=None):
+def probe_epoch_times_at(pm, card, names, key, s, v, b, d, h, c, fused, tail=None):
     from torch.profiler import ProfilerActivity, profile
 
     inp = epoch_inputs(s, v, b, d, h, c, seed=3, fused=fused, tail=tail)
@@ -998,7 +1078,6 @@ def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused, tail=None):
     plain_ms = event_ms(lambda *a: pm.run_epoch_plain(*a, **inp["kw"]), args, iters=5, warmup=1)
     bound_ms, bound_by = probe_epoch_bound(s, v, b, d, h, c, 0.9, tail)
     n, steps = 20, s
-    names = ("forward_kernel", "loss_kernel", "dh_kernel", "grad_adam_kernel")
     # The profiler has been seen to drop the first epochs' records of a
     # window (each kernel at 12.55 of its 16 launches per epoch): a window
     # short of launches is measured again, up to three windows; one with
@@ -1017,9 +1096,9 @@ def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused, tail=None):
             f"{steps}: measured again")
     kernels = {k: (us / 1e3 / count, count / n) for k, (us, count) in found.items()}
     if set(kernels) != set(names) or any(x != steps for x in launches.values()) \
-            or sum(launches.values()) != 4 * steps:
+            or sum(launches.values()) != len(names) * steps:
         raise AssertionError(f"probe_epoch launched {launches} per epoch, expected each of "
-                             f"{names} {steps} times ({4 * steps} in all)")
+                             f"{names} {steps} times ({len(names) * steps} in all)")
     device_ms = sum(t * k for t, k in kernels.values())
     label = (f"V={v} B={b}{'' if tail is None else f' (tail {tail})'} D={d} H={h} C={c} S={s} "
              f"fused={fused:g}")
@@ -1031,16 +1110,38 @@ def probe_epoch_times_at(pm, card, s, v, b, d, h, c, fused, tail=None):
         log(f"  {name}: {t:.5f} ms per launch, {per_epoch:.0f} launches per epoch")
     log(f"  the wrapper's PyTorch operations: {wrapper_ops / n:.0f} per epoch, "
         f"{wrapper_ms:.5f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, device_ms=device_ms)
+    back_bound, back_by = backward_bound(s, v, b, d, h, c, tail)
+    back_lib = backward_library_ms(v, b, d, h, c)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               device_ms=device_ms,
+               per_launch_ms={k: t for k, (t, _) in sorted(kernels.items())},
+               backward_bound_ms=back_bound, backward_bound_by=back_by,
+               backward_library_ms=back_lib)
+    if BACKWARD_KERNEL in kernels:
+        back = kernels[BACKWARD_KERNEL][0]
+        log(f"  backward half per step: {back:.5f} ms ({BACKWARD_KERNEL}; dh is made inside "
+            f"loss_dh_kernel), bound {back_bound:.6f} ms ({back_by}), library chain "
+            f"{fmt_ms(back_lib)} of device time [{card}]")
+        if key in OLD_BACKWARD_MS and "loss_dh_kernel" in kernels:
+            old_loss, old_dh, old_grad = OLD_BACKWARD_MS[key]
+            grown = kernels["loss_dh_kernel"][0] - old_loss
+            log(f"  before the redesign (another call): dh_kernel + grad_adam_kernel "
+                f"{old_dh + old_grad:.5f} ms per step; now {back:.5f} ms, and "
+                f"{back + grown:.5f} ms with loss_dh_kernel's growth over loss_kernel "
+                f"({(back + grown) / (old_dh + old_grad):.2f} of before)")
+        row["backward_ms"] = back
+    else:
+        log(f"  backward half per step: bound {back_bound:.6f} ms ({back_by}), library chain "
+            f"{fmt_ms(back_lib)} of device time [{card}]")
+    return row
 
 
 def epoch_window(prof, names, n):
     """({kernel: (device us, launches)}, wrapper ms per epoch, wrapper
     operations) of a profiler window of ``n`` epochs. Every device
-    operation of the window is one of the source's four kernels or one of
-    the PyTorch operations the wrapper runs (the scalars' fill and stack);
-    anything else (a renamed or added kernel) fails."""
+    operation of the window is one of ``names`` or one of the PyTorch
+    operations the wrapper runs (the scalars' fill and stack); anything
+    else (a renamed or added kernel) fails."""
     from torch.autograd import DeviceType
 
     ours = re.compile(r"\b(" + "|".join(names) + r")\b")
@@ -1060,6 +1161,29 @@ def epoch_window(prof, names, n):
             raise AssertionError(f"unmatched device operation in the probe_epoch window: "
                                  f"{e.key[:160]}")
     return found, wrapper_ms, wrapper_ops
+
+
+def epoch_times_only(card):
+    """``--epoch-times``: build the epoch kernel of whichever package is
+    first on the path, hold it against its plain version at HandWritten's
+    shape, and print phase 4's epoch times as one JSON line, the profiler
+    window held to the kernels its source defines. Run from a copy of this
+    script placed in an unpacked checkout of another commit, it times that
+    commit's kernel in the same call (parent, change, change, parent)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.setup import configure
+    from disentagled_multimodal_fusion_tpu_torch.ops import cuda_build
+    from disentagled_multimodal_fusion_tpu_torch.ops import probe_megakernel as pm
+
+    configure()
+    cuda_build.build([pm.KERNEL_SOURCE])
+    names = epoch_source_kernels(pm)
+    inp = epoch_inputs(*EPOCH_SHAPES[0], seed=17)
+    err = assert_epoch_close(run_epoch(pm.run_epoch_kernel, inp), run_epoch(pm.run_epoch_plain, inp),
+                             "probe_epoch HandWritten")
+    _, rows = phase_probe_epoch_times(pm, card, names)
+    print(json.dumps({"package": str(Path(pm.__file__).resolve().parents[1]), "card": card,
+                      "kernels": names, "max_abs_err": err, "epoch_times": rows}), flush=True)
+    return 0
 
 
 @contextlib.contextmanager
@@ -4129,6 +4253,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--head-times"]:
         return head_times_only(card_line())
+    if sys.argv[1:] == ["--epoch-times"]:
+        return epoch_times_only(card_line())
     if sys.argv[1:] == ["--engine-times"]:
         return engine_times_only(card_line())
     if sys.argv[1:2] == ["--luma-state-trials"]:
@@ -4161,8 +4287,17 @@ def main() -> int:
                             r"(\d+) bytes spill loads", info.log)
         if not frames or any(int(x) for frame in frames for x in frame):
             raise AssertionError(f"{name}: ptxas reports a stack frame or spills: {frames}")
-        for line in ptxas_summary(info.log):
+        summary = ptxas_summary(info.log)
+        for line in summary:
             log(f"  {line}")
+        if name == pm.KERNEL_SOURCE:
+            # every kernel of the epoch's launch plan went through the check above
+            if epoch_source_kernels(pm) != EPOCH_KERNELS:
+                raise AssertionError(f"{name}: the source defines {epoch_source_kernels(pm)}, "
+                                     f"the launch plan is {EPOCH_KERNELS}")
+            for kernel in EPOCH_KERNELS:
+                if not any(re.search(rf"\b{kernel}\b", line) for line in summary):
+                    raise AssertionError(f"{name}: ptxas reports nothing of {kernel}")
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -4181,7 +4316,8 @@ def main() -> int:
     epoch_timing, epoch_times_by_shape = timed("phase 4 probe_epoch times",
                                                phase_probe_epoch_times, pm, card)
     epoch_timing = {k: epoch_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms")}
+                                                 "library_ms", "backward_ms", "backward_bound_ms",
+                                                 "backward_bound_by", "backward_library_ms")}
     serve_launches, serve_shapes = timed("phase 5 serving", phase_serving, ck, card)
     timed("phase 5 request profile", phase_request_profile, card)
     timed("phases 6-7 daemon and HTTP", phase_daemon_and_http, card)

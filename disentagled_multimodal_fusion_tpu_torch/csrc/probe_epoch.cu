@@ -40,7 +40,7 @@
 // cores reach TF32 at best (3xTF32, split operands, is a question for later).
 //
 // Design: the C entry point loops over the S steps on the host and launches
-// four kernels per step on the caller's stream:
+// three kernels per step on the caller's stream:
 //   1. forward, grid (row tiles of 8, V), 8 warps. W1 of the view (D x H),
 //      the 8 rows of x and W2 of the view are contiguous in device memory,
 //      so ten bulk asynchronous copies (cp.async.bulk, Hopper's TMA engine,
@@ -60,27 +60,58 @@
 //      memory a block may take (at D = 200, H = 128: 113 KB + 0.5 KB per
 //      class). Widths that are not multiples of 4 take 4-byte cp.async
 //      copies into a zero-padded layout instead.
-//   2. loss, grid (rows / 2), a warp per (row, view) with the classes across
-//      lanes (a lane loops when C > 32): z, e, alpha and p = alpha / (S + eps)
-//      go to shared memory; S, Skl, T, Y, pd_ij and sum_c Gp_c alpha_c are
-//      butterfly shuffle sums (the same order for every view, so equal views
-//      give bitwise-equal p, as the tie of |p_i - p_j| needs). psi and psi'
-//      of every alpha, of S, of Skl and of each kl that differs from its
-//      alpha are one lane's argument each, sharing the reciprocals 1/(x + k)
-//      between the two series (the same IEEE results, not an approximation);
-//      gammaln of every kl and of Skl likewise. The views of a row meet in
-//      shared memory for the DC term. The kernel overwrites z with dL/dz and
-//      writes each block's partial sums; no float atomics.
-//   3. dh = (dz W2^T) * (hd > 0) * 1/keep, grid (row tiles, V); its first
-//      thread also adds up the loss kernel's partial sums into the loss;
-//   4. gradient + AdamW over parameter tiles: W1 rows in tiles of 8 with x
-//      staged in shared memory, W2 elements one per thread, biases in one
-//      block; each updates p, m, v in place.
-// W2 is read by step 3 and written by step 4 of the same optimizer step, so
-// the two are separate launches. Any V <= 8, D, H <= 128, C and B work, up
-// to the shared memory a block may take (else cudaErrorInvalidValue); rows
-// with rmask 0 (the padded tail) contribute nothing. Each launch is checked
-// with cudaGetLastError() and the entry point returns the first error.
+//   2. loss and dh, grid (rows / 2), a warp per (row, view) with the classes
+//      across lanes (a lane loops when C > 32): z, e, alpha and
+//      p = alpha / (S + eps) go to shared memory; S, Skl, T, Y, pd_ij and
+//      sum_c Gp_c alpha_c are butterfly shuffle sums (the same order for
+//      every view, so equal views give bitwise-equal p, as the tie of
+//      |p_i - p_j| needs). psi and psi' of every alpha, of S, of Skl and of
+//      each kl that differs from its alpha are one lane's argument each,
+//      sharing the reciprocals 1/(x + k) between the two series (the same
+//      IEEE results, not an approximation); gammaln of every kl and of Skl
+//      likewise. The views of a row meet in shared memory for the DC term.
+//      The kernel overwrites z with dL/dz, keeps dL/dz of its row in shared
+//      memory, and the warp then writes the row's dh = (dz W2^T) * (hd > 0)
+//      * 1/keep at once, while other warps of the block still work: a lane
+//      per hidden unit (j = lane + 32 k, the four sums side by side), the C
+//      products in class order (the bits of a separate dh pass); hd is read
+//      as the block starts. W2 of all V views is one contiguous run: one
+//      bulk copy, issued as the block starts, brings it into shared memory
+//      while the loss is computed (read from device memory instead where it
+//      does not fit, V H C > ~26 K floats, or is not 16-byte whole; slower
+//      at HandWritten's shape). W2 is not written before step 3, so there
+//      is no hazard. Each block writes its partial sums; no float
+//      atomics.
+//   3. gradient + AdamW, grid (D / 4 W1 blocks + C / 4 W2 blocks, V), 8
+//      warps. The products are dW1_v = x_v^T dh_v (D x B . B x H),
+//      dW2_v = hd_v^T dz_v (H x B . B x C), db1 and db2 the column sums of
+//      dh_v and dz_v. A W1 block takes 4 rows of W1 and all of H: dh_v is
+//      one contiguous run (one bulk copy on an mbarrier), x's 4 columns one
+//      16-byte cp.async a row (4-byte where D is not a multiple of 4). A W2
+//      block takes 4 classes: hd_v and dz_v, one bulk copy each. B is split
+//      across the 8 warps (row r to warp r % 8), each lane keeping a 4 x 4
+//      register tile of 4 hidden units (lane 4l .. 4l + 3) by 4 rows of W1
+//      or 4 classes: each float4 of dh (of hd) feeds 16 FMAs, x and dz are
+//      broadcasts. The bias sums ride along: every float4 of dh (of dz)
+//      read for the product is also added into a bias row of the tile, so
+//      db1 (in the block of W1's first rows) and db2 cost no pass of their
+//      own. The 8 warps' tiles meet in shared memory (over the operands)
+//      and are added in warp order (no atomics), and AdamW updates p, m, v
+//      in place in the epilogue, each thread on up to 3 elements
+//      (consecutive across the threads) whose p, m, v came into shared
+//      memory by cp.async as the block started: the epilogue's reads, its
+//      longest wait, overlap the staging. Small tiles and many blocks (371
+//      at HandWritten's V = 7, D = 200, C = 10, three an SM, one wave; 15
+//      on the synthetic sweep) measured fastest on the card: 8 and 16 rows
+//      of W1 a block were slower at every probe shape, each block staging
+//      all of dh_v. Rows are staged in chunks of 128 (one chunk at the
+//      probes' batch of 100 or 128), so any B works.
+//      Block (0, 0) also adds up the loss pass's block partials into the
+//      step's loss (one warp, a fixed order).
+// Any V <= 8, D, H <= 128, C and B work, up to the shared memory a block may
+// take (else cudaErrorInvalidValue); rows with rmask 0 (the padded tail)
+// have dL/dz = 0 and contribute nothing. Each launch is checked with
+// cudaGetLastError() and the entry point returns the first error.
 
 #include <cuda_runtime.h>
 
@@ -95,14 +126,21 @@ constexpr int FWD_SPLITK = 8;     // warps per block, one slice of K each
 constexpr int FWD_THREADS = FWD_SPLITK * WARP;
 constexpr int MAX_HIDDEN = 128;   // a lane holds 4 hidden units
 constexpr int Z_GROUP = 8;        // lanes summing one z output
-// loss
+// loss and dh
 constexpr int LOSS_ROWS = 2;              // rows per loss block
 constexpr int LOSS_ARRAYS = 12;           // per-warp arrays of C in shared memory
-// dh, gradient + AdamW
-constexpr int TB = 8;             // rows per dh block
-constexpr int THREADS = 128;
-constexpr int DT = 8;             // W1 rows per gradient block
-constexpr int BT = 128;           // batch rows staged per gradient pass
+constexpr size_t LOSS_W2_SMEM = 112 * 1024;  // W2 staged while the block stays under this
+// gradient + AdamW
+constexpr int GRAD_WARPS = 8;             // B split across the warps
+constexpr int GRAD_THREADS = GRAD_WARPS * WARP;
+constexpr int GRAD_ROWS = 128;            // batch rows staged per chunk
+constexpr int W1_ROWS = 4;                // W1 rows per W1 block (a lane: 4 rows x 4 units)
+constexpr int W2_CLASSES = 4;             // classes per W2 block (a lane: 4 units x 4 classes)
+// epilogue outputs per thread: a W1 block's 4 rows and b1, or 4 classes of
+// H + 1 rows (W2 and b2)
+constexpr int GRAD_OUTS = ((W1_ROWS + 1) * MAX_HIDDEN + GRAD_THREADS - 1) / GRAD_THREADS;
+static_assert((MAX_HIDDEN + 1) * W2_CLASSES <= GRAD_OUTS * GRAD_THREADS, "epilogue outputs");
+constexpr int GRAD_BLOCKS_PER_SM = 3;     // HandWritten's 371 blocks in one wave
 constexpr float kLog1e13 = 29.933606208922594f;  // 13 ln 10
 constexpr float kB1 = 0.9f, kB2 = 0.999f;
 constexpr float kOneMinusB1 = 0.1f, kOneMinusB2 = 0.001f;
@@ -144,15 +182,13 @@ __device__ __forceinline__ float evidence(float zc) {
   return expf((zc + kLog1e13) - lse);
 }
 
-__device__ __forceinline__ void adamw(float* p, float* m, float* v, float g, float bc1, float bc2,
+__device__ __forceinline__ void adamw(float& p, float& m, float& v, float g, float bc1, float bc2,
                                       float lr, float wd) {
-  const float mn = kB1 * *m + kOneMinusB1 * g;
-  const float vn = kB2 * *v + kOneMinusB2 * (g * g);
-  *m = mn;
-  *v = vn;
-  float upd = (mn / bc1) / (sqrtf(vn / bc2) + kEps);
-  if (wd > 0.0f) upd = upd + wd * *p;
-  *p = *p - lr * upd;
+  m = kB1 * m + kOneMinusB1 * g;
+  v = kB2 * v + kOneMinusB2 * (g * g);
+  float upd = (m / bc1) / (sqrtf(v / bc2) + kEps);
+  if (wd > 0.0f) upd = upd + wd * p;
+  p = p - lr * upd;
 }
 
 // butterfly sum over the warp: every lane gets the same bits (each step adds
@@ -201,6 +237,12 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned phas
 // 4 bytes; bytes = 0 writes a zero (the path for rows that are not 16-byte aligned)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// 16 bytes; bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
 }
@@ -396,16 +438,28 @@ __device__ __forceinline__ float abs_grad(float pi, float pj, bool i_first) {
   return i_first ? s : -s;
 }
 
-// 2. dL/dz: block (32, V, LOSS_ROWS), the warp (lane, v, r) for view v of
-// row blockIdx.x * LOSS_ROWS + r, the classes across its lanes. zbuf holds z
-// and is overwritten with dL/dz. Writes the
-// block's partial sums (EDL, DC) at partials[2 * block]; block 0 also writes
+// Shared memory of the loss kernel, in floats: the warps' arrays
+// [LOSS_ROWS * V][LOSS_ARRAYS][C], then (when staged) W2 of all views [V][H][C]
+__host__ __device__ __forceinline__ size_t loss_smem_floats(int V, int H, int C, bool stage_w2) {
+  return round4(LOSS_ROWS * V * LOSS_ARRAYS * C) +
+         (stage_w2 ? static_cast<size_t>(V) * H * C : 0);
+}
+
+// 2. dL/dz and dh: block (32, V, LOSS_ROWS), the warp (lane, v, r) for view
+// v of row blockIdx.x * LOSS_ROWS + r, the classes across its lanes. zbuf
+// holds z and is overwritten with dL/dz; dh (V, B, H) gets
+// (dz W2^T) * (hd > 0) * inv_keep. With stage_w2, W2 is read from shared
+// memory (one bulk copy), else from device memory. Writes the block's
+// partial sums (EDL, DC) at partials[2 * block]; block 0 also writes
 // sum(rmask) at partials[2 * gridDim.x].
 __global__ void __launch_bounds__(LOSS_ROWS * MAXV * WARP)
-loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
-            const float* __restrict__ rmask, const float* __restrict__ scal,
-            float* __restrict__ partials, int V, int B, int C, float fused, float lgamma_c) {
-  extern __shared__ float lsm[];                      // [LOSS_ROWS * V][LOSS_ARRAYS][C]
+loss_dh_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
+               const float* __restrict__ rmask, const float* __restrict__ scal,
+               float* __restrict__ partials, const float* __restrict__ hd,
+               const float* __restrict__ w2, float* __restrict__ dh, int V, int B, int H, int C,
+               float fused, float lgamma_c, float inv_keep, int stage_w2) {
+  extern __shared__ __align__(16) float lsm[];        // loss_smem_floats
+  __shared__ __align__(8) unsigned long long w2_bar;
   __shared__ float red[LOSS_ROWS * MAXV][3];          // per warp: sum(rmask) share, EDL, DC
   __shared__ float u_sh[LOSS_ROWS][MAXV];             // u = C / (S + eps) of each view
   __shared__ float row_fn[LOSS_ROWS * MAXV][5];       // psi(S), psi'(S), psi(Skl), psi'(Skl),
@@ -418,7 +472,7 @@ loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
   const int b = blockIdx.x * LOSS_ROWS + rr;
   const bool active = b < B;
   const size_t span = static_cast<size_t>(LOSS_ARRAYS) * C;
-  float* zs = lsm + w * span;  // z
+  float* zs = lsm + w * span;  // z, then dL/dz
   float* ys = zs + C;          // y
   float* es = ys + C;          // evidence
   float* as = es + C;          // alpha
@@ -435,6 +489,26 @@ loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
   const float gamma_t = scal[2];
   const float cf = static_cast<float>(C);
   const float vf = static_cast<float>(V);
+  float* w2s = lsm + loss_smem_floats(V, H, C, false);  // [V][H][C] when staged
+  if (stage_w2 && lane == 0 && w == 0) {
+    // W2 of every view streams in while the loss is computed; the barrier is
+    // initialised before the block's first __syncthreads, and waited on after it
+    mbar_init(&w2_bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const unsigned bytes = 4u * V * H * C;
+    mbar_expect(&w2_bar, bytes);
+    bulk_copy(w2s, w2, bytes, &w2_bar);
+  }
+
+  // hd of the row's hidden units j = lane + 32 k, read while the loss is computed
+  const long long hrow = (static_cast<long long>(v) * B + b) * H;
+  constexpr int kUnits = MAX_HIDDEN / WARP;
+  float hv[kUnits];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int j = lane + WARP * k;
+    hv[k] = active && j < H ? hd[hrow + j] : 0.0f;
+  }
 
   // this warp's share of sum(rmask), added up at the block's first barrier
   float part = 0.0f;
@@ -596,10 +670,37 @@ loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
         const float az = fabsf(z);
         const float clip_grad = az < 10.0f ? 1.0f : (az == 10.0f ? 0.5f : 0.0f);
         const float sig = 1.0f / (1.0f + expf(zc - kLog1e13));
-        zr[c] = dalpha * es[c] * sig * clip_grad;
+        const float dz = dalpha * es[c] * sig * clip_grad;
+        zr[c] = dz;
+        zs[c] = dz;  // z of this class is read above by this lane alone
       }
     } else {
-      for (int c = lane; c < C; c += WARP) zr[c] = 0.0f;
+      for (int c = lane; c < C; c += WARP) {
+        zr[c] = 0.0f;
+        zs[c] = 0.0f;
+      }
+    }
+    __syncwarp();
+
+    // dh of the row, while other warps of the block still work: a lane per
+    // hidden unit j = lane + 32 k, its 4 sums side by side, each in class order
+    if (stage_w2) mbar_wait(&w2_bar, 0);
+    const float* w2v = (stage_w2 ? w2s : w2) + static_cast<size_t>(v) * H * C;
+    float acc[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) acc[k] = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float d = zs[c];
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const int j = lane + WARP * k;
+        if (j < H) acc[k] = fmaf(d, w2v[static_cast<size_t>(j) * C + c], acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int j = lane + WARP * k;
+      if (j < H) dh[hrow + j] = hv[k] > 0.0f ? acc[k] * inv_keep : 0.0f;
     }
   }
 
@@ -619,128 +720,269 @@ loss_kernel(float* __restrict__ zbuf, const float* __restrict__ yoh,
     partials[2 * blockIdx.x + 1] = dc_sum;
     if (blockIdx.x == 0) partials[2 * gridDim.x] = msum;
   }
+
+  // every thread waits for W2, so no block exits with the copy in flight
+  if (stage_w2) mbar_wait(&w2_bar, 0);
 }
 
-// 3. dh = (dz W2^T) * relu'(h) * dropout scale, read off hd > 0
-__global__ void __launch_bounds__(THREADS)
-dh_kernel(const float* __restrict__ dz, const float* __restrict__ hd,
-          const float* __restrict__ w2, float* __restrict__ dh, int B, int H, int C,
-          float scale, const float* __restrict__ partials, int n_loss_blocks,
-          const float* __restrict__ scal, int V, float fused, float* __restrict__ loss_out) {
-  extern __shared__ float dzs[];  // [TB][C]
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+// Shared memory of the gradient kernel, in floats, at chunks of bc rows:
+// the (rows x H) operand (dh for a W1 block, hd for a W2 block) [bc][Hp] and
+// the second (x's W1_ROWS columns [bc][W1_ROWS], or dz [bc][C]), after the
+// products the warps' tiles [GRAD_WARPS][grad_tile(Hp)] over them; then p,
+// m and v of the block's outputs [3][GRAD_OUTS * GRAD_THREADS]
+__host__ __device__ __forceinline__ int grad_chunk_rows(int B) {
+  return B < GRAD_ROWS ? B : GRAD_ROWS;
+}
+// a warp's tile: [W1_ROWS + 1][Hp] (the last row db1) or [Hp + 1][W2_CLASSES]
+// (the last row db2)
+__host__ __device__ __forceinline__ int grad_tile(int hp) {
+  return (W1_ROWS + 1) * hp > (hp + 1) * W2_CLASSES ? (W1_ROWS + 1) * hp
+                                                    : (hp + 1) * W2_CLASSES;
+}
+__host__ __device__ __forceinline__ size_t grad_operands_floats(int B, int H, int C) {
+  const int bc = grad_chunk_rows(B), hp = round4(H);
+  const size_t staged = static_cast<size_t>(bc) * hp + round4(bc * (C > W1_ROWS ? C : W1_ROWS));
+  const size_t tiles = static_cast<size_t>(GRAD_WARPS) * grad_tile(hp);
+  return staged > tiles ? staged : tiles;
+}
+__host__ __device__ __forceinline__ size_t grad_smem_floats(int B, int H, int C) {
+  return grad_operands_floats(B, H, C) + 3 * GRAD_OUTS * GRAD_THREADS;
+}
+
+// rows [r0, r0 + rows) of the row-major (., width) matrix src into dst
+// [rows][stride] (columns [width, stride) zero) with 4-byte cp.async: the
+// path for widths or bases that are not whole 16-byte units
+__device__ __forceinline__ void copy_rows4(float* dst, const float* src, int r0, int rows,
+                                           int width, int stride, int t) {
+  for (int i = t; i < rows * stride; i += GRAD_THREADS) {
+    const int r = i / stride, j = i - r * stride;
+    const bool ok = j < width;
+    cp_async4(dst + i, ok ? src + static_cast<long long>(r0 + r) * width + j : src, ok ? 4 : 0);
+  }
+}
+
+// 3. the gradients over the B rows, then AdamW in place. Block (k, v): for
+// k < n_w1, W1 rows [W1_ROWS k, + W1_ROWS) of view v (and b1 when k = 0);
+// else the classes [W2_CLASSES (k - n_w1), + W2_CLASSES) of W2 and b2. Block
+// (0, 0) also writes the step's loss from the loss kernel's n_loss partials.
+__global__ void __launch_bounds__(GRAD_THREADS, GRAD_BLOCKS_PER_SM)
+grad_adamw_kernel(const float* __restrict__ x, const float* __restrict__ hd,
+                  const float* __restrict__ dz, const float* __restrict__ dh,
+                  float* __restrict__ w1, float* __restrict__ b1, float* __restrict__ w2,
+                  float* __restrict__ b2, float* __restrict__ m1, float* __restrict__ m2,
+                  float* __restrict__ m3, float* __restrict__ m4, float* __restrict__ v1,
+                  float* __restrict__ v2, float* __restrict__ v3, float* __restrict__ v4,
+                  const float* __restrict__ bc1s, const float* __restrict__ bc2s,
+                  const float* __restrict__ scal, int step, int B, int D, int H, int C,
+                  float wd, int n_w1, const float* __restrict__ partials, int n_loss, int V,
+                  float fused, float* __restrict__ loss_out) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  using u64 = unsigned long long;
+  const int t = threadIdx.x;
+  const int warp = t / WARP, lane = t % WARP;
+  const int k = blockIdx.x;
+  const int v = blockIdx.y;
+  const int hp = round4(H);
+  const int bc = grad_chunk_rows(B);
+  const int n_chunks = (B + bc - 1) / bc;
+  const bool w1_role = k < n_w1;
+  // the (rows x H) operand, dh or hd of the view, into hs [bc][hp]; the
+  // second into os; later the warps' tiles over both; the state after them
+  const float* hsrc = (w1_role ? dh : hd) + static_cast<long long>(v) * B * H;
+  const bool hbulk = H % 4 == 0 && (reinterpret_cast<u64>(hsrc) & 15) == 0;
+  float* hs = smem;
+  float* os = hs + static_cast<size_t>(bc) * hp;
+  float* part = smem;
+  const int tile = grad_tile(hp);
+  float* sp = smem + grad_operands_floats(B, H, C);
+  float* sm = sp + GRAD_OUTS * GRAD_THREADS;
+  float* sv = sm + GRAD_OUTS * GRAD_THREADS;
+  if (t == 0) {
+    mbar_init(&bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // The block's outputs o (a W1 block: its rows of W1, then b1 in block 0;
+  // a W2 block: (unit, class) of W2, then b2), thread t taking o = t + 256 i:
+  // each one's place in a warp's tile and in the state. Their p, m, v come
+  // in by cp.async now, beside the staging.
+  const int d0 = w1_role ? k * W1_ROWS : 0;
+  const int dt = w1_role ? min(W1_ROWS, D - d0) : 0;
+  const int c0 = w1_role ? 0 : (k - n_w1) * W2_CLASSES;
+  const int cn = w1_role ? 0 : min(W2_CLASSES, C - c0);
+  const int n_out = w1_role ? (dt + (k == 0 ? 1 : 0)) * H : (H + 1) * cn;
+  auto where = [&](int o, int& place, long long& at) {  // returns whether o is a bias
+    if (w1_role) {
+      const int r = o / H, j = o - r * H;
+      place = (r < dt ? r : W1_ROWS) * hp + j;
+      at = r < dt ? (static_cast<long long>(v) * D + d0 + r) * H + j
+                  : static_cast<long long>(v) * H + j;
+      return r >= dt;
+    }
+    const int j = o / cn, q = o - j * cn;
+    place = (j < H ? j : hp) * W2_CLASSES + q;
+    at = j < H ? (static_cast<long long>(v) * H + j) * C + c0 + q
+               : static_cast<long long>(v) * C + c0 + q;
+    return j >= H;
+  };
+  float* pw = w1_role ? w1 : w2;
+  float* mw = w1_role ? m1 : m3;
+  float* vw = w1_role ? v1 : v3;
+  float* pb = w1_role ? b1 : b2;
+  float* mb = w1_role ? m2 : m4;
+  float* vb = w1_role ? v2 : v4;
+  for (int o = t; o < n_out; o += GRAD_THREADS) {
+    int place;
+    long long at;
+    const bool bias = where(o, place, at);
+    cp_async4(sp + o, (bias ? pb : pw) + at, 4);
+    cp_async4(sm + o, (bias ? mb : mw) + at, 4);
+    cp_async4(sv + o, (bias ? vb : vw) + at, 4);
+  }
+  const float bc1 = bc1s[step], bc2 = bc2s[step], lr = scal[0];
+  __syncthreads();  // the barrier's initialisation
+
+  if (k == 0 && v == 0 && warp == GRAD_WARPS - 1) {
     // the loss: the masked EDL mean over B*V rows with the extra / V, plus
-    // gamma_t * fused * the masked DC mean
+    // gamma_t * fused * the masked DC mean; lane-strided sums, then a butterfly
     float edl_sum = 0.0f, dc_sum = 0.0f;
-    for (int i = 0; i < n_loss_blocks; ++i) {
+    for (int i = lane; i < n_loss; i += WARP) {
       edl_sum += partials[2 * i];
       dc_sum += partials[2 * i + 1];
     }
-    const float msum = partials[2 * n_loss_blocks];
-    const float vf = static_cast<float>(V);
-    *loss_out = edl_sum / fmaxf(msum * vf, 1.0f) / vf +
-                scal[2] * (dc_sum / fmaxf(msum, 1.0f)) * fused;
-  }
-  const int v = blockIdx.y;
-  const int b0 = blockIdx.x * TB;
-  const int rows = min(TB, B - b0);
-  const long long row0 = static_cast<long long>(v) * B + b0;
-  for (int i = threadIdx.x; i < rows * C; i += THREADS) dzs[i] = dz[row0 * C + i];
-  __syncthreads();
-  const float* w2v = w2 + static_cast<long long>(v) * H * C;
-  for (int j = threadIdx.x; j < H; j += THREADS) {
-    const float* wj = w2v + static_cast<long long>(j) * C;
-    for (int r = 0; r < rows; ++r) {
-      const long long at = (row0 + r) * H + j;
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c) acc = fmaf(dzs[r * C + c], wj[c], acc);
-      dh[at] = hd[at] > 0.0f ? acc * scale : 0.0f;
+    edl_sum = warp_sum(edl_sum);
+    dc_sum = warp_sum(dc_sum);
+    if (lane == 0) {
+      const float msum = partials[2 * n_loss];
+      const float vf = static_cast<float>(V);
+      *loss_out = edl_sum / fmaxf(msum * vf, 1.0f) / vf +
+                  scal[2] * (dc_sum / fmaxf(msum, 1.0f)) * fused;
     }
   }
-}
 
-// 4. gradients over the B rows, then AdamW, in place
-__global__ void __launch_bounds__(THREADS)
-grad_adam_kernel(const float* __restrict__ x, const float* __restrict__ hd,
-                 const float* __restrict__ dz, const float* __restrict__ dh,
-                 float* __restrict__ w1, float* __restrict__ b1, float* __restrict__ w2,
-                 float* __restrict__ b2, float* __restrict__ m1, float* __restrict__ m2,
-                 float* __restrict__ m3, float* __restrict__ m4, float* __restrict__ v1,
-                 float* __restrict__ v2, float* __restrict__ v3, float* __restrict__ v4,
-                 const float* __restrict__ bc1s, const float* __restrict__ bc2s,
-                 const float* __restrict__ scal, int step, int B, int D, int H, int C,
-                 float wd, int n_w1_blocks, int n_w2_blocks) {
-  __shared__ float xs[BT][DT];
-  const int v = blockIdx.y;
-  const float bc1 = bc1s[step], bc2 = bc2s[step], lr = scal[0];
+  // brings chunk `chunk` in (hs by one bulk copy, or 4-byte copies into the
+  // padded layout; x's columns by cp.async; dz by one bulk copy where whole)
+  // and returns its number of rows
   const float* xv = x + static_cast<long long>(v) * B * D;
-  const float* hdv = hd + static_cast<long long>(v) * B * H;
   const float* dzv = dz + static_cast<long long>(v) * B * C;
-  const float* dhv = dh + static_cast<long long>(v) * B * H;
+  const bool xquad = D % 4 == 0 && (reinterpret_cast<u64>(xv) & 15) == 0;
+  unsigned phase = 0;
+  auto stage = [&](int chunk) {
+    const int r0 = chunk * bc, rows = min(bc, B - r0);
+    const bool obulk = !w1_role && (rows * C) % 4 == 0 &&
+                       (reinterpret_cast<u64>(dzv + static_cast<long long>(r0) * C) & 15) == 0;
+    const unsigned hbytes = hbulk ? 4u * rows * H : 0u;
+    const unsigned obytes = obulk ? 4u * rows * C : 0u;
+    if (t == 0 && hbytes + obytes > 0) {
+      mbar_expect(&bar, hbytes + obytes);
+      if (hbytes) bulk_copy(hs, hsrc + static_cast<long long>(r0) * H, hbytes, &bar);
+      if (obytes) bulk_copy(os, dzv + static_cast<long long>(r0) * C, obytes, &bar);
+    }
+    if (!hbulk) copy_rows4(hs, hsrc, r0, rows, H, hp, t);
+    if (w1_role && xquad) {
+      // x[r0 + r][d0 .. d0 + 4): one 16-byte unit a row
+      for (int r = t; r < rows; r += GRAD_THREADS)
+        cp_async16(os + W1_ROWS * r, xv + static_cast<long long>(r0 + r) * D + d0, 16);
+    } else if (w1_role) {
+      for (int i = t; i < rows * W1_ROWS; i += GRAD_THREADS) {
+        const int r = i / W1_ROWS, d = d0 + (i - r * W1_ROWS);
+        const bool ok = d < D;
+        cp_async4(os + i, ok ? xv + static_cast<long long>(r0 + r) * D + d : xv, ok ? 4 : 0);
+      }
+    } else if (!obulk) {
+      copy_rows4(os, dzv, r0, rows, C, C, t);
+    }
+    cp_async_wait_all();
+    if (hbytes + obytes > 0) {
+      mbar_wait(&bar, phase);
+      phase ^= 1u;
+    }
+    __syncthreads();
+    return rows;
+  };
 
-  if (blockIdx.x < n_w1_blocks) {
-    // dW1[d0:d0+DT, :] = x[:, d0:d0+DT]^T dh
-    const int d0 = blockIdx.x * DT;
-    const int dt = min(DT, D - d0);
-    for (int j0 = 0; j0 < H; j0 += THREADS) {
-      const int j = j0 + threadIdx.x;
-      float acc[DT];
+  // Each lane's register tile over this warp's rows (r = warp, warp + 8, ...),
+  // units 4 lane .. 4 lane + 3: acc[a][u] is dW1[d0 + a][4 lane + u] or
+  // dW2[4 lane + u][c0 + a], bacc the bias sums of the float4s read
+  float acc[4][4], bacc[4];
 #pragma unroll
-      for (int k = 0; k < DT; ++k) acc[k] = 0.0f;
-      for (int r0 = 0; r0 < B; r0 += BT) {
-        const int rows = min(BT, B - r0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < BT * DT; i += THREADS) {
-          const int r = i / DT;
-          const int k = i - r * DT;
-          xs[r][k] = (r < rows && k < dt) ? xv[static_cast<long long>(r0 + r) * D + d0 + k] : 0.0f;
+  for (int a = 0; a < 4; ++a) {
+    bacc[a] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[a][u] = 0.0f;
+  }
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    if (chunk > 0) __syncthreads();  // every warp is done with the last chunk
+    const int rows = stage(chunk);
+    if (4 * lane >= hp) continue;
+    for (int r = warp; r < rows; r += GRAD_WARPS) {
+      if (w1_role) {
+        const float4 g = *reinterpret_cast<const float4*>(hs + r * hp + 4 * lane);
+        const float4 xq = *reinterpret_cast<const float4*>(os + W1_ROWS * r);
+        const float xr[4] = {xq.x, xq.y, xq.z, xq.w};
+        bacc[0] += g.x;
+        bacc[1] += g.y;
+        bacc[2] += g.z;
+        bacc[3] += g.w;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          acc[a][0] = fmaf(xr[a], g.x, acc[a][0]);
+          acc[a][1] = fmaf(xr[a], g.y, acc[a][1]);
+          acc[a][2] = fmaf(xr[a], g.z, acc[a][2]);
+          acc[a][3] = fmaf(xr[a], g.w, acc[a][3]);
         }
-        __syncthreads();
-        if (j < H) {
-          for (int r = 0; r < rows; ++r) {
-            const float g = dhv[static_cast<long long>(r0 + r) * H + j];
+      } else {
+        const float4 h = *reinterpret_cast<const float4*>(hs + r * hp + 4 * lane);
 #pragma unroll
-            for (int k = 0; k < DT; ++k) acc[k] = fmaf(xs[r][k], g, acc[k]);
-          }
+        for (int a = 0; a < 4; ++a) {
+          const float d = a < cn ? os[r * C + c0 + a] : 0.0f;  // a broadcast
+          bacc[a] += d;
+          acc[a][0] = fmaf(h.x, d, acc[a][0]);
+          acc[a][1] = fmaf(h.y, d, acc[a][1]);
+          acc[a][2] = fmaf(h.z, d, acc[a][2]);
+          acc[a][3] = fmaf(h.w, d, acc[a][3]);
         }
       }
-      if (j < H) {
-        // unrolled over the tile with a guard, so acc stays in registers
+    }
+  }
+
+  // the warps' tiles meet in shared memory, over the operands, and are
+  // added in warp order; the epilogue's p, m, v came with the staging
+  // (cp_async_wait_all), each thread reading only its own
+  __syncthreads();
+  float* mine = part + warp * tile;
+  if (4 * lane < hp) {
+    if (w1_role) {
 #pragma unroll
-        for (int k = 0; k < DT; ++k) {
-          if (k < dt) {
-            const long long at = (static_cast<long long>(v) * D + d0 + k) * H + j;
-            adamw(w1 + at, m1 + at, v1 + at, acc[k], bc1, bc2, lr, wd);
-          }
-        }
-      }
+      for (int a = 0; a < 4; ++a)
+        *reinterpret_cast<float4*>(mine + a * hp + 4 * lane) =
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      *reinterpret_cast<float4*>(mine + W1_ROWS * hp + 4 * lane) =
+          make_float4(bacc[0], bacc[1], bacc[2], bacc[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        *reinterpret_cast<float4*>(mine + (4 * lane + u) * W2_CLASSES) =
+            make_float4(acc[0][u], acc[1][u], acc[2][u], acc[3][u]);
+      if (lane == 0)
+        *reinterpret_cast<float4*>(mine + hp * W2_CLASSES) =
+            make_float4(bacc[0], bacc[1], bacc[2], bacc[3]);
     }
-  } else if (blockIdx.x < n_w1_blocks + n_w2_blocks) {
-    // dW2[j, c] = sum_b hd[b, j] dz[b, c], one element per thread
-    const int e = (blockIdx.x - n_w1_blocks) * THREADS + threadIdx.x;
-    if (e < H * C) {
-      const int j = e / C;
-      const int c = e - j * C;
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b)
-        acc = fmaf(hdv[static_cast<long long>(b) * H + j], dzv[static_cast<long long>(b) * C + c], acc);
-      const long long at = static_cast<long long>(v) * H * C + e;
-      adamw(w2 + at, m3 + at, v3 + at, acc, bc1, bc2, lr, wd);
-    }
-  } else {
-    // db1 = sum_b dh, db2 = sum_b dz
-    for (int j = threadIdx.x; j < H; j += THREADS) {
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += dhv[static_cast<long long>(b) * H + j];
-      const long long at = static_cast<long long>(v) * H + j;
-      adamw(b1 + at, m2 + at, v2 + at, acc, bc1, bc2, lr, wd);
-    }
-    for (int c = threadIdx.x; c < C; c += THREADS) {
-      float acc = 0.0f;
-      for (int b = 0; b < B; ++b) acc += dzv[static_cast<long long>(b) * C + c];
-      const long long at = static_cast<long long>(v) * C + c;
-      adamw(b2 + at, m4 + at, v4 + at, acc, bc1, bc2, lr, wd);
-    }
+  }
+  __syncthreads();
+  for (int o = t; o < n_out; o += GRAD_THREADS) {
+    int place;
+    long long at;
+    const bool bias = where(o, place, at);
+    float g = 0.0f;
+#pragma unroll
+    for (int w = 0; w < GRAD_WARPS; ++w) g += part[w * tile + place];
+    float pn = sp[o], mn = sm[o], vn = sv[o];
+    adamw(pn, mn, vn, g, bc1, bc2, lr, wd);
+    (bias ? pb : pw)[at] = pn;
+    (bias ? mb : mw)[at] = mn;
+    (bias ? vb : vw)[at] = vn;
   }
 }
 
@@ -779,20 +1021,25 @@ int dmf_probe_epoch(const void* xs, const void* drops, const void* yohs, const v
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  // W2 of all views goes to the loss kernel's shared memory in one bulk copy
+  // where it is whole 16-byte units and the block stays small enough for two
+  // blocks an SM
+  const bool stage_w2 =
+      (static_cast<long long>(V) * H * C) % 4 == 0 && (reinterpret_cast<size_t>(w2) & 15) == 0 &&
+      sizeof(float) * loss_smem_floats(V, H, C, true) <= LOSS_W2_SMEM;
   const size_t fwd_smem = sizeof(float) * fwd_smem_floats(D, H, C);
-  const size_t loss_smem = sizeof(float) * static_cast<size_t>(LOSS_ROWS) * V * LOSS_ARRAYS * C;
-  const size_t dh_smem = sizeof(float) * static_cast<size_t>(TB) * C;
+  const size_t loss_smem = sizeof(float) * loss_smem_floats(V, H, C, stage_w2);
+  const int n_w1 = (D + W1_ROWS - 1) / W1_ROWS;
+  const int n_w2 = (C + W2_CLASSES - 1) / W2_CLASSES;
+  const size_t grad_smem = sizeof(float) * grad_smem_floats(B, H, C);
   if ((e = allow_smem(forward_kernel, fwd_smem, max_smem)) != cudaSuccess ||
-      (e = allow_smem(loss_kernel, loss_smem, max_smem)) != cudaSuccess ||
-      (e = allow_smem(dh_kernel, dh_smem, max_smem)) != cudaSuccess)
+      (e = allow_smem(loss_dh_kernel, loss_smem, max_smem)) != cudaSuccess ||
+      (e = allow_smem(grad_adamw_kernel, grad_smem, max_smem)) != cudaSuccess)
     return static_cast<int>(e);
   const dim3 fwd_grid((B + FWD_ROWS - 1) / FWD_ROWS, V);
   const int n_loss = (B + LOSS_ROWS - 1) / LOSS_ROWS;
   const dim3 loss_block(WARP, V, LOSS_ROWS);
-  const dim3 row_grid((B + TB - 1) / TB, V);
-  const int n_w1 = (D + DT - 1) / DT;
-  const int n_w2 = (H * C + THREADS - 1) / THREADS;
-  const dim3 grad_grid(n_w1 + n_w2 + 1, V);
+  const dim3 grad_grid(n_w1 + n_w2, V);
   float* pp = static_cast<float*>(partials);
   const float* x0 = static_cast<const float*>(xs);
   const float* d0 = static_cast<const float*>(drops);
@@ -810,24 +1057,20 @@ int dmf_probe_epoch(const void* xs, const void* drops, const void* yohs, const v
         inv_keep);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    loss_kernel<<<n_loss, loss_block, loss_smem, st>>>(
+    loss_dh_kernel<<<n_loss, loss_block, loss_smem, st>>>(
         zp, y0 + static_cast<long long>(s) * B * C, r0 + static_cast<long long>(s) * B,
-        static_cast<const float*>(scal), pp, V, B, C, fused, lgamma_c);
+        static_cast<const float*>(scal), pp, hdp, static_cast<const float*>(w2), dhp, V, B, H,
+        C, fused, lgamma_c, inv_keep, stage_w2 ? 1 : 0);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    dh_kernel<<<row_grid, THREADS, dh_smem, st>>>(
-        zp, hdp, static_cast<const float*>(w2), dhp, B, H, C, inv_keep, pp, n_loss,
-        static_cast<const float*>(scal), V, fused, static_cast<float*>(losses) + s);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    grad_adam_kernel<<<grad_grid, THREADS, 0, st>>>(
+    grad_adamw_kernel<<<grad_grid, GRAD_THREADS, grad_smem, st>>>(
         x0 + s * vb * D, hdp, zp, dhp, static_cast<float*>(w1), static_cast<float*>(b1),
         static_cast<float*>(w2), static_cast<float*>(b2), static_cast<float*>(m1),
         static_cast<float*>(m2), static_cast<float*>(m3), static_cast<float*>(m4),
         static_cast<float*>(v1), static_cast<float*>(v2), static_cast<float*>(v3),
         static_cast<float*>(v4), static_cast<const float*>(bc1s),
         static_cast<const float*>(bc2s), static_cast<const float*>(scal), s, B, D, H, C, wd,
-        n_w1, n_w2);
+        n_w1, pp, n_loss, V, fused, static_cast<float*>(losses) + s);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

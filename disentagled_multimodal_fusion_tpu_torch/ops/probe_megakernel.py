@@ -21,11 +21,12 @@ S=16): ~79 MFLOP of f32 per step, 1.26 GFLOP per epoch, 19 us at
 state (p, m, v: 2.3 MB) read once and written once (6 us at 3.35 TB/s):
 bound by operations. This design re-reads and re-writes the state every
 step (87 MB per epoch), because it does not fit one SM's shared memory; it
-launches four kernels per step from one C call per epoch (forward with W1
-brought into shared memory by bulk asynchronous copies, loss with a warp per
-(row, view), dh, gradient + AdamW). A forward block covers all of H with
-four hidden units per lane, so the kernel takes H <= 128 (the config's
-128).
+launches three kernels per step from one C call per epoch (forward with W1
+brought into shared memory by bulk asynchronous copies; loss and dh with a
+warp per (row, view); gradient + AdamW as register-tiled products over
+operands staged by bulk copies, B split across warps and added in a fixed
+order). A block covers all of H with four hidden units per lane, so the
+kernel takes H <= 128 (the config's 128).
 
 ``run_epoch_plain`` is the plain PyTorch version, with autograd through the
 same Stirling series and custom gradients at the ties. The wrapper takes it

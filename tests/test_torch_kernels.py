@@ -254,6 +254,8 @@ def test_cuda_head_kernel_refuses_a_gradient():
     (7, 100, 200, 128, 10, None),
     (8, 50, 37, 30, 68, 17),      # more classes than lanes, the most views, odd widths
     (4, 100, 200, 128, 15, None),
+    (3, 128, 16, 128, 3, None),   # the synthetic sweep's probe: C = 3, a whole 128-row chunk
+    (3, 100, 200, 128, 10, 80),   # CUB's probe with its ragged tail of 80
 ])
 def test_cuda_probe_epoch_kernel_matches_plain(v, b, d, h, c, tail):
     """One epoch of S = 3 steps, kernel against plain version on the card, at
