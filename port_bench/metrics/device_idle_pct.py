@@ -1,0 +1,9 @@
+"""The share of the traced window in which no kernel, copy or memset ran on the
+card: 100 (1 - busy / window), busy the union of the device operations'
+intervals in the profiler's trace."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
