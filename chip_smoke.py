@@ -295,8 +295,8 @@ Each phase logs its time. Phases 3-7 run first, alone; then phases 11-13
 and 26, 14-17 and 21, 18-20, 22-24, 28 (a), and 29 run as six groups,
 each in a child process of this script (``--group``), beside phases 8-10
 and 25 in this one; phases 27 and 28 (b) run last, alone. Each child
-counts its own launches, each count set to 0 before a path and read after
-it, and sends them back.
+counts its own launches, each counter read before a path and after it,
+and sends the growth back.
 
 The serving and training phases also count the head kernel's calls by
 shape. ``python3 chip_smoke.py --head-times`` only builds the head kernel
@@ -346,10 +346,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-4, 1e-5
 SEEDS = (0, 1, 2, 3, 4)
+# the port's launch counters (core/logging.py): the head kernel's f32 and
+# bf16 builds, the epoch kernel
+HEADS, HEADS_BF16, EPOCHS = ("kernels.evidential_heads", "kernels.evidential_heads_bf16",
+                             "kernels.probe_epoch")
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def counters(since=None):
+    """The port's counters, or their growth since ``since``
+    (``core/logging.py``; imported here, so that ``--head-times`` and
+    ``--epoch-times`` also run in a checkout that predates them)."""
+    from disentagled_multimodal_fusion_tpu_torch.core.logging import counters as read
+
+    return read(since)
 
 
 def card_line() -> str:
@@ -607,7 +620,7 @@ def head_shape_tally():
     path runs, at the operator's launch function (``ops/head_op.py``; so a
     vmapped call counts at the S x V heads it launches), the bf16 build's
     under keys ending in ",bf16"; the launch counts themselves stay the
-    wrappers'."""
+    port's counters (``counters``)."""
     from disentagled_multimodal_fusion_tpu_torch.ops import head_op
 
     real = head_op.launch
@@ -744,13 +757,13 @@ def phase_bf16_kernel_checks(ck):
     worst = 0.0
     for i, shape in enumerate(BF16_SHAPES):
         args = head_inputs(*shape, seed=500 + i)
-        before = ck.evidential_heads_stacked_bf16.launches
+        before = counters()[HEADS_BF16]
         out = ck.evidential_heads_stacked_bf16(*args)
         out_bf16_x = ck.evidential_heads_stacked_bf16(args[0].to(torch.bfloat16), *args[1:])
         strided = args[0].transpose(0, 1).contiguous().transpose(0, 1)
         out_strided = ck.evidential_heads_stacked_bf16(strided, *args[1:])
         torch.cuda.synchronize()
-        if ck.evidential_heads_stacked_bf16.launches != before + 3:
+        if counters()[HEADS_BF16] != before + 3:
             raise AssertionError(f"evidential_head bf16 {shape}: not one launch per call")
         if not (torch.equal(out, out_bf16_x) and torch.equal(out, out_strided)):
             raise AssertionError(f"evidential_head bf16 {shape}: a bf16 or strided x changed "
@@ -914,10 +927,10 @@ def phase_probe_epoch_checks(pm):
     worst = 0.0
     for v, ties in ((2, False), (3, False), (2, True), (3, True)):
         inp = epoch_inputs(3, v, 16, 12, 8, 5, seed=v, keep=0.7, tail=6, ties=ties)
-        before = pm.run_epoch_kernel.launches
+        before = counters()[EPOCHS]
         got = run_epoch(pm.run_epoch_kernel, inp)
         torch.cuda.synchronize()
-        if pm.run_epoch_kernel.launches != before + 1:
+        if counters()[EPOCHS] != before + 1:
             raise AssertionError("probe_epoch did not count its launch")
         label = f"probe_epoch S=3 V={v} B=16 (tail 6{', ties' if ties else ''}) D=12 H=8 C=5"
         err = assert_epoch_close(got, run_epoch(pm.run_epoch_plain, inp), label)
@@ -1220,14 +1233,13 @@ def phase_training(ck, pm, card):
     C = make_getter(load_config())
     probe_epochs = C("probes.model_epochs")
     with artifact_root("train_"), head_shape_tally() as shapes:
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
                             "Normal", "--probe-engine", "megakernel"])
         wall = time.perf_counter() - t0
-        epoch_launches = pm.run_epoch_kernel.launches
-        head_launches = ck.evidential_heads_stacked.launches
+        epoch_launches = counters(since)[EPOCHS]
+        head_launches = counters(since)[HEADS]
     models = rows[0]["Normal"]["HandWritten"]
     for name, info in models.items():
         acc = info["fused"]["accuracy"]
@@ -1274,15 +1286,13 @@ def phase_training_bf16(ck, pm, card, f32_accs):
     with artifact_root("train_bf16_"), cut_config(BF16_HANDWRITTEN_CUT), \
             head_shape_tally() as shapes:
         probe_epochs = make_getter(load_config())("probes.model_epochs")
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
-        ck.evidential_heads_stacked_bf16.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = runner.main(["--seeds", "0", "--datasets", "HandWritten", "--conditions",
                             "Normal", "--probe-engine", "megakernel", "--dtype", "bfloat16"])
         wall = time.perf_counter() - t0
-        epochs, f32_heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
-        heads = ck.evidential_heads_stacked_bf16.launches
+        epochs, f32_heads = counters(since)[EPOCHS], counters(since)[HEADS]
+        heads = counters(since)[HEADS_BF16]
     models = rows[0]["Normal"]["HandWritten"]
     if len(models) != 6:
         raise AssertionError(f"bf16 HandWritten: {len(models)} models trained, expected 6")
@@ -1356,10 +1366,10 @@ def phase_vmapped_heads(ck, card):
         stacked = [torch.stack(parts) for parts in zip(*per_seed)]
         label = f"vmapped evidential_head {s_count} x {shape_key(v, b, d, h, c)}"
         with torch.no_grad():
-            before = ck.evidential_heads_stacked.launches
+            before = counters()[HEADS]
             got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
             torch.cuda.synchronize()
-            launches = ck.evidential_heads_stacked.launches - before
+            launches = counters()[HEADS] - before
             refs = [ck.evidential_heads_stacked(*args) for args in per_seed]
             plain = torch.func.vmap(ck.evidential_heads_stacked_plain)(*stacked)
         if launches != 1 or tuple(got.shape) != (s_count, b, v, c):
@@ -1432,12 +1442,12 @@ def phase_seed_batched(ck, card):
     C = make_getter(load_config())
     probe_epochs, dmvae_epochs = C("probes.model_epochs"), C("dmvae.num_epochs")
     with head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = runner.main(["--vmap-seeds", "--seeds", *map(str, SEEDS), "--datasets",
                             "HandWritten", "--conditions", "Normal"])
         wall = time.perf_counter() - t0
-        launches = ck.evidential_heads_stacked.launches
+        launches = counters(since)[HEADS]
     models = {s: rows[s]["Normal"]["HandWritten"] for s in SEEDS}
     first = models[SEEDS[0]]
     bb_s = first["dmvae_cml"]["backbone_fit_seconds"]
@@ -1648,12 +1658,12 @@ def phase_export(ck, card):
         out = Path(os.environ["DMF_ARTIFACT_ROOT"]) / "exported" / name
         flags = ["--model", name, "--dataset", "HandWritten", "--seed", "0", "--buckets",
                  *map(str, BUCKETS)]
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             report = serve.main(flags + ["--reps", "3", "--export-dir", str(out)])
         export_s = time.perf_counter() - t0
-        launches += ck.evidential_heads_stacked.launches
+        launches += counters(since)[HEADS]
         names = [f"{name}_HandWritten_seed0_b{b}.pt2" for b in BUCKETS]
         if [Path(p).name for p in report["exported"]] != \
                 names + ["dmf_head_op.py", "evidential_head.so"]:
@@ -1704,14 +1714,13 @@ def phase_synthetic(ck, pm, card, backbone):
     bb_epochs, probe_epochs = C("dmvae.num_epochs"), C("dmvae_fusion.num_epochs")
     late_epochs = C("latefusion.num_epochs", 50)  # no such key in the YAML: the code default
     with head_shape_tally() as shapes:
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = run_synthetic.main(["--seeds", "0", "--deps", "50", "--preset", "med",
                                    "--probe-engine", "megakernel", "--backbone", backbone])
         wall = time.perf_counter() - t0
-        epoch_launches = pm.run_epoch_kernel.launches
-        head_launches = ck.evidential_heads_stacked.launches
+        epoch_launches = counters(since)[EPOCHS]
+        head_launches = counters(since)[HEADS]
     models = rows[0][50]
     first = models["dmvae_cml"]
     bb_s = first["backbone_fit_seconds"]
@@ -1766,9 +1775,9 @@ def phase_synthetic_seed_batched(ck, card):
     from disentagled_multimodal_fusion_tpu_torch.runners.run import build_backbone
 
     with head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         rows = rs.main(["--vmap-seeds", "--seeds", *map(str, SEEDS), "--deps", "50", "--quick"])
-        launches = ck.evidential_heads_stacked.launches
+        launches = counters(since)[HEADS]
     per_fit = 3 + 1  # --quick: 3 validation epochs and the evaluation
     expected = {shape_key(*SYNTHETIC_QUICK_SHAPES[0]): per_fit,
                 shape_key(*SYNTHETIC_QUICK_SHAPES[1]): 2 * per_fit}
@@ -1926,10 +1935,10 @@ def phase_serving(ck, card):
 
     reps = 30
     with head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         reports = [runner.main(serve_args(name, "cuda") + ["--reps", str(reps)])
                    for name in SERVED_MODELS]
-        launches = ck.evidential_heads_stacked.launches
+        launches = counters(since)[HEADS]
     expected = len(SERVED_MODELS) * len(BUCKETS) * (reps + 1)
     if launches != expected or sum(shapes.values()) != launches:
         raise AssertionError(f"evidential_head launched {launches} times, expected {expected} "
@@ -1949,9 +1958,9 @@ def phase_serving(ck, card):
         infer_gpu, xs = runner.load(args, C, torch.device("cuda"))
         infer_cpu, _ = runner.load(args, C, torch.device("cpu"))
         for b in BUCKETS:
-            before = ck.evidential_heads_stacked.launches
+            before = counters()[HEADS]
             got = to_host(infer_gpu(tuple(x[:b] for x in xs)))
-            if ck.evidential_heads_stacked.launches != before + 1:
+            if counters()[HEADS] != before + 1:
                 raise AssertionError(f"{name} bucket {b} did not launch the kernel once")
             ref = to_host(infer_cpu(tuple(x[:b].cpu() for x in xs)))
             assert_outputs_match(got, ref, f"{name} bucket {b} card vs CPU")
@@ -2171,13 +2180,12 @@ def _run_cub_cell(ck, pm, card, argv, label):
     runner.fit_backbone = fit_backbone
     try:
         with head_shape_tally() as shapes:
-            pm.run_epoch_kernel.launches = 0
-            ck.evidential_heads_stacked.launches = 0
+            since = counters()
             t0 = time.perf_counter()
             rows = runner.main(["--seeds", "0", "--datasets", "CUB", "--conditions", "Normal",
                                 "--probe-engine", "megakernel", *argv])
             wall = time.perf_counter() - t0
-            epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+            epochs, heads = counters(since)[EPOCHS], counters(since)[HEADS]
     finally:
         runner.fit_backbone = real
     log(f"{label}: CUB Normal seed 0 in {wall:.1f} s; probe_epoch launched {epochs} times, "
@@ -2294,13 +2302,13 @@ def phase_seed_batched_profile(ck, card):
     from disentagled_multimodal_fusion_tpu_torch.runners import run as runner
 
     with artifact_root("profile_") as root, head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = runner.main(["--vmap-seeds", "--seeds", "0", "1", "--datasets", "Scene",
                             "--conditions", "Normal", "--quick", "--intermediate-fusion", "mi3",
                             "tensor", "lrtf", "--profile"])
         wall = time.perf_counter() - t0
-        heads = ck.evidential_heads_stacked.launches
+        heads = counters(since)[HEADS]
         trace = Path(root) / "logs" / "traces" / "uq_sweep" / "trace.json"
         size = trace.stat().st_size
         if not _file_mentions(trace, "evidential_heads_kernel"):
@@ -2585,12 +2593,11 @@ def phase_luma(ck, pm, card, root, corpus):
             "--rows-file", str(Path(root) / "rows.json")]
     tee = _Tee()
     with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = run_luma.main(argv)
         wall = time.perf_counter() - t0
-        epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+        epochs, heads = counters(since)[EPOCHS], counters(since)[HEADS]
     text = tee.text()
     feat_s = float(re.search(r"featurized in ([0-9.]+) s", text).group(1))
     dmvae_s = float(re.search(r"DMVAE trained: ([0-9.]+) s", text).group(1))
@@ -2632,12 +2639,11 @@ def phase_luma(ck, pm, card, root, corpus):
     tee = _Tee()
     try:
         with contextlib.redirect_stdout(tee):
-            pm.run_epoch_kernel.launches = 0
-            ck.evidential_heads_stacked.launches = 0
+            since = counters()
             t0 = time.perf_counter()
             again = run_luma.main(argv)
             resume_s = time.perf_counter() - t0
-            launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
+            launched = counters(since)[EPOCHS] + counters(since)[HEADS]
     finally:
         run_luma.run_seed = real
     if "--rows-file: resuming; 1 completed seed(s) found [0]" not in tee.text():
@@ -2795,16 +2801,14 @@ def phase_luma_bf16(ck, pm, card, corpus, seq_fits):
         expected = {f"{key},bf16": n for key, n in expected.items()}
         with artifact_root(f"luma_bf16_{engine}_"):
             with head_shape_tally() as shapes, contextlib.redirect_stdout(_Tee()) as tee:
-                pm.run_epoch_kernel.launches = 0
-                ck.evidential_heads_stacked.launches = 0
-                ck.evidential_heads_stacked_bf16.launches = 0
+                since = counters()
                 t0 = time.perf_counter()
                 rows = run_luma.main(["--data-path", corpus, *flags, "--ood-eval",
                                       "--include-intermediate", "--dtype", "bfloat16"])
                 wall = time.perf_counter() - t0
-                epochs, f32_heads = (pm.run_epoch_kernel.launches,
-                                     ck.evidential_heads_stacked.launches)
-                heads = ck.evidential_heads_stacked_bf16.launches
+                epochs, f32_heads = (counters(since)[EPOCHS],
+                                     counters(since)[HEADS])
+                heads = counters(since)[HEADS_BF16]
             dmvae_s = float(re.search(r"DMVAE (?:x\d+ seeds )?trained: ([0-9.]+) s",
                                       tee.text()).group(1))
             for s in seeds:
@@ -2873,12 +2877,11 @@ def phase_luma_seed_batched(ck, pm, card, corpus, seq_fits):
             str(Path(root) / "rows.json")]
     tee = _Tee()
     with head_shape_tally() as shapes, contextlib.redirect_stdout(tee):
-        pm.run_epoch_kernel.launches = 0
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         t0 = time.perf_counter()
         rows = run_luma.main(argv)
         wall = time.perf_counter() - t0
-        epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+        epochs, heads = counters(since)[EPOCHS], counters(since)[HEADS]
     text = tee.text()
     if re.search(r"featurized in ([0-9.]+) s", text) is None:
         raise AssertionError("luma seed-batched: no featurization line")
@@ -2929,12 +2932,11 @@ def phase_luma_seed_batched(ck, pm, card, corpus, seq_fits):
     tee = _Tee()
     try:
         with contextlib.redirect_stdout(tee):
-            pm.run_epoch_kernel.launches = 0
-            ck.evidential_heads_stacked.launches = 0
+            since = counters()
             t0 = time.perf_counter()
             again = run_luma.main(argv)
             resume_s = time.perf_counter() - t0
-            launched = pm.run_epoch_kernel.launches + ck.evidential_heads_stacked.launches
+            launched = counters(since)[EPOCHS] + counters(since)[HEADS]
     finally:
         run_luma.run_seeds_batched = real
     if "--rows-file: every seed complete, skipping training" not in tee.text():
@@ -3358,9 +3360,9 @@ def mesh_rank(out_dir, backend, device="cuda:0"):
     pdist.initialize(backend=backend, device=device, timeout=MESH_TIMEOUT_S)
     mesh = make_mesh()
     with head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
+        since = counters()
         out = mesh_legs(mesh, device)
-        launches = ck.evidential_heads_stacked.launches
+        launches = counters(since)[HEADS]
     out_dir = Path(out_dir)
     np.savez(out_dir / f"rank{mesh.rank}.npz", **out)
     (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(
@@ -3727,13 +3729,11 @@ def model_rank(out_dir):
     pdist.initialize(backend="gloo", device="cuda:0", timeout=MESH_TIMEOUT_S)
     mesh = make_mesh(model_parallel=2)
     with head_shape_tally() as shapes:
-        ck.evidential_heads_stacked.launches = 0
-        ck.evidential_heads_stacked_bf16.launches = 0
-        pm.run_epoch_kernel.launches = 0
+        since = counters()
         memory = {}
         out = mesh_legs(mesh, "cuda:0", cut=True, memory=memory)
-        launches, epochs = ck.evidential_heads_stacked.launches, pm.run_epoch_kernel.launches
-        bf16_launches = ck.evidential_heads_stacked_bf16.launches
+        launches, epochs = counters(since)[HEADS], counters(since)[EPOCHS]
+        bf16_launches = counters(since)[HEADS_BF16]
     out_dir = Path(out_dir)
     np.savez(out_dir / f"rank{mesh.rank}.npz", **out)
     (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(
@@ -4039,8 +4039,7 @@ def phase_unfused_heads(ck, pm, card, device="cuda"):
                                          f"{task.megakernel}")
                 dtype = torch.float64 if engine == "exact" else torch.float32
                 task.model.to(dtype)
-                pm.run_epoch_kernel.launches = 0
-                ck.evidential_heads_stacked.launches = 0
+                since = counters()
                 sync(device)
                 t0 = time.perf_counter()
                 res = train(model=task.model, loss_fn=task.loss_fn, data=_as(data, dtype),
@@ -4050,7 +4049,7 @@ def phase_unfused_heads(ck, pm, card, device="cuda"):
                             megakernel=task.megakernel if engine == "megakernel" else None)
                 sync(device)
                 ms[f"{name}.{engine}"] = 1e3 * (time.perf_counter() - t0) / UNFUSED_EPOCHS
-                epochs, heads = pm.run_epoch_kernel.launches, ck.evidential_heads_stacked.launches
+                epochs, heads = counters(since)[EPOCHS], counters(since)[HEADS]
                 want = ((0, 0) if one_a_head or device == "cpu" else
                         (UNFUSED_EPOCHS if engine == "megakernel" else 0, UNFUSED_EPOCHS))
                 if (epochs, heads) != want:

@@ -24,6 +24,15 @@ promised across versions (2.13 and 2.11, the two the port runs on). The
 JAX package's ``platforms`` (a cross-export) has no counterpart: a CUDA
 artifact is made on the card.
 
+Spans (``core/logging.py``; recorded only inside ``logging.recording()``):
+``serve.infer`` is the inference function's call, ``_as_tensor`` included,
+and opens a request; inside it ``InferenceModule.forward`` holds
+``serve.backbone`` (``get_embedding`` and the stack of the private
+embeddings), ``serve.heads`` (the task's evidence: the head operator's
+dispatch and launch) and ``serve.uncertainty`` (aggregation, the Dirichlet
+uncertainties, argmax and probs). ``serve.to_host`` is a root of its own
+with the last request's id and the copies and bytes it brought back.
+
 The mesh's ``data`` axis (JAX lines 103-172, 198-210): ``build_inference_fn(
 mesh=)`` runs every rank of the mesh on the same request, each on its rows
 of it, then gathers the outputs so that every rank returns the whole
@@ -44,6 +53,7 @@ import torch
 from torch import nn
 
 from ..ops.dirichlet import dirichlet_uncertainties
+from .logging import span
 
 __all__ = ["build_inference_fn", "InferenceModule", "ServingEngine", "DEFAULT_BUCKETS",
            "to_host", "export_inference", "load_exported", "HEAD_OP"]
@@ -56,10 +66,15 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 def to_host(out: dict) -> dict:
     """The output dict with every tensor copied to a numpy array."""
-    return {
-        k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        for k, v in out.items()
-    }
+    with span("serve.to_host") as s:
+        host = {
+            k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()
+        }
+        if s is not None:
+            s.attrs.update(copies=sum(isinstance(v, torch.Tensor) for v in out.values()),
+                           bytes=sum(a.nbytes for a in host.values()))
+    return host
 
 
 class InferenceModule(nn.Module):
@@ -79,23 +94,26 @@ class InferenceModule(nn.Module):
         self.num_classes = task.num_classes
 
     def forward(self, xs):
-        if self.backbone is not None:
-            zc, zp_list = self.backbone.get_embedding(xs)
-            data = {"zc": zc, "zp": torch.stack(zp_list, dim=1)}
-        else:
-            data = {"xs": tuple(xs)}
-        ev = self.evidences_fn(data)
-        fused = self.aggregation(ev)
-        alpha = fused.float() + 1.0
-        epistemic, aleatoric = dirichlet_uncertainties(fused, self.num_classes)
-        return {
-            "pred": torch.argmax(fused, dim=-1),
-            "probs": alpha / torch.sum(alpha, dim=-1, keepdim=True),
-            "evidence": ev,
-            "fused_evidence": fused,
-            "epistemic": epistemic,
-            "aleatoric": aleatoric,
-        }
+        with span("serve.backbone"):
+            if self.backbone is not None:
+                zc, zp_list = self.backbone.get_embedding(xs)
+                data = {"zc": zc, "zp": torch.stack(zp_list, dim=1)}
+            else:
+                data = {"xs": tuple(xs)}
+        with span("serve.heads"):
+            ev = self.evidences_fn(data)
+        with span("serve.uncertainty"):
+            fused = self.aggregation(ev)
+            alpha = fused.float() + 1.0
+            epistemic, aleatoric = dirichlet_uncertainties(fused, self.num_classes)
+            return {
+                "pred": torch.argmax(fused, dim=-1),
+                "probs": alpha / torch.sum(alpha, dim=-1, keepdim=True),
+                "evidence": ev,
+                "fused_evidence": fused,
+                "epistemic": epistemic,
+                "aleatoric": aleatoric,
+            }
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -138,7 +156,8 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
 
     @torch.inference_mode()
     def infer(xs: Sequence):
-        return module(tuple(_as_tensor(x, device) for x in xs))
+        with span("serve.infer", new_request=True):
+            return module(tuple(_as_tensor(x, device) for x in xs))
 
     infer.module = module
     if mesh is None:

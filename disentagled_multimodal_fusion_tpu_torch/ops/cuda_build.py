@@ -5,6 +5,8 @@ plain C interface, ``_build/<name>-<hash>.so`` (the hash covers the source
 and the flags, so an edited source builds anew). All missing sources are
 compiled at once, one ``nvcc`` process each. Nothing is built at import
 time: machines without ``nvcc`` import this module and never call it.
+The spans ``kernels.build`` (the nvcc processes, when a source is built)
+and ``kernels.load`` (``load_library``'s load) time both (``core/logging.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Sequence
+
+from ..core.logging import span
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -74,17 +78,22 @@ def build(names: Sequence[str]) -> Dict[str, BuildInfo]:
         started[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, lib, log)
-    for name, (proc, tmp, lib, log) in started.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{output}")
-        log.write_text(output)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-        infos[name] = BuildInfo(lib, time.perf_counter() - t0, output)
+    if not started:
+        return infos
+    with span("kernels.build", sources=",".join(started)):
+        for name, (proc, tmp, lib, log) in started.items():
+            output, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{output}")
+            log.write_text(output)
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+            infos[name] = BuildInfo(lib, time.perf_counter() - t0, output)
     return infos
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
-    return ctypes.CDLL(str(build([name])[name].library))
+    library = build([name])[name].library
+    with span("kernels.load", source=name):
+        return ctypes.CDLL(str(library))

@@ -30,15 +30,16 @@ plain version; for CUDA tensors it launches the kernel or raises, and a
 bf16 mode input never reaches the f32 kernel. Under ``torch.func.vmap``
 (the seed-batched trainer's validation and evaluation) its batching rule
 folds the vmapped axis into the heads, so S seeds of V heads are one launch
-at S*V heads. ``evidential_heads_stacked.launches`` and
-``evidential_heads_stacked_bf16.launches`` count the launches of each build
-(plain ints, exact while one thread at a time launches).
+at S*V heads. The counters ``kernels.evidential_heads`` and
+``kernels.evidential_heads_bf16`` (``core/logging.py``) count the launches
+of each build (plain ints, exact while one thread at a time launches).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.logging import count
 from . import head_op
 from .head_op import evidential_heads_stacked_bf16_plain, evidential_heads_stacked_plain
 
@@ -57,7 +58,7 @@ def library_path():
 
 
 def _count(bf16: bool) -> None:
-    (evidential_heads_stacked_bf16 if bf16 else evidential_heads_stacked).launches += 1
+    count("kernels.evidential_heads_bf16" if bf16 else "kernels.evidential_heads")
 
 
 head_op.find_library = library_path
@@ -92,10 +93,6 @@ def evidential_heads_stacked_bf16(x_stack, w1s, b1s, w2s, b2s):
     kernel's bf16 build): x_stack float32 or bfloat16, the parameters
     float32. Its plain version is ``evidential_heads_stacked_bf16_plain``."""
     return _heads(True, x_stack, w1s, b1s, w2s, b2s)
-
-
-evidential_heads_stacked.launches = 0
-evidential_heads_stacked_bf16.launches = 0
 
 
 def evidential_head_fused(x, w1, b1, w2, b2):

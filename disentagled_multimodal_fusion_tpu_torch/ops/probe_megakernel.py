@@ -31,8 +31,9 @@ kernel takes H <= 128 (the config's 128).
 ``run_epoch_plain`` is the plain PyTorch version, with autograd through the
 same Stirling series and custom gradients at the ties. The wrapper takes it
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises. ``run_epoch_kernel.launches`` counts the kernel's epoch calls (a
-plain int, exact while one thread at a time launches).
+raises. The counter ``kernels.probe_epoch`` (``core/logging.py``) counts the
+kernel's epoch calls (a plain int, exact while one thread at a time
+launches).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.logging import count
 from .adam import adam_update
 from .evidence import LOG1E13, abs_jax, clip_jax
 from .special import digamma_stirling, gammaln_stirling
@@ -215,8 +217,6 @@ def run_epoch_kernel(xs, drops, yohs, rmasks, bc1s, bc2s, lr, coef, gamma_t,
         )
     if code != 0:
         raise RuntimeError(f"probe_epoch kernel launch failed: {_error_string(code)}")
-    run_epoch_kernel.launches += 1
+    count("kernels.probe_epoch")
     return tuple(params), tuple(mus), tuple(nus), losses
 
-
-run_epoch_kernel.launches = 0

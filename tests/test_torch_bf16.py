@@ -74,6 +74,7 @@ from disentagled_multimodal_fusion_tpu.models import layers as jlayers
 from disentagled_multimodal_fusion_tpu.models import probes as jprobes
 from disentagled_multimodal_fusion_tpu.ops.evidence import evidence_activation as jevidence
 from disentagled_multimodal_fusion_tpu_torch.convert import flax_to_state_dict, load_flax_params
+from disentagled_multimodal_fusion_tpu_torch.core.logging import counters
 from disentagled_multimodal_fusion_tpu_torch.core import tasks as ttasks
 from disentagled_multimodal_fusion_tpu_torch.models import baselines as tbase
 from disentagled_multimodal_fusion_tpu_torch.models import dmvae as tdmvae
@@ -368,7 +369,7 @@ def test_bf16_kernel_plain_version_matches_jax(v, b, c):
     plain = ck.evidential_heads_stacked_bf16_plain(xt.to(torch.bfloat16), w["w1"], w["b1"],
                                                    w["w2"], w["b2"])
     assert torch.equal(got, plain)
-    assert ck.evidential_heads_stacked_bf16.launches == 0  # no launch on the CPU
+    assert counters()["kernels.evidential_heads_bf16"] == 0  # no launch on the CPU
 
 
 def test_bf16_kernel_plain_version_under_vmap_matches_jax():

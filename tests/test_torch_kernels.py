@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from disentagled_multimodal_fusion_tpu_torch.core.logging import counters
 from disentagled_multimodal_fusion_tpu_torch.ops import cuda_kernels as ck
 from disentagled_multimodal_fusion_tpu_torch.ops import head_op
 
@@ -80,10 +81,10 @@ def test_stacked_matches_jax():
 
 
 def test_plain_path_is_not_counted_as_a_launch():
-    before = ck.evidential_heads_stacked.launches
+    before = counters()["kernels.evidential_heads"]
     args = _head_inputs(np.random.default_rng(0), 4, 6, 5, 3, 0.1, 0.1)
     ck.evidential_head_fused(*(torch.from_numpy(a) for a in args))
-    assert ck.evidential_heads_stacked.launches == before
+    assert counters()["kernels.evidential_heads"] == before
 
 
 def _stacked_head_inputs(rng, s, v, b, d, h, c):
@@ -131,11 +132,11 @@ def test_cuda_head_kernel_under_vmap_is_one_launch():
     for v, b, d in ((7, 400, 200), (6, 400, 200), (6, 400, 240)):
         stacked = [t.cuda() for t in _stacked_head_inputs(np.random.default_rng(v + d), seeds,
                                                          v, b, d, 128, 10)]
-        before = ck.evidential_heads_stacked.launches
+        before = counters()["kernels.evidential_heads"]
         with torch.no_grad():
             got = torch.func.vmap(ck.evidential_heads_stacked)(*stacked)
         torch.cuda.synchronize()
-        assert ck.evidential_heads_stacked.launches == before + 1
+        assert counters()["kernels.evidential_heads"] == before + 1
         for i in range(seeds):
             ref = ck.evidential_heads_stacked(*(t[i] for t in stacked))
             np.testing.assert_allclose(got[i].cpu().numpy(), ref.cpu().numpy(),
@@ -165,10 +166,10 @@ def test_cuda_kernel_matches_plain():
             torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).cuda()
             for s in ((v, d, h), (v, h), (v, h, c), (v, c))
         ]
-        before = ck.evidential_heads_stacked.launches
+        before = counters()["kernels.evidential_heads"]
         out = ck.evidential_heads_stacked(xs, *ws)
         torch.cuda.synchronize()
-        assert ck.evidential_heads_stacked.launches == before + 1
+        assert counters()["kernels.evidential_heads"] == before + 1
         ref = ck.evidential_heads_stacked_plain(xs, *ws)
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
@@ -207,22 +208,22 @@ def test_cuda_bf16_head_kernel_matches_plain():
         xs = torch.from_numpy(rng.standard_normal((v, b, d)).astype(np.float32)).cuda()
         ws = [torch.from_numpy((rng.standard_normal(s) * 0.1).astype(np.float32)).cuda()
               for s in ((v, d, h), (v, h), (v, h, c), (v, c))]
-        before = ck.evidential_heads_stacked_bf16.launches
+        before = counters()["kernels.evidential_heads_bf16"]
         out = ck.evidential_heads_stacked_bf16(xs, *ws)
         out_bf16_x = ck.evidential_heads_stacked_bf16(xs.to(torch.bfloat16), *ws)
         strided = xs.transpose(0, 1).contiguous().transpose(0, 1)
         out_strided = ck.evidential_heads_stacked_bf16(strided, *ws)
         torch.cuda.synchronize()
-        assert ck.evidential_heads_stacked_bf16.launches == before + 3
+        assert counters()["kernels.evidential_heads_bf16"] == before + 3
         assert torch.equal(out, out_bf16_x) and torch.equal(out, out_strided), (v, b, d, h, c)
         _assert_bf16_evidence_close(out, ck.evidential_heads_stacked_bf16_plain(xs, *ws))
     stacked = [t.cuda() for t in _stacked_head_inputs(np.random.default_rng(3), 5, 3, 840, 200,
                                                       128, 42)]
-    before = ck.evidential_heads_stacked_bf16.launches
+    before = counters()["kernels.evidential_heads_bf16"]
     with torch.no_grad():
         got = torch.func.vmap(ck.evidential_heads_stacked_bf16)(*stacked)
     torch.cuda.synchronize()
-    assert ck.evidential_heads_stacked_bf16.launches == before + 1
+    assert counters()["kernels.evidential_heads_bf16"] == before + 1
     _assert_bf16_evidence_close(got, torch.func.vmap(ck.evidential_heads_stacked_bf16_plain)(
         *stacked))
     with pytest.raises(TypeError):
@@ -242,10 +243,10 @@ def test_cuda_head_kernel_refuses_a_gradient():
     _needs_cuda()
     args = [torch.randn(s, device="cuda") for s in ((2, 3, 4), (2, 4, 5), (2, 5), (2, 5, 3), (2, 3))]
     args[1].requires_grad_()
-    before = ck.evidential_heads_stacked.launches
+    before = counters()["kernels.evidential_heads"]
     with pytest.raises(RuntimeError, match="no backward"):
         ck.evidential_heads_stacked(*args)
-    assert ck.evidential_heads_stacked.launches == before
+    assert counters()["kernels.evidential_heads"] == before
 
 
 @pytest.mark.gpu
@@ -290,12 +291,12 @@ def test_cuda_probe_epoch_kernel_matches_plain(v, b, d, h, c, tail):
     nus = tuple(t(rng.random(sh) * 1e-6) for sh in shapes)
     kw = dict(keep=keep, fused=1.0, num_classes=c, weight_decay=1e-2)
     ref = pm.run_epoch_plain(*streams, 3e-3, 0.4, 0.68, params, mus, nus, **kw)
-    before = pm.run_epoch_kernel.launches
+    before = counters()["kernels.probe_epoch"]
     clone = lambda ts: tuple(x.clone() for x in ts)  # noqa: E731
     got = pm.run_epoch_kernel(*streams, 3e-3, 0.4, 0.68, clone(params), clone(mus), clone(nus),
                               **kw)
     torch.cuda.synchronize()
-    assert pm.run_epoch_kernel.launches == before + 1
+    assert counters()["kernels.probe_epoch"] == before + 1
     np.testing.assert_allclose(got[3].cpu().numpy(), ref[3].cpu().numpy(), rtol=2e-5, atol=2e-6)
     for group in range(3):
         for a, r in zip(got[group], ref[group]):

@@ -23,6 +23,7 @@ from disentagled_multimodal_fusion_tpu.core import tasks as jtasks
 from disentagled_multimodal_fusion_tpu.core.train import make_train_program
 from disentagled_multimodal_fusion_tpu.ops import probe_megakernel as jpm
 from disentagled_multimodal_fusion_tpu_torch.convert import load_flax_params
+from disentagled_multimodal_fusion_tpu_torch.core.logging import counters
 from disentagled_multimodal_fusion_tpu_torch.core import megakernel as tmk
 from disentagled_multimodal_fusion_tpu_torch.core import tasks as ttasks
 from disentagled_multimodal_fusion_tpu_torch.core.train import OptimizerConfig, Randomness, train
@@ -96,11 +97,11 @@ def test_run_epoch_plain_matches_jax_kernel(views, ties):
 
 def test_plain_epoch_is_not_counted_as_a_launch():
     streams, state = epoch_inputs(1, 2, 4, 3, 2, 3, keep=1.0, tail=4, seed=0)
-    before = tpm.run_epoch_kernel.launches
+    before = counters()["kernels.probe_epoch"]
     tpm.run_epoch_kernel(*(torch.from_numpy(a) for a in streams), 1e-3, 0.0, 0.2,
                          *[tuple(torch.from_numpy(a) for a in g) for g in state],
                          keep=1.0, fused=1.0, num_classes=3, weight_decay=0.0)
-    assert tpm.run_epoch_kernel.launches == before
+    assert counters()["kernels.probe_epoch"] == before
 
 
 class Replay:
