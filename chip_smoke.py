@@ -60,8 +60,10 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
 5. the serving path, ``runners/serve.py`` main with ``--random-init`` on
    HandWritten at full width for dmvae_cml, dmvae_dis and cml_fusion at
    buckets 1, 8, 64, 256, with the kernels' launch counts read around it;
-   then the same models on the card against the plain path on the CPU, and
-   one dmvae_cml request under the profiler (device busy share, kernels);
+   then the same models on the card against the plain path on the CPU,
+   each bucket's CUDA graph (its capture and a replay) bitwise equal to its
+   eager call, one head-kernel launch counted a call, and one dmvae_cml
+   request under the profiler (device busy share, kernels);
 6. the micro-batching daemon under concurrent clients, every answer held
    against a direct engine call;
 7. the HTTP front on 127.0.0.1, each answer held against a direct call;
@@ -620,22 +622,29 @@ def head_shape_tally():
     path runs, at the operator's launch function (``ops/head_op.py``; so a
     vmapped call counts at the S x V heads it launches), the bf16 build's
     under keys ending in ",bf16"; the launch counts themselves stay the
-    port's counters (``counters``)."""
+    port's counters (``counters``). Each launch adds to a port counter of its
+    shape, so a launch captured into a CUDA graph counts at every replay
+    (``core/serve.py``); the tally is filled when the block ends."""
+    from disentagled_multimodal_fusion_tpu_torch.core.logging import count
     from disentagled_multimodal_fusion_tpu_torch.ops import head_op
 
     real = head_op.launch
-    tally = collections.Counter()
+    tally, prefix = collections.Counter(), "chip_smoke.head_shape."
+    since = counters()
 
     def counted(x, w1, b1, w2, b2, bf16):
-        key = shape_key(*x.shape, w1.shape[-1], w2.shape[-1]) + (",bf16" if bf16 else "")
-        tally[key] += 1
-        return real(x, w1, b1, w2, b2, bf16)
+        out = real(x, w1, b1, w2, b2, bf16)
+        count(prefix + shape_key(*x.shape, w1.shape[-1], w2.shape[-1])
+              + (",bf16" if bf16 else ""))
+        return out
 
     head_op.launch = counted
     try:
         yield tally
     finally:
         head_op.launch = real
+        tally.update({k[len(prefix):]: n for k, n in counters(since).items()
+                      if k.startswith(prefix) and n})
 
 
 def device_ms(fn, args, kernel=None, n=100):
@@ -1953,18 +1962,30 @@ def phase_serving(ck, card):
     from disentagled_multimodal_fusion_tpu_torch.runners.common import load_config, make_getter
 
     C = make_getter(load_config())
+    steps = ("serve.eager_calls", "serve.graph_captures", "serve.graph_replays")
     for name in SERVED_MODELS:
         args = runner.parse_args(serve_args(name, "cuda"))
         infer_gpu, xs = runner.load(args, C, torch.device("cuda"))
         infer_cpu, _ = runner.load(args, C, torch.device("cpu"))
         for b in BUCKETS:
-            before = counters()[HEADS]
-            got = to_host(infer_gpu(tuple(x[:b] for x in xs)))
-            if counters()[HEADS] != before + 1:
-                raise AssertionError(f"{name} bucket {b} did not launch the kernel once")
+            calls = []
+            for step in steps:  # the first call at a shape, its capture, a replay
+                since = counters()
+                calls.append(to_host(infer_gpu(tuple(x[:b] for x in xs))))
+                grew = counters(since)
+                if grew[HEADS] != 1 or [grew[k] for k in steps] != [int(k == step)
+                                                                    for k in steps]:
+                    raise AssertionError(f"{name} bucket {b}: expected one kernel launch "
+                                         f"and {step}, counted {dict(grew)}")
             ref = to_host(infer_cpu(tuple(x[:b].cpu() for x in xs)))
-            assert_outputs_match(got, ref, f"{name} bucket {b} card vs CPU")
-        log(f"serve {name}: card outputs match the CPU plain path at buckets {list(BUCKETS)}")
+            assert_outputs_match(calls[0], ref, f"{name} bucket {b} card vs CPU")
+            for step, got in zip(steps[1:], calls[1:]):
+                for k, v in calls[0].items():
+                    if got[k].dtype != v.dtype or not np.array_equal(got[k], v):
+                        raise AssertionError(f"{name} bucket {b}: {k} of the {step} differs "
+                                             f"from the eager call")
+        log(f"serve {name}: card outputs match the CPU plain path at buckets {list(BUCKETS)}; "
+            f"each bucket's graph capture and replay equal its eager call bitwise")
     return launches, dict(shapes)
 
 

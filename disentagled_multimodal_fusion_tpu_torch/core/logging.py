@@ -23,7 +23,13 @@ Spans and counters (the JAX package has no counterpart):
 - ``count(name, n=1)`` adds to a counter, always (a plain integer add, exact
   while one thread at a time counts); ``counters(since)`` reads them. The
   kernels' launches are ``kernels.evidential_heads``,
-  ``kernels.evidential_heads_bf16`` and ``kernels.probe_epoch``.
+  ``kernels.evidential_heads_bf16`` and ``kernels.probe_epoch``; the
+  scoring path's calls ``serve.eager_calls``, ``serve.graph_captures`` and
+  ``serve.graph_replays`` (``core/serve.py``). ``held_counts()`` holds the
+  counts a thread makes inside a block instead of adding them: a CUDA
+  graph's capture runs under it, since a capture launches nothing, and each
+  replay adds what it held, so a kernel's counter counts its runs on the
+  card.
 - ``recording()`` turns spans on for a block and yields a
   :class:`Recording`: the spans closed inside it (a bounded buffer that
   counts what it ``dropped``; ``span_table`` sums them by name, with each
@@ -91,6 +97,7 @@ class _Thread(threading.local):
     def __init__(self):
         self.stack = []        # the open spans, innermost last
         self.request = None    # the last request id opened on this thread
+        self.held = None       # the Counter of held_counts() while one is open
         self.tid = threading.get_native_id()
 
 
@@ -175,7 +182,22 @@ class Recorder:
         return Span(self, name, new_request, attrs)
 
     def count(self, name: str, n: int = 1) -> None:
+        held = self._thread.held
+        if held is not None:
+            held[name] += n
+            return
         self.counts[name] = self.counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def held_counts(self):
+        """Hold the counts this thread makes inside the block (blocks may
+        nest) instead of adding them; yields the Counter that holds them."""
+        local = self._thread
+        outer, local.held = local.held, collections.Counter()
+        try:
+            yield local.held
+        finally:
+            local.held = outer
 
     def counters(self, since=None) -> collections.Counter:
         """Every counter; with ``since`` (an earlier reading), each one's
@@ -215,6 +237,7 @@ RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
 counters = RECORDER.counters
+held_counts = RECORDER.held_counts
 recording = RECORDER.recording
 
 

@@ -24,14 +24,35 @@ promised across versions (2.13 and 2.11, the two the port runs on). The
 JAX package's ``platforms`` (a cross-export) has no counterpart: a CUDA
 artifact is made on the card.
 
+On the card the inference function replays a CUDA graph of the module, one
+per input shape (:class:`CudaGraphs`): the first call at a shape on a
+thread runs the module as it is (and warms up what a capture needs: cuBLAS,
+cuDNN, the jiterator's digamma), the second captures it and replays, every
+later call copies its views into the graph's inputs, replays and clones the
+outputs.
+The host then makes a few launches a request where the module makes
+about thirty, and the card runs the same kernels back to back. The graphs
+engage where every view is on a CUDA device, the module and all its
+submodules are in eval mode, and no stream capture is already open on the
+thread (the function always runs under inference mode); otherwise the
+module runs as it is: on the CPU, in training mode, and in
+``torch.export``, which traces the module and not the function. A graph
+reads the weights where they were at its capture: a served model's
+parameters are updated in place (``load_state_dict``), never given new
+storage, while its function lives.
+
 Spans (``core/logging.py``; recorded only inside ``logging.recording()``):
 ``serve.infer`` is the inference function's call, ``_as_tensor`` included,
-and opens a request; inside it ``InferenceModule.forward`` holds
-``serve.backbone`` (``get_embedding`` and the stack of the private
-embeddings), ``serve.heads`` (the task's evidence: the head operator's
-dispatch and launch) and ``serve.uncertainty`` (aggregation, the Dirichlet
-uncertainties, argmax and probs). ``serve.to_host`` is a root of its own
-with the last request's id and the copies and bytes it brought back.
+and opens a request; inside it ``serve.replay`` holds a graph's copy-in,
+replay and clone, and ``InferenceModule.forward`` holds ``serve.backbone``
+(``get_embedding`` and the stack of the private embeddings),
+``serve.heads`` (the task's evidence: the head operator's dispatch and
+launch) and ``serve.uncertainty`` (aggregation, the Dirichlet
+uncertainties, argmax and probs). On the card the module's three spans open
+only where it runs eagerly or is captured, not at a replay. Each call adds
+one to one counter: ``serve.eager_calls``, ``serve.graph_captures`` or
+``serve.graph_replays``. ``serve.to_host`` is a root of its own with the
+last request's id and the copies and bytes it brought back.
 
 The mesh's ``data`` axis (JAX lines 103-172, 198-210): ``build_inference_fn(
 mesh=)`` runs every rank of the mesh on the same request, each on its rows
@@ -45,6 +66,8 @@ front and the daemon stay single-process, as in the JAX package.
 
 from __future__ import annotations
 
+import collections
+import threading
 from pathlib import Path
 from typing import Sequence, Tuple
 
@@ -53,15 +76,20 @@ import torch
 from torch import nn
 
 from ..ops.dirichlet import dirichlet_uncertainties
-from .logging import span
+from .logging import count, held_counts, span
 
 __all__ = ["build_inference_fn", "InferenceModule", "ServingEngine", "DEFAULT_BUCKETS",
-           "to_host", "export_inference", "load_exported", "HEAD_OP"]
+           "to_host", "export_inference", "load_exported", "HEAD_OP", "CudaGraphs",
+           "GRAPH_SHAPES"]
 
 # the head kernel's operator, as an exported graph names it
 HEAD_OP = "dmf.evidential_heads"
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+# the most input shapes an inference function keeps a CUDA graph of (and
+# the most it remembers having seen once): every default bucket, and room
+GRAPH_SHAPES = 16
 
 
 def to_host(out: dict) -> dict:
@@ -92,6 +120,8 @@ class InferenceModule(nn.Module):
         self.evidences_fn = task.evidences_fn
         self.aggregation = task.aggregation
         self.num_classes = task.num_classes
+        # an inference program; its submodules keep the mode their owners set
+        self.training = False
 
     def forward(self, xs):
         with span("serve.backbone"):
@@ -123,6 +153,119 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.float32)
 
 
+def graph_key(xs) -> tuple:
+    """The key of a call's CUDA graph: each view's shape and dtype, and the
+    device."""
+    return tuple((tuple(x.shape), x.dtype) for x in xs) + (xs[0].device,)
+
+
+class _Graph:
+    """One capture of a module at one input key: static inputs, the graph,
+    its outputs packed into one flat byte buffer (the widest types first, so
+    each output's view of it is aligned), and the counts the capture held
+    (each replay adds them)."""
+
+    def __init__(self, module, xs, stream):
+        self.inputs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                            for x in xs)
+        torch._foreach_copy_(self.inputs, xs)
+        self.graph = torch.cuda.CUDAGraph()
+        with held_counts() as self.counts, torch.cuda.graph(
+                self.graph, stream=stream, capture_error_mode="thread_local"):
+            out = module(self.inputs)
+            packed = sorted(out, key=lambda name: -out[name].element_size())
+            self.out = torch.cat([out[name].reshape(-1).view(torch.uint8) for name in packed])
+        at, offset = {}, 0
+        for name in packed:
+            t = out[name]
+            at[name] = (offset, offset + t.numel() * t.element_size(), t.dtype, t.shape)
+            offset = at[name][1]
+        self.layout = [(name, *at[name]) for name in out]
+
+    def __call__(self, xs) -> dict:
+        with span("serve.replay"):
+            torch._foreach_copy_(self.inputs, xs)
+            self.graph.replay()
+            for name, n in self.counts.items():
+                count(name, n)
+            out = self.out.clone()
+            return {name: out[a:b].view(dtype).view(shape)
+                    for name, a, b, dtype, shape in self.layout}
+
+
+class CudaGraphs:
+    """Runs a module through CUDA graphs, one per input key (:func:`graph_key`),
+    where that is safe, else as it is.
+
+    The first call at a key on a thread runs the module (the capture's
+    warm-up: a thread's first call makes its cuBLAS and cuDNN handles, which
+    a capture cannot), the second on that thread captures it on a side
+    stream and replays; later calls replay, on any thread.
+    Every call returns tensors of its own: a replay's outputs are cloned
+    out of the graph's (one device copy). At most ``GRAPH_SHAPES`` graphs
+    are kept, and as many keys seen once on a thread; the least recently
+    used go first, and a graph's memory pool goes with it. Calls on several
+    threads are safe: a lock holds each capture, and each copy-in, replay
+    and clone, together.
+
+    :meth:`step` is the bookkeeping alone (no card needed): what a call at
+    a key does, ``"eager"``, ``"capture"`` or ``"replay"``; :meth:`keep`
+    stores a captured graph."""
+
+    def __init__(self, module):
+        self.module = module
+        self.graphs = collections.OrderedDict()
+        self.seen = collections.OrderedDict()
+        self.lock = threading.Lock()
+        self.stream = None
+        self._modules = list(module.modules())
+
+    def engages(self, xs) -> bool:
+        """Whether a call on ``xs`` (tensors) goes through a graph: every
+        view on a CUDA device, every module in eval mode, no capture open on
+        the current stream."""
+        return (all(x.is_cuda for x in xs) and not any(m.training for m in self._modules)
+                and not torch.cuda.is_current_stream_capturing())
+
+    def step(self, key) -> str:
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+            return "replay"
+        mine = (key, threading.get_ident())
+        if mine in self.seen:
+            del self.seen[mine]
+            return "capture"
+        self.seen[mine] = None
+        if len(self.seen) > GRAPH_SHAPES:
+            self.seen.popitem(last=False)
+        return "eager"
+
+    def keep(self, key, graph) -> None:
+        self.graphs[key] = graph
+        if len(self.graphs) > GRAPH_SHAPES:
+            self.graphs.popitem(last=False)
+
+    def __call__(self, xs) -> dict:
+        if not self.engages(xs):
+            count("serve.eager_calls")
+            return self.module(xs)
+        key = graph_key(xs)
+        with self.lock:
+            what = self.step(key)
+            if what == "replay":
+                count("serve.graph_replays")
+                return self.graphs[key](xs)
+            if what == "capture":
+                count("serve.graph_captures")
+                if self.stream is None:
+                    self.stream = torch.cuda.Stream(xs[0].device)
+                graph = _Graph(self.module, xs, self.stream)
+                self.keep(key, graph)
+                return graph(xs)
+        count("serve.eager_calls")
+        return self.module(xs)
+
+
 def build_inference_fn(task, *, backbone=None, mesh=None):
     """``fn(xs) -> dict`` from raw views to predictions and uncertainties.
 
@@ -137,9 +280,11 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
     ``xs`` are per-view (B, S_i) arrays or tensors. The outputs are tensors
     on the task's device: ``pred`` (B,), ``probs`` (B, C) the Dirichlet mean
     alpha/S, ``evidence`` (B, V, C) per view, ``fused_evidence`` (B, C),
-    ``epistemic`` (B,) = K/S and ``aleatoric`` (B,). The function runs
-    ``fn.module``, an :class:`InferenceModule`, under inference mode;
-    :func:`export_inference` exports that module.
+    ``epistemic`` (B,) = K/S and ``aleatoric`` (B,), each the caller's own
+    (a later call does not overwrite them). The function runs ``fn.module``,
+    an :class:`InferenceModule`, under inference mode, on the card through
+    its CUDA graphs (``fn.graphs``, a :class:`CudaGraphs`; deleting the
+    function frees them); :func:`export_inference` exports that module.
 
     mesh
         A ``parallel.mesh.Mesh``: every rank calls ``fn`` with the same
@@ -149,17 +294,19 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
         group. The weights are each rank's own copy, whole and the same on
         every rank: a mesh with a ``model`` axis serves them whole, as the
         JAX package replicates them, its model group's ranks repeating one
-        another's rows.
+        another's rows. Each rank runs its rows through its own graphs; the
+        gather runs outside them.
     """
     module = InferenceModule(task, backbone)
     device = next(task.model.parameters()).device
+    graphs = CudaGraphs(module)
 
     @torch.inference_mode()
     def infer(xs: Sequence):
         with span("serve.infer", new_request=True):
-            return module(tuple(_as_tensor(x, device) for x in xs))
+            return graphs(tuple(_as_tensor(x, device) for x in xs))
 
-    infer.module = module
+    infer.module, infer.graphs = module, graphs
     if mesh is None:
         return infer
 

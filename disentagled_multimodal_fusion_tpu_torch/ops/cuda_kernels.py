@@ -32,7 +32,9 @@ bf16 mode input never reaches the f32 kernel. Under ``torch.func.vmap``
 folds the vmapped axis into the heads, so S seeds of V heads are one launch
 at S*V heads. The counters ``kernels.evidential_heads`` and
 ``kernels.evidential_heads_bf16`` (``core/logging.py``) count the launches
-of each build (plain ints, exact while one thread at a time launches).
+of each build (plain ints, exact while one thread at a time launches); a
+launch captured into a CUDA graph counts at each replay, not at the capture
+(``core/logging.py``'s ``held_counts``, ``core/serve.py``).
 """
 
 from __future__ import annotations

@@ -8,7 +8,11 @@ order, and the saturated evidence reaches 2.2e4, so the relative error of
 the float32 sums sets these bounds.
 
 Also here: bucketing, the daemon and the HTTP front of the port, its runner,
-its config and data copies, and that it never imports JAX.
+its config and data copies, and that it never imports JAX; and the CPU side
+of the inference function's CUDA graphs (``core/serve.py``: ``CudaGraphs``):
+they do not engage on the CPU, under grad or in training mode, their key
+and bounded cache, the export of a function that has them, and outputs that
+are each call's own (the graphs on the card: ``test_torch_serve_graph.py``).
 """
 
 import json
@@ -32,6 +36,7 @@ from disentagled_multimodal_fusion_tpu_torch.core import serve as tserve
 from disentagled_multimodal_fusion_tpu_torch.core import tasks as ttasks
 from disentagled_multimodal_fusion_tpu_torch.core.daemon import ServingDaemon
 from disentagled_multimodal_fusion_tpu_torch.core.http_front import start_http_server
+from disentagled_multimodal_fusion_tpu_torch.core.logging import counters
 from disentagled_multimodal_fusion_tpu_torch.data.multiview import DATASET_REGISTRY
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
@@ -109,6 +114,129 @@ def test_inference_matches_jax_at_full_handwritten_width():
     xs = tuple(v[:64] for v in views)
     jinfer, tinfer = _pair("dmvae_cml", **HANDWRITTEN)
     _assert_outputs_match(tinfer(xs), jinfer(tuple(jnp.asarray(x) for x in xs)))
+
+
+GRAPH_CALLS = ("serve.eager_calls", "serve.graph_captures", "serve.graph_replays")
+
+
+def _port_infer():
+    """The port's dmvae_cml inference function at SMALL's widths, on the CPU."""
+    backbone = ttasks.build_dmvae_task(output_dim=SMALL["dims"], hidden_dim=SMALL["hidden"],
+                                       embed_dim=SMALL["embed"], fused_modalities=True,
+                                       device="cpu")
+    task = ttasks.build_probe_task(num_modalities=len(SMALL["dims"]),
+                                   num_classes=SMALL["num_classes"], input_dim=SMALL["embed"],
+                                   hidden_dim=SMALL["probe_hidden"], aggregation="cml",
+                                   device="cpu")
+    return tserve.build_inference_fn(task, backbone=backbone)
+
+
+@pytest.mark.parametrize("how", ["cpu", "grad", "training"])
+def test_graphs_do_not_engage_on_the_cpu_under_grad_or_in_training(how):
+    infer, xs = _port_infer(), _views(8, SMALL["dims"])
+    if how == "training":
+        infer.module.backbone.train()
+    since = counters()
+    with torch.enable_grad() if how == "grad" else torch.no_grad():
+        outs = [infer(xs) for _ in range(4)]
+    grew = counters(since)
+    assert {k: grew[k] for k in GRAPH_CALLS} == {
+        "serve.eager_calls": 4, "serve.graph_captures": 0, "serve.graph_replays": 0}
+    assert not infer.graphs.graphs and not infer.graphs.seen
+    assert not any(t.requires_grad for out in outs for t in out.values())
+
+
+class _OnCard:
+    """A stand-in for a view on the card: what ``CudaGraphs.engages`` reads."""
+
+    is_cuda = True
+
+
+def test_graphs_engage_on_the_card_only_in_eval_mode_outside_a_capture(monkeypatch):
+    infer = _port_infer()
+    graphs, card = infer.graphs, (_OnCard(), _OnCard(), _OnCard())
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    assert not infer.module.training
+    assert graphs.engages(card)
+    assert not graphs.engages((_OnCard(), torch.zeros(2, 3), _OnCard()))
+    for sub in (infer.module, infer.module.backbone, infer.module.model):
+        sub.train()
+        assert not graphs.engages(card), type(sub).__name__
+        infer.module.eval()
+    assert graphs.engages(card)
+    capturing[0] = True
+    assert not graphs.engages(card)
+
+
+def test_graph_key_tells_shapes_dtypes_and_devices_apart():
+    a = (torch.zeros(4, 3), torch.zeros(4, 5))
+    assert tserve.graph_key(a) == tserve.graph_key((torch.ones(4, 3), torch.ones(4, 5)))
+    assert tserve.graph_key(a) == (((4, 3), torch.float32), ((4, 5), torch.float32),
+                                   torch.device("cpu"))
+    for other in [(torch.zeros(8, 3), torch.zeros(8, 5)), (torch.zeros(4, 3),),
+                  (torch.zeros(4, 3), torch.zeros(4, 5, dtype=torch.float64)),
+                  (torch.zeros(4, 5), torch.zeros(4, 3))]:
+        assert tserve.graph_key(other) != tserve.graph_key(a)
+
+
+def test_the_graph_cache_captures_on_a_second_call_and_evicts_the_least_recent(monkeypatch):
+    assert tserve.GRAPH_SHAPES >= len(tserve.DEFAULT_BUCKETS)
+    monkeypatch.setattr(tserve, "GRAPH_SHAPES", 3)
+    cache = tserve.CudaGraphs(torch.nn.Linear(2, 2))
+
+    def call(key):
+        what = cache.step(key)
+        if what == "capture":
+            cache.keep(key, f"graph {key}")
+        return what
+
+    assert [call(k) for k in "aab"] == ["eager", "capture", "eager"]
+    assert [call(k) for k in "aba"] == ["replay", "capture", "replay"]
+    assert list(cache.graphs) == ["b", "a"]            # most recent last
+    assert [call(k) for k in "cc"] == ["eager", "capture"]
+    assert [call(k) for k in "dd"] == ["eager", "capture"]
+    assert list(cache.graphs) == ["a", "c", "d"]       # b, least recent, went
+    assert [call(k) for k in "bb"] == ["eager", "capture"]
+    assert list(cache.graphs) == ["c", "d", "b"]
+    # keys seen once are bounded too, and do not push graphs out
+    assert [call(k) for k in "wxyz"] == ["eager"] * 4
+    assert [k for k, _ in cache.seen] == ["x", "y", "z"]
+    assert list(cache.graphs) == ["c", "d", "b"]
+    assert call("w") == "eager"
+    # a capture waits for a second call on one thread (a thread's first call
+    # makes its library handles); a graph replays on any thread
+    other = []
+    worker = threading.Thread(target=lambda: other.extend(call(k) for k in "xxb"))
+    worker.start()
+    worker.join(10)
+    assert not worker.is_alive()
+    assert other == ["eager", "capture", "replay"]
+    assert call("w") == "capture"
+
+
+def test_export_of_a_function_with_graphs_holds_one_head_operator_call(tmp_path):
+    infer, xs = _port_infer(), _views(8, SMALL["dims"])
+    for _ in range(3):
+        infer(xs)
+    exported = tserve.export_inference(infer, xs, tmp_path / "b8.pt2")
+    assert tserve.head_op_calls(exported) == 1
+    assert not infer.graphs.graphs
+    np.testing.assert_array_equal(
+        tserve.to_host(tserve.load_exported(tmp_path / "b8.pt2")(xs))["pred"],
+        tserve.to_host(infer(xs))["pred"])
+
+
+def test_the_outputs_of_two_calls_are_each_their_own():
+    infer = _port_infer()
+    a, b = _views(8, SMALL["dims"], seed=1), _views(8, SMALL["dims"], seed=2)
+    want = tserve.to_host(infer(a))
+    first, second = infer(a), infer(b)
+    for k in first:
+        assert first[k] is not second[k]
+        assert first[k].data_ptr() != second[k].data_ptr()
+        np.testing.assert_array_equal(first[k].numpy(), want[k], err_msg=k)
+    assert not np.array_equal(first["probs"].numpy(), second["probs"].numpy())
 
 
 @pytest.fixture(scope="module")
