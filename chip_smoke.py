@@ -5,7 +5,7 @@
 Phases, each of which fails the run (nonzero exit) rather than being skipped:
 
 1. the card: name, count and ``nvidia-smi`` name and power limit;
-2. the build of both kernels from ``csrc/`` with nvcc (one process each,
+2. the build of the kernels from ``csrc/`` with nvcc (one process each,
    started together), its time and ptxas report (no stack frame and no
    spills in any kernel), and one summary line per kernel (registers,
    static shared memory, stack frame, spills);
@@ -291,9 +291,22 @@ Phases, each of which fails the run (nonzero exit) rather than being skipped:
     each bound widened by twice how far the unfused fit with float64
     weights lies from the float32 one (``UNFUSED_SPREAD``: these fits turn
     chaotic); the head kernel once per validation epoch of each stacked
-    fit, the unfused fits no kernel; ms per epoch of each fit.
+    fit, the unfused fits no kernel; ms per epoch of each fit;
+30. the expert kernel (``csrc/moe_experts.cu``, DeepSeek-V2-Lite's text
+    tower) at the benchmark's request, 128 rows of 128 tokens (16 384
+    tokens, 98 304 routed rows, about 1536 an expert) at the published
+    widths (64 experts, hidden 2048, width 1408, top-6) in bf16: both
+    launches against ``grouped_product_plain`` on the same inputs (the
+    gated rows within one bf16 step, rtol 2^-7; the weighted rows rtol
+    1e-4 / atol 1e-6), each launch's profiler device time beside its
+    bound (the larger of its FLOPs over the bf16 peak and its bytes over
+    the memory rate) and the plain version's, and a 128-row LUMA request
+    with the whole tower served through ``build_inference_fn``: after the
+    eager call and the capture, a replay counts ``kernels.moe_experts``
+    exactly 2 x 26 times and ``tower.tokens`` 16 384. It runs after phase
+    4, alone, and frees the tower before the groups start.
 
-Each phase logs its time. Phases 3-7 run first, alone; then phases 11-13
+Each phase logs its time. Phases 3-7 and 30 run first, alone; then phases 11-13
 and 26, 14-17 and 21, 18-20, 22-24, 28 (a), and 29 run as six groups,
 each in a child process of this script (``--group``), beside phases 8-10
 and 25 in this one; phases 27 and 28 (b) run last, alone. Each child
@@ -316,7 +329,7 @@ comparisons N times from other weights and draws and prints their
 readings (``luma_state_trials``).
 
 It prints a JSON line ``{"kernels": [...]}`` (the head kernel, its bf16
-build and the probe epoch) and, last,
+build, the probe epoch and the expert kernel) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
 """
@@ -4116,6 +4129,136 @@ def _numbers(row):
     return out
 
 
+# ------------------------------------------------------------------ phase 30
+# the benchmark's luma_dsv2lite request: 128 rows of 128 tokens through
+# DeepSeek-V2-Lite's routed experts (64 of width 1408 over hidden 2048, top-6)
+MOE_TOKENS, MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH, MOE_TOP_K = 128 * 128, 64, 2048, 1408, 6
+MOE_LAYERS = 26
+
+
+def moe_launch_bound(t, k, e, h, width, gated):
+    """(ms, 'operations' | 'bytes') of one launch over t k routed rows:
+    gated, the gate and up products (2 t k 2 h width FLOPs) from e experts'
+    two weights, the t token rows and the t k bf16 rows written; else the
+    down product (2 t k width h) from the experts' down weights, the bf16
+    rows, their f32 weights and the f32 rows written."""
+    m = t * k
+    if gated:
+        flops = 2.0 * m * 2 * h * width
+        nbytes = 2.0 * 2 * e * h * width + 2.0 * t * h + 2.0 * m * width
+    else:
+        flops = 2.0 * m * width * h
+        nbytes = 2.0 * e * h * width + 2.0 * m * width + 4.0 * m + 4.0 * m * h
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_moe_experts(card):
+    """Phase 30: the expert kernel against its plain version at the
+    benchmark's request, its times, and its launches in a served request."""
+    import gc
+
+    from disentagled_multimodal_fusion_tpu_torch.core import serve as tserve
+    from disentagled_multimodal_fusion_tpu_torch.core import tasks as ttasks
+    from disentagled_multimodal_fusion_tpu_torch.ops import moe_experts as tmoe
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    t, e, h, width, k = MOE_TOKENS, MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH, MOE_TOP_K
+
+    def bf16(*shape, std=0.02):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16).normal_(0, std, generator=g)
+
+    x, w_gate, w_up, w_down = bf16(t, h, std=1.0), bf16(e, width, h), bf16(e, width, h), bf16(
+        e, h, width)
+    weights, experts = tmoe.route(x, bf16(e, h), k)
+    d = tmoe.dispatch(experts, e)
+    scale = weights.reshape(-1)[d.order].contiguous()
+    gated = torch.empty((t * k, width), device=dev, dtype=torch.bfloat16)
+    down = torch.empty((t * k, h), device=dev)
+    gated_args = (x, w_gate, w_up, d, gated, d.token)
+    down_args = (gated, w_down, None, d, down, None, d.order, scale)
+    before = counters()
+    h_kernel = tmoe.grouped_product(*gated_args).clone()
+    h_plain = tmoe.grouped_product_plain(x, w_gate, w_up, d, torch.empty_like(gated),
+                                         rows=d.token)
+    y_kernel = tmoe.grouped_product(*down_args).clone()
+    y_plain = tmoe.grouped_product_plain(h_kernel, w_down, None, d, torch.empty_like(down),
+                                         dest=d.order, scale=scale)
+    torch.cuda.synchronize()
+    if counters(before)["kernels.moe_experts"] != 2:
+        raise AssertionError("moe_experts: two launches did not count 2")
+    # both sum the same bf16 products in float32 in other orders and round
+    # silu(g) u to bf16 once: at most one bf16 step apart (2^-8 to 2^-7)
+    gated_err = assert_close(h_kernel.float(), h_plain.float(), "moe_experts gated",
+                             rtol=2 ** -7, atol=1e-5)
+    down_err = assert_close(y_kernel, y_plain, "moe_experts down", rtol=1e-4, atol=1e-6)
+    del h_plain, y_plain
+    name = tmoe.EXPERT_KERNEL
+    row = {"tokens": t, "routed_rows": t * k, "max_abs_err": max(gated_err[0], down_err[0])}
+    for label, fn, args, is_gated in (
+            ("gated", tmoe.grouped_product, gated_args, True),
+            ("down", tmoe.grouped_product, down_args, False)):
+        ms = device_ms(fn, args, kernel=name, n=20)
+        plain = (lambda: tmoe.grouped_product_plain(x, w_gate, w_up, d, torch.empty_like(gated),
+                                                     rows=d.token)) if is_gated else (
+            lambda: tmoe.grouped_product_plain(h_kernel, w_down, None, d,
+                                               torch.empty_like(down), dest=d.order,
+                                               scale=scale))
+        plain_ms = event_ms(plain, (), iters=3, warmup=1)
+        bound_ms, bound_by = moe_launch_bound(t, k, e, h, width, is_gated)
+        row[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"moe_experts {label} at {t} tokens: {fmt_ms(ms)} device, plain {plain_ms:.5f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    layer_ms = (row["gated"]["ms"] or 0.0) + (row["down"]["ms"] or 0.0)
+    layer_bound = row["gated"]["bound_ms"] + row["down"]["bound_ms"]
+    row.update(ms=layer_ms, bound_ms=layer_bound, plain_ms=row["gated"]["plain_ms"]
+               + row["down"]["plain_ms"], request_ms=MOE_LAYERS * layer_ms,
+               request_bound_ms=MOE_LAYERS * layer_bound, library_ms=None)
+    log(f"moe_experts a MoE layer: {layer_ms:.5f} ms, bound {layer_bound:.6f} ms; a request "
+        f"({MOE_LAYERS} layers): {MOE_LAYERS * layer_ms:.4f} ms, bound "
+        f"{MOE_LAYERS * layer_bound:.4f} ms ({100 * layer_bound / layer_ms:.1f} %) [{card}]")
+    del x, w_gate, w_up, w_down, gated, down, h_kernel, y_kernel, d, scale, gated_args, down_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a served request of the benchmark's cell: LUMA with the whole tower
+    specs = (("AudioEncoder", dict(output_dim=200, dropout=0.1, input_dim=40, use_2d=False)),
+             ("TowerTextEncoder", dict(output_dim=200, dropout=0.1)),
+             ("ImageEncoder", dict(output_dim=200, dropout=0.1)))
+    backbone = ttasks.build_dmvae_task(output_dim=[200] * 3, hidden_dim=512, embed_dim=200,
+                                       fused_modalities=True, feature_encoders=specs, device=dev)
+    task = ttasks.build_probe_task(num_modalities=3, num_classes=42, input_dim=200,
+                                   hidden_dim=(128,), aggregation="cml", seed=1, device=dev)
+    infer = tserve.build_inference_fn(task, backbone=backbone)
+    rows = t // 128
+    xs = (torch.randn(rows, 40, generator=g, device=dev),
+          torch.randint(0, 102400, (rows, 128), generator=g, device=dev),
+          torch.randn(rows, 3072, generator=g, device=dev))
+    try:
+        eager = {key: v.clone() for key, v in infer(xs).items()}
+        infer(xs)  # the capture
+        before = counters()
+        replayed = infer(xs)
+        torch.cuda.synchronize()
+        grown = counters(before)
+        for key in eager:
+            if not torch.equal(replayed[key], eager[key]):
+                raise AssertionError(f"moe_experts: the replayed {key} differs from the eager")
+        want = {"serve.graph_replays": 1, "kernels.moe_experts": 2 * MOE_LAYERS,
+                "tower.tokens": t}
+        got = {key: grown[key] for key in want}
+        if got != want:
+            raise AssertionError(f"moe_experts: a served request counted {got}, not {want}")
+        row["launches_by_path"] = {"served_request": got["kernels.moe_experts"]}
+        log(f"moe_experts: a replayed {rows}-row request counted {got} [{card}]")
+    finally:
+        del infer, task, backbone
+        gc.collect()
+        torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------------------ groups
 # phases 11-24, 26, 28 (a) and 29 run in six child processes of this script
 # (``--group NAME OUT``), beside phases 8-10 and 25 in this one: each path
@@ -4297,7 +4440,9 @@ def main() -> int:
     log(f"device: {kind}, count {count}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
 
-    infos = cuda_build.build([ck.KERNEL_SOURCE, pm.KERNEL_SOURCE])
+    from disentagled_multimodal_fusion_tpu_torch.ops import moe_experts as tmoe
+
+    infos = cuda_build.build([ck.KERNEL_SOURCE, pm.KERNEL_SOURCE, tmoe.KERNEL_SOURCE])
     for name, info in infos.items():
         log(f"build {name}: {info.seconds:.2f} s")
         for line in info.log.splitlines():
@@ -4338,6 +4483,7 @@ def main() -> int:
     epoch_timing = {k: epoch_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms", "backward_ms", "backward_bound_ms",
                                                  "backward_bound_by", "backward_library_ms")}
+    moe_row = timed("phase 30 expert kernel", phase_moe_experts, card)
     serve_launches, serve_shapes = timed("phase 5 serving", phase_serving, ck, card)
     timed("phase 5 request profile", phase_request_profile, card)
     timed("phases 6-7 daemon and HTTP", phase_daemon_and_http, card)
@@ -4449,6 +4595,13 @@ def main() -> int:
         "max_abs_err": epoch_abs_err,
         **epoch_timing,
         "times_by_shape": epoch_times_by_shape,
+    }, {
+        "name": "moe_experts",
+        "route": "cuda",
+        "source": "disentagled_multimodal_fusion_tpu_torch/csrc/moe_experts.cu",
+        "replaces": None,
+        "launches": moe_row["launches_by_path"]["served_request"],
+        **moe_row,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -18,15 +18,19 @@ Spans and counters (the JAX package has no counterpart):
   root, the last id opened on its thread. Off by default: then ``span``
   tests one flag and hands back a shared no-op context manager (no clock
   read, no allocation). The scoring path's spans are ``serve.*``
-  (``core/serve.py``), the kernel libraries' ``kernels.build`` and
+  (``core/serve.py``; ``serve.text_tower`` in ``layers.TowerTextEncoder``),
+  the text tower's ``tower.attention`` and ``tower.moe``
+  (``models/text_tower.py``), the kernel libraries' ``kernels.build`` and
   ``kernels.load`` (``ops/cuda_build.py``).
 - ``count(name, n=1)`` adds to a counter, always (a plain integer add, exact
   while one thread at a time counts); ``counters(since)`` reads them. The
   kernels' launches are ``kernels.evidential_heads``,
-  ``kernels.evidential_heads_bf16`` and ``kernels.probe_epoch``; the
-  scoring path's calls ``serve.eager_calls``, ``serve.graph_captures`` and
-  ``serve.graph_replays`` (``core/serve.py``). ``held_counts()`` holds the
-  counts a thread makes inside a block instead of adding them: a CUDA
+  ``kernels.evidential_heads_bf16``, ``kernels.probe_epoch`` and
+  ``kernels.moe_experts`` (``ops/moe_experts.py``); the text tower's tokens
+  ``tower.tokens``; the scoring path's calls ``serve.eager_calls``,
+  ``serve.graph_captures`` and ``serve.graph_replays`` (``core/serve.py``).
+  ``held_counts()`` holds the counts a thread makes inside a block instead
+  of adding them: a CUDA
   graph's capture runs under it, since a capture launches nothing, and each
   replay adds what it held, so a kernel's counter counts its runs on the
   card.

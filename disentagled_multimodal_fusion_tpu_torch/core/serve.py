@@ -109,9 +109,9 @@ class InferenceModule(nn.Module):
     """Raw views to predictions and uncertainties, as one module: the
     backbone's ``get_embedding`` (when there is one), the task's evidence,
     its aggregation and the six outputs. ``forward(xs)`` takes the tuple of
-    per-view (B, S_i) float32 tensors. The task's model and the backbone
-    are its submodules, so their weights are its own (and an exported
-    program's)."""
+    per-view (B, S_i) tensors, float32, or int64 token ids for a text
+    tower. The task's model and the backbone are its submodules, so their
+    weights are its own (and an exported program's)."""
 
     def __init__(self, task, backbone=None):
         super().__init__()
@@ -147,10 +147,14 @@ class InferenceModule(nn.Module):
 
 
 def _as_tensor(x, device) -> torch.Tensor:
-    """A view as a float32 tensor on ``device``."""
+    """A view as a tensor on ``device``: integer views (token ids) as int64,
+    every other view as float32."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x, dtype=np.float32))
-    return x.to(device=device, dtype=torch.float32)
+        x = np.asarray(x)
+        integer = np.issubdtype(x.dtype, np.integer)
+        x = torch.from_numpy(np.array(x, dtype=np.int64 if integer else np.float32))
+    integer = not (x.is_floating_point() or x.is_complex() or x.dtype == torch.bool)
+    return x.to(device=device, dtype=torch.int64 if integer else torch.float32)
 
 
 def graph_key(xs) -> tuple:
@@ -277,7 +281,8 @@ def build_inference_fn(task, *, backbone=None, mesh=None):
         into (zc, zp) for a probe; otherwise the task takes the views
         themselves (late fusion).
 
-    ``xs`` are per-view (B, S_i) arrays or tensors. The outputs are tensors
+    ``xs`` are per-view (B, S_i) arrays or tensors (an integer view, a text
+    tower's token ids, stays integer: int64). The outputs are tensors
     on the task's device: ``pred`` (B,), ``probs`` (B, C) the Dirichlet mean
     alpha/S, ``evidence`` (B, V, C) per view, ``fused_evidence`` (B, C),
     ``epistemic`` (B,) = K/S and ``aleatoric`` (B,), each the caller's own
@@ -391,8 +396,17 @@ def export_inference(infer_fn, xs_example: Sequence, path=None):
     hold exactly one call of the head kernel's operator (``HEAD_OP``), else
     this raises: every served model's heads go through the kernel, and an
     artifact that decomposed them would not be the program that is served.
+    A module holding a text tower (``models/text_tower.py``; its
+    ``exportable`` is False) raises ``NotImplementedError``.
     """
     module = infer_fn.module
+    refused = [type(m).__name__ for m in module.modules()
+               if getattr(m, "exportable", True) is False]
+    if refused:
+        raise NotImplementedError(f"export_inference: {', '.join(sorted(set(refused)))} cannot "
+                                  f"be exported (its expert kernel is a ctypes launch, not an "
+                                  f"operator that torch.export traces); serve it through "
+                                  f"build_inference_fn")
     device = next(module.parameters()).device
     xs = tuple(_as_tensor(x, device) for x in xs_example)
     grads = [(p, p.requires_grad) for p in module.parameters()]

@@ -4,8 +4,9 @@ validation functions and its optimizer.
 Counterpart of ``disentagled_multimodal_fusion_tpu/core/tasks.py``.
 Parameters live in the modules, drawn from ``torch.Generator(seed)`` on the
 CPU and then moved to the device, so one seed gives the same weights
-everywhere. Optimizer settings are the reference's (JAX docstring, lines
-8-18):
+everywhere; a feature encoder made on its device (``TowerTextEncoder``,
+15.5 B parameters) is handed the device and draws there instead.
+Optimizer settings are the reference's (JAX docstring, lines 8-18):
 
 * DMVAE: Adam + cosine (T_max = num_epochs, eta_min 0);
 * DisentangledSSL: Adam + cosine (T_max = epochs, eta_min 0);
@@ -70,7 +71,7 @@ from ..models.baselines import FusedLateFusion, IntermediateFusion, LateFusion
 from ..models.dmvae import DMVAE
 from ..models.disentangledssl import DisentangledSSL
 from ..models.dmvae_fused import FusedDMVAE
-from ..models.layers import norm_dtype
+from ..models.layers import norm_dtype, placed
 from ..models.probes import (
     DisentangledEvidentialProbe,
     EvidentialProbe,
@@ -98,8 +99,12 @@ class EvidentialTask(NamedTuple):
 
 
 def _build(cls, seed: int, device, **kwargs) -> nn.Module:
+    device = resolve_device(device)
+    if kwargs.get("feature_encoders"):
+        # an encoder made on its device (the text tower) is handed it
+        kwargs["feature_encoders"] = placed(kwargs["feature_encoders"], device)
     generator = torch.Generator().manual_seed(seed)
-    return cls(generator=generator, **kwargs).to(resolve_device(device)).eval()
+    return cls(generator=generator, **kwargs).to(device).eval()
 
 
 def _acc(evidence_a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

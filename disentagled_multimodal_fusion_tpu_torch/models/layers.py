@@ -13,11 +13,13 @@ keep-masks are inputs (one boolean mask per hidden layer), applied as flax's
 ``Dropout`` does: ``where(mask, h / keep, 0)``.
 
 The encoders (``ImageEncoder``, ``AudioEncoder``, ``TextEncoder``; JAX lines
-152-264) run in NCHW; ``ImageEncoder`` permutes its (B, 128, 4, 4) map to
-NHWC before flattening, so its 2048 -> 512 kernel has the JAX row order. An
-encoder trains when it is given its keep-masks (``drop_shapes``; an empty
-list without dropout) and evaluates without them. Channel dropout draws one
-mask per (row, channel), (B, C, 1, 1), broadcast over H and W.
+152-264; and ``TowerTextEncoder``, the port's own, a DeepSeek-V2 decoder
+over token ids, ``models/text_tower.py``) run in NCHW; ``ImageEncoder``
+permutes its (B, 128, 4, 4) map to NHWC before flattening, so its 2048 ->
+512 kernel has the JAX row order. An encoder trains when it is given its
+keep-masks (``drop_shapes``; an empty list without dropout) and evaluates
+without them. Channel dropout draws one mask per (row, channel), (B, C, 1,
+1), broadcast over H and W.
 
 ``batch_norm`` is flax's ``BatchNorm`` (flax 0.12.3 defaults) as a function
 of (input, statistics) -> (output, new statistics): in training it
@@ -69,10 +71,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.logging import span
 from ..ops.evidence import evidence_activation
 from ..parallel.distributed import (all_reduce, current_row_split, from_model, gather_from_model,
                                     scatter_to_model, to_model)
 from ..parallel.mesh import current_model_split
+from .text_tower import DEEPSEEK_V2_LITE, Tower, draw_tower
 
 
 def norm_dtype(dtype) -> Optional[torch.dtype]:
@@ -446,8 +450,53 @@ class TextEncoder(_Encoder):
                            self.keep)
 
 
+class TowerTextEncoder(_Encoder):
+    """Token ids (B, S), integer -> (B, output_dim): the DeepSeek-V2 decoder
+    ``config`` (the published ``config.json`` keys; DeepSeek-V2-Lite's by
+    default) mean-pooled, then hidden -> 256 -> 256 -> output_dim as
+    ``TextEncoder`` (``models/text_tower.py``). The tower is made and drawn
+    on ``device`` in ``dtype`` and frozen; the head is drawn from
+    ``generator`` in float32 and moves with the model."""
+
+    # core.tasks hands it the model's device, so the tower is made there
+    builds_on_device = True
+    # core.serve.export_inference refuses a module that holds one
+    exportable = False
+
+    def __init__(self, generator: torch.Generator, config: Optional[dict] = None,
+                 output_dim: int = 200, dropout: float = 0.1, dtype="bfloat16", device=None):
+        super().__init__()
+        cfg = dict(config or DEEPSEEK_V2_LITE)
+        self.keep = 1.0 - dropout
+        self.tower = Tower(cfg, norm_dtype(dtype) or torch.float32, torch.device(device or "cpu"))
+        draw_tower(self.tower, generator, cfg.get("initializer_range", 0.02))
+        widths = (cfg["hidden_size"], 256, 256, output_dim)
+        self.layers = nn.ModuleList(TorchLinear(a, b, generator, "torch_default")
+                                    for a, b in zip(widths[:-1], widths[1:]))
+
+    def _drop_shapes(self, rows: int):
+        return [(rows, 256), (rows, 256)]
+
+    def forward(self, x, drop_masks=None):
+        if x.is_floating_point():
+            raise TypeError(f"TowerTextEncoder takes integer token ids, not {x.dtype}")
+        with span("serve.text_tower"):
+            pooled = self.tower(x)
+        return dense_stack(pooled, self.layers, drop_masks, self.keep)
+
+
 ENCODER_REGISTRY = {"ImageEncoder": ImageEncoder, "AudioEncoder": AudioEncoder,
-                    "TextEncoder": TextEncoder}
+                    "TextEncoder": TextEncoder, "TowerTextEncoder": TowerTextEncoder}
+
+
+def placed(specs, device):
+    """``specs`` with ``device`` given to each encoder that is made on its
+    device (``builds_on_device``) and names none."""
+    if not specs:
+        return specs
+    return tuple((name, dict(kw, device=kw.get("device") or device)
+                  if getattr(ENCODER_REGISTRY[name], "builds_on_device", False) else kw)
+                 for name, kw in specs)
 
 
 def build_encoders(specs, generator: torch.Generator) -> Optional[nn.ModuleList]:
